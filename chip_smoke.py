@@ -1,0 +1,391 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``fsrl_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass:
+
+0. build: compile the CUDA kernels from ``fsrl_torch/csrc`` with ``nvcc``
+   for ``sm_90a`` (ptxas' register report is printed);
+1. train: PPO-Lagrangian through the agent API on SafetyCarCircle-v0 at the
+   benchmark width (4096 envs x 64 steps, hidden (128, 128), K = 2 value
+   channels, repeat 4 x 8 minibatches, bf16) for 3 iterations plus the
+   episode-exact test; the kernel launch counters are zeroed just before and
+   read just after, and both kernels must have run; then 3 more iterations
+   are timed;
+2. update parity: one small f32 ``PPOLag.update`` on the card against the
+   same update on the CPU (plain versions);
+3. K1: the GAE kernel against its plain version at (64, 4096, 2);
+4. K2: the fused PPO-Lag grad kernel against its plain version at 32768 rows,
+   D = 9, A = 2, H = 128, K = 2 and K = 3 in bf16 and K = 2 in f32, half the
+   rows with ratio == 1 exactly;
+5. summary: one JSON line of kernels, the card's name and power limit, and
+   the result line ``{"ok": true, "device": {...}}``.
+
+Exits non-zero, printing no result, when CUDA is unavailable, when the
+``fsrl_torch`` sources are not beside the script, or when any phase fails.
+Kernel times are medians of 20 CUDA-event timings, each of 10 calls
+replayed from a CUDA graph after warm-up, with the inputs resident in L2.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Published H100 SXM peaks (NVIDIA data sheet), for the bound of each kernel.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def time_ms(fn, reps: int = 20, inner: int = 10) -> float:
+    """Median device time of one call of ``fn``, in ms. The calls are
+    captured ``inner`` at a time into a CUDA graph, so host overhead (the
+    Python wrapper) is not timed."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def phase_build():
+    from fsrl_torch.ops import kernels
+    t0 = time.time()
+    so = kernels.build(verbose=True)
+    kernels.library()
+    print(f"[build] {so.name} in {time.time() - t0:.1f} s", flush=True)
+
+
+def phase_train():
+    import torch
+    from fsrl_torch.agent import PPOLagAgent
+    from fsrl_torch.ops import kernels
+
+    N, T, iters = 4096, 64, 3
+    agent = PPOLagAgent("SafetyCarCircle-v0", cost_limit=10.0, repeat=4,
+                        n_minibatches=8, compute_dtype=torch.bfloat16)
+    if not agent.algo.use_grad_kernel:
+        fail("the benchmark config is outside the fused grad kernel's "
+             "envelope")
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    info = agent.learn(epochs=1, step_per_epoch=iters * N * T, n_envs=N,
+                       steps_per_collect=T, episode_per_test=10)
+    torch.cuda.synchronize()
+    learn_s = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    metrics = agent.trainer.last_metrics
+    print(f"[train] learn(3 iterations + test) {learn_s:.2f} s; info {info}",
+          flush=True)
+    print(f"[train] last metrics {metrics}", flush=True)
+    print(f"[train] launches {launches}", flush=True)
+    if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"non-finite or missing losses: {metrics}")
+    if launches.get("gae", 0) < iters:
+        fail(f"GAE kernel launched {launches.get('gae', 0)} < {iters} times")
+    if launches.get("fused_ppo_grad", 0) < iters * 32:
+        fail(f"grad kernel launched {launches.get('fused_ppo_grad', 0)} < "
+             f"{iters * 32} times")
+
+    # steady-state iteration time, outside the counted run
+    tr = agent.trainer
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.time()
+        tr._run_iter()
+        torch.cuda.synchronize()
+        times.append(time.time() - t)
+    ms = 1e3 * statistics.median(times)
+    print(f"[train] iteration {ms:.2f} ms (median of 3: "
+          f"{[round(1e3 * x, 2) for x in times]}), "
+          f"{N * T / (ms / 1e3):.0f} env-steps/s", flush=True)
+    phase_breakdown(tr)
+    return launches
+
+
+def phase_breakdown(tr):
+    """Host-clock time of the iteration's two halves (collect; process +
+    grad steps) and the device's busy share of one iteration from
+    ``torch.profiler``."""
+    import torch
+    from fsrl_torch.algos.common import process_rollout
+    algo = tr.algo
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.time() - t)
+
+    res, roll_ms = timed(lambda: tr.rollout(
+        tr.state.params, tr.env_state, tr.stats.reset_aggregates(),
+        tr.generator))
+    _, proc_ms = timed(lambda: process_rollout(
+        tr.state.params.critics, res.transitions, algo.hp["gamma"],
+        algo.hp["gae_lambda"], episode_len=algo.hp["episode_len"]))
+    (tr.state, _), upd_ms = timed(lambda: algo.update(
+        tr.state, res.transitions, res.stats.mean_cost, res.stats.n_episodes,
+        tr.generator))
+    tr.env_state, tr.stats = res.env_state, res.stats
+    print(f"[breakdown] collect {roll_ms:.2f} ms; update {upd_ms:.2f} ms "
+          f"(of which process_rollout {proc_ms:.2f} ms)", flush=True)
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            torch.cuda.synchronize()
+            t = time.time()
+            tr._run_iter()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.time() - t)
+        # device-side events only: an aten op's row repeats the time of
+        # the kernels it launched
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        n_kernels = sum(e.count for e in events)
+        print(f"[breakdown] profiled iteration {wall_ms:.2f} ms wall, device "
+              f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+              f"{n_kernels} device ops", flush=True)
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+        for e in top:
+            print(f"[breakdown]   {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:<6d} {e.key[:70]}", flush=True)
+    except Exception as e:  # measurement only: the run does not need it
+        print(f"[breakdown] device busy share not measured ({e!r})",
+              flush=True)
+
+
+def phase_update_parity():
+    import numpy as np
+    import torch
+    from fsrl_torch.algos.ppo_lag import PPOLag
+    from fsrl_torch.types import TileLayout, Transition, draw_tile_perms
+
+    rng = np.random.default_rng(0)
+    T, N, D, A = 32, 64, 9, 2
+    rows = {
+        "obs": rng.normal(size=(T, N, D)), "act": rng.normal(size=(T, N, A)),
+        "obs_next": rng.normal(size=(T, N, D)),
+        "reward": rng.normal(size=(T, N)), "cost": rng.random((T, N, 1)),
+        "terminated": rng.random((T, N)) < 0.02,
+        "truncated": rng.random((T, N)) < 0.02,
+        "logp": rng.normal(size=(T, N)) - 2.0}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        algo = PPOLag(D, A, cost_limit=5.0, repeat=2, n_minibatches=2,
+                      device=dev)
+        state = algo.init(seed=1)
+        tr = Transition(**{
+            k: torch.as_tensor(v, dtype=torch.bool if v.dtype == bool
+                               else torch.float32, device=dev)
+            for k, v in rows.items()})
+        g = torch.Generator().manual_seed(2)
+        perms = draw_tile_perms(TileLayout.of(T * N, 2), 2, g, "cpu")
+        state, m = algo.update(
+            state, tr, torch.tensor([7.0], device=dev),
+            torch.tensor(3, dtype=torch.int32, device=dev), None,
+            perms=tuple(p.to(dev) for p in perms))
+        out[dev] = (state.flat.cpu(), {k: float(v) for k, v in m.items()})
+    (fc, mc), (fg, mg) = out["cpu"], out["cuda"]
+    # the devices sum in other orders (gradients ~1e-7 apart relative);
+    # Adam's lr * m / sqrt(v) passes that on, so after 4 steps of lr 5e-4
+    # (moves of ~1e-3) the weights agree to 1e-5 and the losses to 1e-5
+    param_err = float((fc - fg).abs().max())
+    loss_err = max(abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])) for k in mc)
+    print(f"[update parity] max |param cpu - cuda| {param_err:.3e} "
+          f"(tol 1e-5); max loss rel err {loss_err:.3e} (tol 1e-5)",
+          flush=True)
+    if not (param_err <= 1e-5 and loss_err <= 1e-5):
+        fail("CUDA update disagrees with the CPU update")
+
+
+def phase_gae():
+    import torch
+    from fsrl_torch.ops.gae import gae_advantages
+    from fsrl_torch.ops.gae_kernel import gae_advantages_fused
+
+    T, N, K = 64, 4096, 2
+    g = torch.Generator(device="cuda").manual_seed(0)
+    m, v, vn = (torch.randn(T, N, K, device="cuda", generator=g)
+                for _ in range(3))
+    end = torch.rand(T, N, device="cuda", generator=g) < 0.05
+    gamma, lam = 0.99, 0.95
+    adv_k, ret_k = gae_advantages_fused(m, v, vn, end, gamma, lam)
+    adv_p, ret_p = gae_advantages(m, v, vn, end, gamma, lam)
+    torch.cuda.synchronize()
+    err = max(float((adv_k - adv_p).abs().max()),
+              float((ret_k - ret_p).abs().max()))
+    ref = max(float(adv_p.abs().max()), float(ret_p.abs().max()))
+    # same operation order as the plain loop, no FMA contraction: f32
+    # rounding at most
+    tol = 1e-6 * ref + 1e-6
+    print(f"[K1 gae] max abs err {err:.3e} (tol {tol:.3e}, |ref| max "
+          f"{ref:.3f})", flush=True)
+    if not err <= tol:
+        fail("GAE kernel disagrees with its plain version")
+    ms = time_ms(lambda: gae_advantages_fused(m, v, vn, end, gamma, lam))
+    plain_ms = time_ms(lambda: gae_advantages(m, v, vn, end, gamma, lam))
+    nbytes = 5 * 4 * T * N * K + T * N
+    flops = 6 * T * N * K
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+    print(f"[K1 gae] kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bound_ms:.4f} ({nbytes} bytes)", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes")
+
+
+def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2):
+    import torch
+    from fsrl_torch.algos.common import normalize_adv
+    from fsrl_torch.algos.ppo_lag import PPOLag
+    from fsrl_torch.ops.fused_ppo_grad import (policy_logp, ppo_grad_plain,
+                                               ppo_grad_rows)
+
+    algo = PPOLag(D, A, num_costs=K - 1, cost_limit=[10.0] * (K - 1),
+                  device="cuda")
+    state = algo.init(seed=3)
+    flat, layout = state.flat, algo.grad_layout
+    g = torch.Generator(device="cuda").manual_seed(K)
+    obs = torch.randn(B, D, device="cuda", generator=g)
+    act = torch.clamp(0.5 * torch.randn(B, A, device="cuda", generator=g),
+                      -0.99, 0.99)
+    logp = policy_logp(flat, layout, obs, act, bf16=bf16)
+    noise = 0.1 * torch.randn(B, device="cuda", generator=g)
+    even = torch.arange(B, device="cuda") % 2 == 0
+    # half the rows have ratio == 1 exactly in the plain version: the tie
+    # case of every epoch's first grad step
+    logp_old = torch.where(even, logp, logp + noise).contiguous()
+    adv = normalize_adv(torch.randn(B, K, device="cuda", generator=g))
+    ret = torch.randn(B, K, device="cuda", generator=g)
+    lam = torch.linspace(0.5, 2.0, K - 1, device="cuda")
+    resc = 1.0 / (lam.sum() + 1.0)
+    args = (flat, layout, obs, act, logp_old, adv, ret, lam, resc)
+    kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=bf16)
+    gk, ak = ppo_grad_rows(*args, **kw)
+    gp, ap = ppo_grad_plain(*args, **kw)
+    torch.cuda.synchronize()
+    # bf16: both round the same f32 values to bf16, but f32 sums taken in
+    # another order can round an operand to the neighbouring bf16 value
+    # (2^-8 relative), so each gradient tensor is held to 1e-2 of its
+    # largest entry; f32: summation order only, 1e-4
+    rel_tol = 1e-2 if bf16 else 1e-4
+    worst, max_abs = 0.0, 0.0
+    for name, gkv in layout.views(gk).items():
+        gpv = layout.views(gp)[name]
+        err = float((gkv - gpv).abs().max())
+        scale = float(gpv.abs().max())
+        max_abs = max(max_abs, err)
+        worst = max(worst, err / (scale + 1e-12))
+    aux_err = float(((ak - ap).abs() / (ap.abs() + 1.0)).max())
+    tag = f"K={K} {'bf16' if bf16 else 'f32'}"
+    print(f"[K2 {tag}] max abs err {max_abs:.3e}, worst err / max|ref| "
+          f"{worst:.3e} (tol {rel_tol:.0e}), aux rel err {aux_err:.3e} "
+          f"(tol {rel_tol:.0e})", flush=True)
+    if not (worst <= rel_tol and aux_err <= rel_tol):
+        fail(f"fused grad kernel disagrees with its plain version ({tag})")
+    ms = time_ms(lambda: ppo_grad_rows(*args, **kw))
+    plain_ms = time_ms(lambda: ppo_grad_plain(*args, **kw))
+    H = layout.H
+    per_row = sum(6 * H * H + 4 * D * H + 6 * H * o
+                  for o in [A] + [1] * K)
+    flops = per_row * B
+    nbytes = 4 * (B * (D + A + 1 + 2 * K) + 2 * layout.size + 8)
+    peak = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
+    bound_ms = 1e3 * max(flops / peak, nbytes / HBM_BYTES_PER_S)
+    bound_by = "operations" if flops / peak > nbytes / HBM_BYTES_PER_S \
+        else "bytes"
+    print(f"[K2 {tag}] kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bound_ms:.4f} ({flops} FLOP, {nbytes} bytes)", flush=True)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: the port runs on the GPU only")
+    if not (ROOT / "fsrl_torch" / "csrc").is_dir():
+        fail(f"the fsrl_torch sources are not beside {Path(__file__).name}")
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+
+    phase_build()
+    launches = phase_train()
+    phase_update_parity()
+    k1 = phase_gae()
+    k2 = _k2_case(2, True)
+    _k2_case(3, True)
+    _k2_case(2, False)
+
+    kernels = [
+        dict(name="gae", route="cuda", source="fsrl_torch/csrc/gae.cu",
+             replaces="fsrl_tpu/ops/pallas_gae.py:27",
+             launches=launches.get("gae", 0), library_ms=None, **k1),
+        dict(name="fused_ppo_grad", route="cuda",
+             source="fsrl_torch/csrc/fused_ppo_grad.cu",
+             replaces="fsrl_tpu/ops/fused_ppo_grad.py:68",
+             launches=launches.get("fused_ppo_grad", 0), library_ms=None,
+             **k2),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    os.chdir(ROOT)
+    sys.exit(main())

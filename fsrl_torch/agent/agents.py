@@ -1,0 +1,93 @@
+"""Agent layer (port of ``BaseAgentTPU`` / ``PPOLagAgent`` of
+``fsrl_tpu/agent/agents.py``): the algorithm with its default recipe, the
+trainer, ``stop_fn = reward > threshold and cost < limit``, and an
+episode-exact ``evaluate``.
+
+Agents run on CUDA unless ``device="cpu"`` is passed; without CUDA they
+raise.
+"""
+
+from __future__ import annotations
+
+import inspect
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from fsrl_torch.algos.ppo_lag import PPOLag
+from fsrl_torch.data.collector import evaluate
+from fsrl_torch.device import resolve_device
+from fsrl_torch.envs.base import SafeEnv, make
+from fsrl_torch.trainer.trainer import OnpolicyTrainer
+from fsrl_torch.utils.logger import BaseLogger, DummyLogger
+
+
+class BaseAgent:
+    """Policy factory plus ``learn`` / ``evaluate``."""
+
+    name = "BaseAgent"
+    algo_cls = None
+    multi_constraint = True
+
+    def __init__(self, env: Union[str, SafeEnv],
+                 logger: Optional[BaseLogger] = None,
+                 cost_limit: float = 10.0, seed: int = 10, device=None,
+                 **algo_kwargs):
+        self.device = resolve_device(device)
+        self.env = make(env) if isinstance(env, str) else env
+        self.logger = logger or DummyLogger()
+        self.cost_limit = cost_limit
+        self.seed = seed
+        self.algo = self._build_algo(cost_limit, **algo_kwargs)
+        self.state = self.algo.init(seed)
+        self.trainer = None
+
+    def _build_algo(self, cost_limit, **kw):
+        if self.multi_constraint:
+            kw.setdefault("num_costs", self.env.num_costs)
+        if "episode_len" in inspect.signature(self.algo_cls.__init__).parameters:
+            # one (T+1)-row critic pass in process_rollout, with the
+            # truncation rows bounded by the env's horizon
+            kw.setdefault("episode_len", self.env.max_episode_steps)
+        return self.algo_cls(self.env.observation_size, self.env.action_size,
+                             cost_limit=cost_limit, device=self.device, **kw)
+
+    def learn(self, epochs: int = 100, step_per_epoch: int = 10000,
+              n_envs: int = 20, steps_per_collect: int = 125,
+              episode_per_test: int = 10,
+              reward_threshold: Optional[float] = None,
+              verbose: bool = False, **trainer_kwargs) -> dict:
+        stop_fn = None
+        if reward_threshold is not None:
+            limit = float(np.sum(self.cost_limit))
+            stop_fn = lambda rew, cost: rew > reward_threshold and cost < limit
+        self.trainer = OnpolicyTrainer(
+            self.algo, self.env, self.logger, epochs=epochs,
+            step_per_epoch=step_per_epoch, n_envs=n_envs,
+            steps_per_collect=steps_per_collect,
+            episode_per_test=episode_per_test, cost_limit=self.cost_limit,
+            stop_fn=stop_fn, seed=self.seed, verbose=verbose,
+            state=self.state, **trainer_kwargs)
+        info = self.trainer.run()
+        self.state = self.trainer.state
+        return info
+
+    def evaluate(self, n_episodes: int = 10, state=None, seed: int = 0
+                 ) -> tuple[float, float, float]:
+        """(mean reward, mean length, mean cost) over ``n_episodes``
+        episodes."""
+        st = state if state is not None else self.state
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        out = evaluate(self.env, self.algo.act_fn_eval, st.params, g,
+                       n_episodes)
+        return (float(out["reward"]), float(out["length"]),
+                float(out["cost"]))
+
+
+class PPOLagAgent(BaseAgent):
+    """Defaults: hidden (128, 128), joint Adam lr 5e-4, PID
+    (0.05, 0.0005, 0.1)."""
+
+    name = "PPOLagAgent"
+    algo_cls = PPOLag

@@ -1,0 +1,167 @@
+"""Shared on-policy plumbing (port of ``fsrl_tpu/algos/common.py``): rollout
+processing with GAE over the stacked (reward, cost) channels, advantage
+normalization and the flat Adam optimizer.
+
+All (1 + M) metric channels are processed jointly on a trailing axis
+K = 1 + M: column 0 is the reward, columns 1..M the costs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from fsrl_torch.ops.gae_kernel import gae_advantages_fused
+from fsrl_torch.types import Transition
+
+Tensor = torch.Tensor
+
+
+@dataclass
+class OnPolicyBatch:
+    """Flattened (B = N*T, env-major) processed batch."""
+
+    obs: Tensor        # (B, obs_dim)
+    act: Tensor        # (B, act_dim)
+    logp_old: Tensor   # (B,)
+    adv: Tensor        # (B, K)
+    ret: Tensor        # (B, K)
+    value_old: Tensor  # (B, K)
+
+
+def metrics_of(tr: Transition) -> Tensor:
+    """Stack the reward and cost channels: (T, N, K)."""
+    return torch.cat([tr.reward[..., None], tr.cost], -1)
+
+
+def _first_true(flags: Tensor, size: int) -> Tensor:
+    """Indices of the first ``size`` true entries of the 1-D ``flags``,
+    padded with ``len(flags)``: ``jnp.nonzero(flags, size=size,
+    fill_value=len(flags))[0]``, without a host sync. Rows past ``size``
+    are dropped."""
+    n = flags.shape[0]
+    pos = torch.cumsum(flags.to(torch.int64), 0) - 1
+    slot = torch.where(flags & (pos < size), pos, torch.full_like(pos, size))
+    out = torch.full((size + 1,), n, dtype=torch.int64, device=flags.device)
+    out.scatter_(0, slot, torch.arange(n, device=flags.device))
+    return out[:size]
+
+
+@torch.no_grad()
+def process_rollout(critic_apply: Callable[[Tensor], Tensor], tr: Transition,
+                    gamma: float, lam: float, ret_rms=None,
+                    episode_len: int | None = None):
+    """GAE over the rollout segment, through kernel K1 on the card.
+
+    * bootstrap mask: ``v(s') = 0`` where terminated;
+    * the lambda-chain breaks at done steps.
+
+    By default the critic runs over ``obs`` and ``obs_next`` (two passes).
+    With ``episode_len`` (the env's truncation horizon) one pass over the
+    ``T + 1`` rows ``obs[0..T-1], obs_next[T-1]`` gives every ``v(obs_next)``
+    except at truncations, which are at most ``T // episode_len + 1`` per
+    env; those rows get one small gather, forward and scatter (the first
+    ``n_boot`` truncated rows in flat order, the rest dropped, as JAX's
+    ``nonzero(size=...)`` and ``.at[].set(mode="drop")`` do).
+
+    Returns the env-major flattened :class:`OnPolicyBatch`, and the updated
+    return statistics when ``ret_rms`` is given."""
+    T, N = tr.reward.shape
+    m = metrics_of(tr)
+    if episode_len is not None and T > 2:
+        n_boot = N * (T // int(episode_len) + 1)
+        ext = torch.cat([tr.obs, tr.obs_next[-1:]], 0)        # (T+1, N, d)
+        values_ext = critic_apply(ext)                        # (T+1, N, K)
+        values = values_ext[:-1]
+        K = values.shape[-1]
+        trunc = (tr.truncated & ~tr.terminated).reshape(-1)
+        idx = _first_true(trunc, n_boot)
+        obs_next_flat = tr.obs_next.reshape((T * N,) + tr.obs_next.shape[2:])
+        v_boot = critic_apply(obs_next_flat[torch.clamp(idx, max=T * N - 1)])
+        # one spare row takes the dropped (out-of-range) writes
+        vn = torch.cat([values_ext[1:].reshape(T * N, K),
+                        values.new_zeros(1, K)], 0)
+        vn.index_copy_(0, idx, v_boot)
+        values_next = vn[:-1].reshape(T, N, K)
+    else:
+        values = critic_apply(tr.obs)
+        values_next = critic_apply(tr.obs_next)
+    mask = (~tr.terminated).to(values.dtype)[..., None]
+    values_next = values_next * mask
+    end_flag = (tr.terminated | tr.truncated).contiguous()
+
+    if ret_rms is not None:
+        # critics learn scale-normalized returns: unscale their outputs for
+        # GAE, then re-normalize the new returns and update the statistics
+        scale = torch.sqrt(ret_rms.var + 1e-8)
+        adv, ret = gae_advantages_fused(
+            m.contiguous(), (values * scale).contiguous(),
+            (values_next * scale).contiguous(), end_flag, gamma, lam)
+        ret = ret / scale
+        new_rms = ret_rms.update(ret.reshape(T * N, -1))
+    else:
+        adv, ret = gae_advantages_fused(
+            m.contiguous(), values.contiguous(), values_next.contiguous(),
+            end_flag, gamma, lam)
+        new_rms = None
+
+    # env-major flatten: (T, N, ...) -> (N*T, ...), each env's rows together
+    flat = lambda x: x.transpose(0, 1).reshape((N * T,) + x.shape[2:])
+    batch = OnPolicyBatch(obs=flat(tr.obs), act=flat(tr.act),
+                          logp_old=flat(tr.logp), adv=flat(adv),
+                          ret=flat(ret), value_old=flat(values))
+    return (batch, new_rms) if ret_rms is not None else batch
+
+
+def normalize_adv(adv: Tensor, eps: float = 1e-8) -> Tensor:
+    """Per-batch, per-channel advantage normalization (cost channels too)."""
+    mean = adv.mean(0, keepdim=True)
+    std = adv.std(0, unbiased=False, keepdim=True)
+    return (adv - mean) / (std + eps)
+
+
+@dataclass
+class AdamState:
+    count: Tensor   # () int32
+    mu: Tensor      # flat first moment
+    nu: Tensor      # flat second moment
+
+
+class FlatAdam:
+    """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr))`` on one
+    flat parameter vector (``make_optimizer(..., flat=True)``), with optax's
+    operation order. ``lr`` is a float."""
+
+    def __init__(self, lr: float, max_grad_norm: float | None = None,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.lr, self.max_grad_norm = lr, max_grad_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, flat: Tensor) -> AdamState:
+        return AdamState(count=torch.zeros((), dtype=torch.int32,
+                                           device=flat.device),
+                         mu=torch.zeros_like(flat), nu=torch.zeros_like(flat))
+
+    def update(self, grad: Tensor, state: AdamState
+               ) -> tuple[Tensor, AdamState]:
+        """Returns ``(updates, new_state)``; apply as ``params + updates``."""
+        if self.max_grad_norm is not None:
+            g_norm = torch.sqrt(torch.sum(grad * grad))
+            grad = torch.where(g_norm < self.max_grad_norm, grad,
+                               (grad / g_norm) * self.max_grad_norm)
+        b1, b2 = self.b1, self.b2
+        mu = (1 - b1) * grad + b1 * state.mu
+        nu = (1 - b2) * (grad * grad) + b2 * state.nu
+        count = state.count + 1
+        c = count.to(grad.dtype)
+        mu_hat = mu / (1 - b1 ** c)
+        nu_hat = nu / (1 - b2 ** c)
+        updates = -self.lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
+        return updates, AdamState(count=count, mu=mu, nu=nu)
+
+
+def make_optimizer(lr: float, max_grad_norm: float | None = None) -> FlatAdam:
+    """Adam with optional global-norm clipping, on one flat vector."""
+    return FlatAdam(lr, max_grad_norm)

@@ -1,0 +1,310 @@
+"""PPO-Lagrangian (port of ``fsrl_tpu/algos/ppo_lag.py``).
+
+* clipped (optionally dual-clipped) surrogate on the reward advantage;
+* safety loss ``sum_i lambda_i * mean(ratio * advC_i)`` with the
+  ``1 / (sum lambda + 1)`` rescale;
+* per-minibatch advantage normalization over all channels;
+* joint actor + critic Adam on one flat vector, with grad-norm clipping;
+* KL early stop at ``1.5 * target_kl`` at each epoch's end, kept on the
+  device: after the stop the parameters and the optimizer state (Adam's
+  count included) stay frozen, while the remaining grad steps still run and
+  still report their metrics, as the JAX scan does;
+* PID multiplier update from the collect's mean episodic cost.
+
+Where the config is inside kernel K2's envelope (two hidden layers of the
+kernel's width, no dual or value clip, advantage normalization on, bounded
+mean with ``max_action`` 1, f32 or bf16 compute) every grad step goes through
+:func:`fsrl_torch.ops.fused_ppo_grad.ppo_grad_minibatch`: the CUDA kernel on
+the card, its plain version on the CPU. Outside it, autograd of the plain
+loss, as in JAX. The port has no ``gae_impl`` and no ``use_pallas_grad``
+switch, and no 128-row rule: the kernel masks a ragged last chunk.
+
+The parameters live in one flat vector that the module's parameters view;
+``update`` writes the new parameters into it in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import torch
+from torch.func import functional_call
+
+from fsrl_torch.algos.common import (AdamState, OnPolicyBatch, make_optimizer,
+                                     normalize_adv, process_rollout)
+from fsrl_torch.device import resolve_device
+from fsrl_torch.nets.mlp import ActorCritic, GaussianActor, VCriticEnsemble
+from fsrl_torch.ops.fused_ppo_grad import GradLayout, ppo_grad_minibatch
+from fsrl_torch.ops.lagrange import (PIDLagrangianState, pid_controller_step,
+                                     rescaling_factor)
+from fsrl_torch.ops.running_stats import RunningMeanStd
+from fsrl_torch.types import (TileLayout, Transition, draw_tile_perms,
+                              is_epoch_end, minibatch_row_index)
+from fsrl_torch.utils.params import flatten_parameters_, unflatten
+
+Tensor = torch.Tensor
+
+
+@dataclass
+class PPOLagState:
+    params: ActorCritic      # its parameters are views of ``flat``
+    flat: Tensor             # the flat parameter vector
+    opt_state: AdamState
+    lag: PIDLagrangianState
+    last_ep_cost: Tensor     # (M,)
+    ret_rms: RunningMeanStd  # (K,) return statistics (reward normalization)
+    update_count: Tensor
+    gradient_steps: Tensor
+
+
+class PPOLag:
+    """Config plus the init / act / update functions."""
+
+    name = "ppo_lag"
+
+    def __init__(self, obs_dim: int, act_dim: int, *,
+                 cost_limit: float | list = 10.0, num_costs: int = 1,
+                 hidden_sizes=(128, 128), lr: float = 5e-4,
+                 target_kl: float = 0.02, vf_coef: float = 0.25,
+                 max_grad_norm: float | None = 0.5, gae_lambda: float = 0.95,
+                 eps_clip: float = 0.2, dual_clip: float | None = None,
+                 value_clip: bool = False,
+                 advantage_normalization: bool = True,
+                 reward_normalization: bool = False,
+                 use_lagrangian: bool = True, pid_filter: bool = True,
+                 lagrangian_pid=(0.05, 0.0005, 0.1), rescaling: bool = True,
+                 gamma: float = 0.99, unbounded: bool = False,
+                 last_layer_scale: bool = True, sigma_init: float = -0.5,
+                 max_action: float = 1.0, repeat: int = 4,
+                 n_minibatches: int = 4, deterministic_eval: bool = True,
+                 compute_dtype: torch.dtype | None = None,
+                 episode_len: int | None = None, device=None):
+        self.device = resolve_device(device)
+        self.obs_dim, self.act_dim = obs_dim, act_dim
+        self.num_costs = num_costs
+        self.K = 1 + num_costs
+        cl = ([cost_limit] * num_costs if isinstance(cost_limit, (int, float))
+              else list(cost_limit))
+        self.cost_limit = torch.tensor(cl, dtype=torch.float32,
+                                       device=self.device)
+        self.hp = dict(
+            lr=lr, target_kl=target_kl, vf_coef=vf_coef,
+            max_grad_norm=max_grad_norm, gae_lambda=gae_lambda,
+            eps_clip=eps_clip, dual_clip=dual_clip, value_clip=value_clip,
+            norm_adv=advantage_normalization, rew_norm=reward_normalization,
+            use_lagrangian=use_lagrangian, pid=tuple(lagrangian_pid),
+            pid_filter=pid_filter, rescaling=rescaling, gamma=gamma,
+            repeat=repeat, n_minibatches=n_minibatches,
+            episode_len=episode_len)
+        self.hidden_sizes = tuple(hidden_sizes)
+        self.deterministic_eval = deterministic_eval
+        self.net_kw = dict(max_action=max_action, unbounded=unbounded,
+                           last_layer_scale=last_layer_scale,
+                           sigma_init=sigma_init)
+        self.compute_dtype = compute_dtype
+        hs = self.hidden_sizes
+        self.grad_layout = GradLayout(D=obs_dim, H=hs[0], A=act_dim, K=self.K)
+        self.use_grad_kernel = (
+            len(hs) == 2 and hs[0] == hs[1]
+            and dual_clip is None and not value_clip
+            and advantage_normalization and not unbounded
+            and max_action == 1.0
+            and compute_dtype in (None, torch.float32, torch.bfloat16)
+            and self.grad_layout.kernel_fits())
+        self.tx = make_optimizer(lr, max_grad_norm)
+
+    # ---------------- init ----------------
+    def make_params(self, seed: int = 0) -> ActorCritic:
+        """Orthogonal init from a seeded CPU generator, then moved to the
+        algorithm's device."""
+        g = torch.Generator().manual_seed(seed)
+        actor = GaussianActor(self.obs_dim, self.act_dim, self.hidden_sizes,
+                              compute_dtype=self.compute_dtype, generator=g,
+                              **self.net_kw)
+        critics = VCriticEnsemble(self.obs_dim, self.K, self.hidden_sizes,
+                                  compute_dtype=self.compute_dtype,
+                                  generator=g)
+        return ActorCritic(actor, critics).to(self.device)
+
+    def init(self, seed: int = 0, state_dict: dict | None = None
+             ) -> PPOLagState:
+        """Fresh state; ``state_dict`` (e.g. from
+        :func:`fsrl_torch.utils.params.from_jax_params`) sets the weights."""
+        model = self.make_params(seed)
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        if self.use_grad_kernel:
+            # the kernel reads the flat vector in GradLayout's order
+            params = dict(model.named_parameters())
+            if [(k, tuple(params[k].shape)) for k in model.flat_names()] != \
+                    self.grad_layout.shapes():
+                raise ValueError("flat parameter order differs from the "
+                                 "fused grad kernel's layout")
+        flat = flatten_parameters_(model, model.flat_names())
+        dev = self.device
+        return PPOLagState(
+            params=model, flat=flat, opt_state=self.tx.init(flat),
+            lag=PIDLagrangianState.init(self.num_costs, dev),
+            last_ep_cost=torch.zeros(self.num_costs, device=dev),
+            ret_rms=RunningMeanStd.init((self.K,), dev),
+            update_count=torch.zeros((), dtype=torch.int32, device=dev),
+            gradient_steps=torch.zeros((), dtype=torch.int32, device=dev))
+
+    # ---------------- acting ----------------
+    @torch.no_grad()
+    def act_fn(self, params: ActorCritic, obs: Tensor,
+               generator: torch.Generator):
+        dist = params.actor(obs)
+        act = dist.sample(generator)
+        return act, dist.log_prob(act)
+
+    @torch.no_grad()
+    def act_fn_eval(self, params: ActorCritic, obs: Tensor,
+                    generator: torch.Generator):
+        dist = params.actor(obs)
+        act = dist.mode() if self.deterministic_eval else dist.sample(
+            generator)
+        return act, dist.log_prob(act)
+
+    # ---------------- loss (autograd path) ----------------
+    def _autograd_step(self, state: PPOLagState, mb: OnPolicyBatch,
+                       lam_mult: Tensor, resc: Tensor):
+        """Loss, metrics and flat gradient by autograd of the plain loss.
+        The clip is ``minimum(maximum(r, lo), hi)``, whose gradient splits
+        ties 0.5/0.5 as JAX's ``clip`` does."""
+        hp = self.hp
+        model = state.params
+        with torch.enable_grad():
+            f = state.flat.detach().requires_grad_(True)
+            views = unflatten(f, model, model.flat_names())
+            dist, values = functional_call(model, views, (mb.obs,))
+            log_p = dist.log_prob(mb.act)
+            ratio = torch.exp(log_p - mb.logp_old)
+            adv = normalize_adv(mb.adv) if hp["norm_adv"] else mb.adv
+            rew_adv = adv[:, 0]
+            eps = hp["eps_clip"]
+            surr1 = ratio * rew_adv
+            surr2 = torch.minimum(torch.maximum(
+                ratio, torch.full_like(ratio, 1 - eps)),
+                torch.full_like(ratio, 1 + eps)) * rew_adv
+            if hp["dual_clip"] is not None:
+                clip1 = torch.minimum(surr1, surr2)
+                clip2 = torch.maximum(clip1, hp["dual_clip"] * rew_adv)
+                loss_rew = -torch.where(rew_adv < 0, clip2, clip1).mean()
+            else:
+                loss_rew = -torch.minimum(surr1, surr2).mean()
+            if hp["use_lagrangian"]:
+                cost_terms = (ratio[:, None] * adv[:, 1:]).mean(0)
+                loss_safety = (lam_mult * cost_terms).sum()
+            else:
+                loss_safety = 0.0
+            loss_actor = resc * (loss_rew + loss_safety)
+            if hp["value_clip"]:
+                v_clip = mb.value_old + torch.clamp(
+                    values - mb.value_old, -eps, eps)
+                vf = torch.maximum((mb.ret - values) ** 2,
+                                   (mb.ret - v_clip) ** 2)
+            else:
+                vf = (mb.ret - values) ** 2
+            loss_vf = vf.mean(0).sum()
+            loss = loss_actor + hp["vf_coef"] * loss_vf
+            (grad,) = torch.autograd.grad(loss, f)
+        aux = dict(loss_actor_rew=loss_rew, loss_actor_total=loss_actor,
+                   loss_vf_total=loss_vf,
+                   kl=(mb.logp_old - log_p).mean(),
+                   entropy=dist.entropy().mean())
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grad
+
+    # ---------------- update ----------------
+    @torch.no_grad()
+    def update(self, state: PPOLagState, tr: Transition, ep_cost_mean: Tensor,
+               n_episodes: Tensor, generator: torch.Generator,
+               cost_limit: Tensor | None = None,
+               perms: tuple[Tensor, Tensor] | None = None
+               ) -> tuple[PPOLagState, dict[str, Tensor]]:
+        """One whole-segment update. ``perms`` = ``(tile permutations
+        (repeat, usable), roll offset)`` replaces the shuffle draw (the
+        parity tests pass the ones JAX draws)."""
+        hp = self.hp
+        dev = self.device
+        limit = self.cost_limit if cost_limit is None else cost_limit
+        if hp["use_lagrangian"]:
+            kp, ki, kd = hp["pid"]
+            lag = pid_controller_step(
+                state.lag, ep_cost_mean, n_episodes, limit, kp, ki, kd,
+                filtered=hp["pid_filter"], horizon=40.0)
+        else:
+            lag = state.lag
+        cost_in = lag.cost_ema if hp["use_lagrangian"] else torch.where(
+            n_episodes > 0, ep_cost_mean, state.last_ep_cost)
+
+        critic = state.params.critics
+        if hp["rew_norm"]:
+            batch, ret_rms = process_rollout(
+                critic, tr, hp["gamma"], hp["gae_lambda"],
+                ret_rms=state.ret_rms, episode_len=hp["episode_len"])
+        else:
+            batch = process_rollout(critic, tr, hp["gamma"],
+                                    hp["gae_lambda"],
+                                    episode_len=hp["episode_len"])
+            ret_rms = state.ret_rms
+
+        lam_mult = lag.multiplier
+        resc = (rescaling_factor(lam_mult, hp["rescaling"])
+                if hp["use_lagrangian"] else torch.ones((), device=dev))
+
+        n_mb, repeat = hp["n_minibatches"], hp["repeat"]
+        layout = TileLayout.of(batch.obs.shape[0], n_mb)
+        if perms is None:
+            perms = draw_tile_perms(layout, repeat, generator, dev)
+        rows = minibatch_row_index(layout, *perms)     # (repeat*n_mb, rows)
+        # one gather per field for all grad steps
+        mbs = [getattr(batch, f.name)[rows] for f in fields(OnPolicyBatch)]
+
+        flat, opt = state.flat, state.opt_state
+        stopped = torch.zeros((), dtype=torch.bool, device=dev)
+        gsteps = state.gradient_steps
+        kl_acc = torch.zeros((), device=dev)
+        bf16 = self.compute_dtype == torch.bfloat16
+        auxes = []
+        for s in range(repeat * n_mb):
+            mb = OnPolicyBatch(*(x[s] for x in mbs))
+            if self.use_grad_kernel:
+                adv_n = normalize_adv(mb.adv) if hp["norm_adv"] else mb.adv
+                loss, aux, grad = ppo_grad_minibatch(
+                    flat, self.grad_layout, mb.obs, mb.act, mb.logp_old,
+                    adv_n.contiguous(), mb.ret, lam_mult, resc,
+                    eps_clip=hp["eps_clip"], vf_coef=hp["vf_coef"],
+                    bf16=bf16)
+            else:
+                loss, aux, grad = self._autograd_step(
+                    state, mb, lam_mult, resc)
+            updates, new_opt = self.tx.update(grad, opt)
+            flat.copy_(torch.where(stopped, flat, flat + updates))
+            opt = AdamState(*(torch.where(stopped, getattr(opt, f.name),
+                                          getattr(new_opt, f.name))
+                              for f in fields(AdamState)))
+            gsteps = gsteps + (~stopped).to(gsteps.dtype)
+            kl_acc = kl_acc + aux["kl"]
+            if is_epoch_end(s, n_mb):
+                stopped = stopped | (kl_acc / n_mb > 1.5 * hp["target_kl"])
+                kl_acc = torch.zeros_like(kl_acc)
+            aux["loss_total"] = loss
+            auxes.append(aux)
+
+        metrics = {
+            ("loss/" + k if not k.startswith("loss") else
+             k.replace("_", "/", 1)): torch.stack([a[k] for a in auxes]).mean()
+            for k in auxes[0]}
+        metrics["loss/rescaling"] = resc
+        for i in range(self.num_costs):
+            metrics[f"loss/lagrangian{'' if i == 0 else '_' + str(i)}"] = \
+                lam_mult[i]
+        metrics["update/early_stopped"] = stopped.float()
+
+        new_state = PPOLagState(
+            params=state.params, flat=flat, opt_state=opt, lag=lag,
+            last_ep_cost=cost_in, ret_rms=ret_rms,
+            update_count=state.update_count + 1, gradient_steps=gsteps)
+        return new_state, metrics
+

@@ -1,0 +1,186 @@
+"""Actor and critic networks (port of ``fsrl_tpu/nets/mlp.py``).
+
+Weights use PyTorch's ``(out, in)`` layout; ``utils/params.py`` converts from
+flax's ``(in, out)``. The critic ensemble keeps the JAX design: K towers
+stacked on a leading axis and evaluated as one batched matmul chain.
+
+Initialization follows the JAX package: orthogonal weights, zero biases,
+free log-sigma at ``sigma_init`` (-0.5), and the optional 0.01 scale of the
+mean head.
+
+``compute_dtype=torch.bfloat16`` reproduces flax's mixed-precision cast
+points (``nets/mlp.py:53-67``): the trunk's input, weights and biases are cast
+to bf16, each layer is a bf16 matmul followed by a bf16 bias add, and the
+trunk output is cast back to float32. The actor's mean head runs in float32
+on that output. Parameters stay float32.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from fsrl_torch.nets.distributions import DiagGaussian
+
+
+class Dense(nn.Module):
+    """Affine layer ``x @ W.T + b``, the matmul and the bias add done as two
+    operations in the compute dtype, as flax's ``Dense`` does."""
+
+    def __init__(self, in_dim: int, out_dim: int, scale: float = 1.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+        nn.init.orthogonal_(self.weight, gain=scale, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.weight.to(x.dtype).T + self.bias.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """ReLU trunk with an optional linear output layer."""
+
+    def __init__(self, in_dim: int, hidden_sizes: Sequence[int],
+                 out_dim: int | None = None, out_scale: float = 1.0,
+                 compute_dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dims = [in_dim, *hidden_sizes]
+        self.layers = nn.ModuleList(
+            Dense(a, b, generator=generator)
+            for a, b in zip(dims[:-1], dims[1:]))
+        self.out = (Dense(dims[-1], out_dim, out_scale, generator)
+                    if out_dim is not None else None)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        for layer in self.layers:
+            x = torch.relu(layer(x))
+        if self.out is not None:
+            x = self.out(x)
+        return x.float()
+
+
+class GaussianActor(nn.Module):
+    """Gaussian policy with a free log-sigma (the PPO recipe); mean
+    ``max_action * tanh(mu)`` unless ``unbounded``."""
+
+    def __init__(self, obs_dim: int, act_dim: int,
+                 hidden_sizes: Sequence[int] = (128, 128),
+                 max_action: float = 1.0, unbounded: bool = False,
+                 last_layer_scale: bool = False, sigma_init: float = -0.5,
+                 compute_dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.trunk = MLP(obs_dim, hidden_sizes, compute_dtype=compute_dtype,
+                         generator=generator)
+        self.mu = Dense(hidden_sizes[-1], act_dim,
+                        0.01 if last_layer_scale else 1.0, generator)
+        self.log_sigma = nn.Parameter(torch.full((act_dim,), sigma_init))
+        self.max_action, self.unbounded = max_action, unbounded
+
+    def forward(self, obs: torch.Tensor) -> DiagGaussian:
+        mu = self.mu(self.trunk(obs))
+        if not self.unbounded:
+            mu = self.max_action * torch.tanh(mu)
+        std = torch.exp(self.log_sigma).expand(mu.shape)
+        return DiagGaussian(mean=mu, std=std)
+
+
+class VCriticEnsemble(nn.Module):
+    """K independent V(s) towers stacked on a leading axis. Output
+    ``(..., K)``: column 0 the reward critic, columns 1..M the cost
+    critics. Tower weights are ``w[i]`` of shape ``(K, out, in)``."""
+
+    def __init__(self, obs_dim: int, num_critics: int,
+                 hidden_sizes: Sequence[int] = (128, 128),
+                 compute_dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dims = [obs_dim, *hidden_sizes, 1]
+        self.w = nn.ParameterList()
+        self.b = nn.ParameterList()
+        for a, b in zip(dims[:-1], dims[1:]):
+            w = torch.empty(num_critics, b, a)
+            for k in range(num_critics):
+                nn.init.orthogonal_(w[k], generator=generator)
+            self.w.append(nn.Parameter(w))
+            self.b.append(nn.Parameter(torch.zeros(num_critics, b)))
+        self.compute_dtype = compute_dtype
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        lead = obs.shape[:-1]
+        x = obs.reshape(1, -1, obs.shape[-1])
+        dt = self.compute_dtype or x.dtype
+        x = x.to(dt)
+        n = len(self.w)
+        for i, (w, b) in enumerate(zip(self.w, self.b)):
+            x = torch.matmul(x, w.to(dt).transpose(1, 2)) + b.to(dt)[:, None]
+            if i < n - 1:
+                x = torch.relu(x)
+        return x[..., 0].T.reshape(lead + (-1,)).float()
+
+
+class ActorCritic(nn.Module):
+    """The PPO parameter set: a Gaussian actor and a V-critic ensemble.
+    ``flat_names`` fixes the order of the one flat parameter vector the
+    optimizer and the fused grad kernel work on."""
+
+    def __init__(self, actor: GaussianActor, critics: VCriticEnsemble):
+        super().__init__()
+        self.actor, self.critics = actor, critics
+        widths = [layer.weight.shape[0] for layer in actor.trunk.layers]
+        # the stacked chain needs the PPO recipe: two hidden layers of one
+        # width in both nets
+        self.fused = (len(widths) == 2 and widths[0] == widths[1]
+                      and len(critics.w) == 3
+                      and critics.w[0].shape[1] == widths[0])
+
+    def forward(self, obs: torch.Tensor):
+        """``(DiagGaussian, values (B, K))``, through the stacked chain
+        where the nets allow it."""
+        if self.fused:
+            return fused_pi_v_apply(self.actor, self.critics, obs)
+        return self.actor(obs), self.critics(obs)
+
+    def flat_names(self) -> list[str]:
+        names = []
+        for i in range(len(self.actor.trunk.layers)):
+            names += [f"actor.trunk.layers.{i}.weight",
+                      f"actor.trunk.layers.{i}.bias"]
+        names += ["actor.mu.weight", "actor.mu.bias", "actor.log_sigma"]
+        for i in range(len(self.critics.w)):
+            names += [f"critics.w.{i}", f"critics.b.{i}"]
+        return names
+
+
+def fused_pi_v_apply(actor: GaussianActor, critics: VCriticEnsemble,
+                     obs: torch.Tensor):
+    """Actor and critic ensemble as one stacked matmul chain
+    (``nets/mlp.py:224-276``): the K+1 towers share input and hidden shape,
+    so layer 1 is one matmul over the stacked output axis and layer 2 one
+    batched matmul. Same parameters and cast points as the separate
+    forwards. Requires two hidden layers of equal width in both nets.
+    Returns ``(DiagGaussian, values (B, K))``."""
+    dt = critics.compute_dtype or obs.dtype
+    a1, a2 = actor.trunk.layers
+    w1 = torch.cat([a1.weight[None], critics.w[0]]).to(dt)     # (K+1, H, D)
+    b1 = torch.cat([a1.bias[None], critics.b[0]]).to(dt)
+    w2 = torch.cat([a2.weight[None], critics.w[1]]).to(dt)
+    b2 = torch.cat([a2.bias[None], critics.b[1]]).to(dt)
+    x = obs.to(dt)
+    h = torch.relu(torch.matmul(x, w1.transpose(1, 2)) + b1[:, None])
+    h = torch.relu(torch.matmul(h, w2.transpose(1, 2)) + b2[:, None])
+    v = (torch.matmul(h[1:], critics.w[2].to(dt).transpose(1, 2))
+         + critics.b[2].to(dt)[:, None])                        # (K, B, 1)
+    values = v[..., 0].T.float()
+    mu = actor.mu(h[0].float())
+    if not actor.unbounded:
+        mu = actor.max_action * torch.tanh(mu)
+    std = torch.exp(actor.log_sigma).expand(mu.shape)
+    return DiagGaussian(mean=mu, std=std), values

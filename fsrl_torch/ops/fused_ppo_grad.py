@@ -1,0 +1,261 @@
+"""Kernel K2: the whole PPO-Lagrangian minibatch loss and its hand-derived
+gradient in one fused CUDA launch (``csrc/fused_ppo_grad.cu``).
+
+Replaces ``fsrl_tpu/ops/fused_ppo_grad.py::ppo_grad_minibatch``. The math is
+the Pallas kernel's (``fused_ppo_grad.py:68-165``):
+
+* actor: two ReLU layers, ``tanh`` mean, free log-sigma, Gaussian log-prob,
+  ratio, clipped surrogate plus ``sum_m lam_m * mean(ratio * advC_m)``,
+  all scaled by ``resc`` (the ``1 / (sum lam + 1)`` rescale);
+* K critic towers with ``vf_coef * mean((v - ret)^2)`` each;
+* JAX's tie conventions: d min(s1, s2) splits 0.5/0.5 at s1 == s2, and the
+  clip passes 0.5 at ``ratio == 1 +- eps`` (material: every epoch's first
+  grad step has ratio == 1 on almost every row);
+* with ``bf16=True`` every matmul operand that the Pallas kernel casts to
+  bf16 is rounded to bf16, products accumulate in float32, activations,
+  biases and the actor's mean head stay float32.
+
+Parameters and gradients are the flat vector of
+:class:`fsrl_torch.nets.mlp.ActorCritic` (see :class:`GradLayout`). On a CUDA
+tensor the wrapper launches the kernel or raises; on a CPU tensor it runs
+:func:`ppo_grad_plain`, which computes the same hand-derived gradient with
+PyTorch operations (not autograd: autograd's ``clamp`` passes the full
+gradient at the clip bounds).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from fsrl_torch.ops import kernels
+
+LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
+AUX_WIDTH = 8
+KERNEL_H = 128       # the kernel's thread tiling is written for width 128
+KERNEL_D_MAX = 12    # shared memory holds x, W1 and dW1 up to this width
+KERNEL_A_MAX = 4
+KERNEL_M_MAX = 5     # the aux row holds 3 + M sums in 8 slots
+
+
+@dataclass(frozen=True)
+class GradLayout:
+    """Shapes of the flat parameter vector for a two-hidden-layer
+    ActorCritic of widths H: observation D, action A, K critics. The order
+    is ``ActorCritic.flat_names()``."""
+
+    D: int
+    H: int
+    A: int
+    K: int
+
+    def shapes(self) -> list[tuple[str, tuple[int, ...]]]:
+        D, H, A, K = self.D, self.H, self.A, self.K
+        return [
+            ("actor.trunk.layers.0.weight", (H, D)),
+            ("actor.trunk.layers.0.bias", (H,)),
+            ("actor.trunk.layers.1.weight", (H, H)),
+            ("actor.trunk.layers.1.bias", (H,)),
+            ("actor.mu.weight", (A, H)),
+            ("actor.mu.bias", (A,)),
+            ("actor.log_sigma", (A,)),
+            ("critics.w.0", (K, H, D)), ("critics.b.0", (K, H)),
+            ("critics.w.1", (K, H, H)), ("critics.b.1", (K, H)),
+            ("critics.w.2", (K, 1, H)), ("critics.b.2", (K, 1)),
+        ]
+
+    @property
+    def size(self) -> int:
+        return sum(math.prod(s) for _, s in self.shapes())
+
+    def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        out, off = {}, 0
+        for name, shape in self.shapes():
+            n = math.prod(shape)
+            out[name] = flat[off: off + n].view(shape)
+            off += n
+        return out
+
+    def kernel_fits(self) -> bool:
+        """Shapes the CUDA kernel takes."""
+        return (self.H == KERNEL_H and 1 <= self.D <= KERNEL_D_MAX
+                and 1 <= self.A <= KERNEL_A_MAX
+                and 1 <= self.K <= KERNEL_M_MAX + 1)
+
+
+def _bf(x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    return x.to(torch.bfloat16).float() if bf16 else x
+
+
+def _actor_forward(p, x, act, A: int, bf16: bool):
+    """The kernel's actor forward: trunk matmuls on bf16-rounded operands
+    (when ``bf16``), f32 mean head, ``tanh`` mean and the log-prob."""
+    mm = lambda a, b: _bf(a, bf16) @ _bf(b, bf16)
+    W1, b1 = p["actor.trunk.layers.0.weight"], p["actor.trunk.layers.0.bias"]
+    W2, b2 = p["actor.trunk.layers.1.weight"], p["actor.trunk.layers.1.bias"]
+    Wmu, bmu = p["actor.mu.weight"], p["actor.mu.bias"]
+    lsig = p["actor.log_sigma"]
+    h1 = torch.relu(mm(x, W1.T) + b1)
+    h2 = torch.relu(mm(h1, W2.T) + b2)
+    mu = torch.tanh(h2 @ Wmu.T + bmu)
+    z = (act - mu) / torch.exp(lsig)
+    logp = (-0.5 * z * z).sum(1) - lsig.sum() - A * LOG_SQRT_2PI
+    return h1, h2, mu, z, logp
+
+
+def policy_logp(flat, layout: GradLayout, obs, act, *, bf16: bool = False):
+    """Log-prob of ``act`` as the plain version computes it (tests use it
+    to make rows whose ratio is exactly 1)."""
+    return _actor_forward(layout.views(flat), obs, act, layout.A, bf16)[-1]
+
+
+def ppo_grad_plain(flat, layout: GradLayout, obs, act, logp_old, adv, ret,
+                   lam, resc, *, eps_clip: float, vf_coef: float,
+                   bf16: bool):
+    """Plain PyTorch version of the kernel: returns ``(grad, aux_row)`` with
+    ``grad`` in the layout of ``flat`` and ``aux_row`` (8,) holding
+    [sum(logp_old - logp), sum(min surrogate), sum_k sum(diff^2),
+    sum(ratio * advC_m) for m < M, zeros]."""
+    p = layout.views(flat)
+    B = obs.shape[0]
+    K = layout.K
+    M = K - 1
+    mm = lambda a, b: _bf(a, bf16) @ _bf(b, bf16)
+    x = obs
+    grads: dict[str, torch.Tensor] = {}
+
+    # actor forward
+    W2 = p["actor.trunk.layers.1.weight"]
+    Wmu = p["actor.mu.weight"]
+    sig = torch.exp(p["actor.log_sigma"])
+    h1, h2, mu, z, logp = _actor_forward(p, x, act, layout.A, bf16)
+    ratio = torch.exp(logp - logp_old)
+    lo_b, hi_b = 1.0 - eps_clip, 1.0 + eps_clip
+    advr = adv[:, 0]
+    rc = torch.clamp(ratio, lo_b, hi_b)
+    s1, s2 = ratio * advr, rc * advr
+    mins = torch.minimum(s1, s2)
+    w1 = torch.where(s1 < s2, 1.0, torch.where(s1 == s2, 0.5, 0.0))
+    w2 = 1.0 - w1
+    inside = torch.where((ratio > lo_b) & (ratio < hi_b), 1.0,
+                         torch.where((ratio == lo_b) | (ratio == hi_b),
+                                     0.5, 0.0))
+    dmin_dr = advr * (w1 + w2 * inside)
+    cadv = adv[:, 1:]
+    g_ratio = resc * (-dmin_dr + (cadv * lam).sum(1)) / B
+    g_logp = g_ratio * ratio
+
+    # actor backward
+    g_mu_raw = g_logp[:, None] * (z / sig) * (1.0 - mu * mu)
+    grads["actor.log_sigma"] = (g_logp[:, None] * (z * z - 1.0)).sum(0)
+    grads["actor.mu.weight"] = g_mu_raw.T @ h2
+    grads["actor.mu.bias"] = g_mu_raw.sum(0)
+    g_h2 = (g_mu_raw @ Wmu) * (h2 > 0)
+    grads["actor.trunk.layers.1.weight"] = mm(g_h2.T, h1)
+    grads["actor.trunk.layers.1.bias"] = g_h2.sum(0)
+    g_h1 = mm(g_h2, W2) * (h1 > 0)
+    grads["actor.trunk.layers.0.weight"] = mm(g_h1.T, x)
+    grads["actor.trunk.layers.0.bias"] = g_h1.sum(0)
+
+    # critic towers
+    cw1, cb1 = p["critics.w.0"], p["critics.b.0"]
+    cw2, cb2 = p["critics.w.1"], p["critics.b.1"]
+    cwv, cbv = p["critics.w.2"], p["critics.b.2"]
+    gc = {n: [] for n in ("w.0", "b.0", "w.1", "b.1", "w.2", "b.2")}
+    vf = torch.zeros((), device=x.device)
+    for k in range(K):
+        h1k = torch.relu(mm(x, cw1[k].T) + cb1[k])
+        h2k = torch.relu(mm(h1k, cw2[k].T) + cb2[k])
+        v = (mm(h2k, cwv[k].T) + cbv[k])[:, 0]
+        diff = v - ret[:, k]
+        vf = vf + (diff * diff).sum()
+        g_v = (2.0 * vf_coef / B) * diff
+        gc["w.2"].append(mm(g_v[None], h2k))
+        gc["b.2"].append(g_v.sum(0, keepdim=True))
+        g_h2k = mm(g_v[:, None], cwv[k]) * (h2k > 0)
+        gc["w.1"].append(mm(g_h2k.T, h1k))
+        gc["b.1"].append(g_h2k.sum(0))
+        g_h1k = mm(g_h2k, cw2[k]) * (h1k > 0)
+        gc["w.0"].append(mm(g_h1k.T, x))
+        gc["b.0"].append(g_h1k.sum(0))
+    for n, parts in gc.items():
+        grads[f"critics.{n}"] = torch.stack(parts)
+
+    grad = torch.cat([grads[n].reshape(-1) for n, _ in layout.shapes()])
+    aux = torch.zeros(AUX_WIDTH, device=x.device)
+    aux[0] = (logp_old - logp).sum()
+    aux[1] = mins.sum()
+    aux[2] = vf
+    if M > 0:
+        aux[3: 3 + M] = (ratio[:, None] * cadv).sum(0)
+    return grad, aux
+
+
+def _launch(flat, layout: GradLayout, obs, act, logp_old, adv, ret, lam,
+            resc, *, eps_clip: float, vf_coef: float, bf16: bool):
+    B, D = obs.shape
+    K, A = layout.K, layout.A
+    req = kernels.require
+    req(layout.kernel_fits(),
+        f"fused PPO grad kernel takes H={KERNEL_H}, D<={KERNEL_D_MAX}, "
+        f"A<={KERNEL_A_MAX}, K-1<={KERNEL_M_MAX}; got {layout}")
+    expect = {"flat": (flat, (layout.size,)), "obs": (obs, (B, layout.D)),
+              "act": (act, (B, A)), "logp_old": (logp_old, (B,)),
+              "adv": (adv, (B, K)), "ret": (ret, (B, K)),
+              "lam": (lam, (K - 1,)), "resc": (resc, ())}
+    for name, (x, shape) in expect.items():
+        req(x.is_cuda and x.device == flat.device
+            and x.dtype == torch.float32 and x.is_contiguous()
+            and tuple(x.shape) == shape,
+            f"fused PPO grad kernel: {name} must be a contiguous float32 "
+            f"tensor of shape {shape} on {flat.device}, got {x.dtype} "
+            f"{tuple(x.shape)} on {x.device}")
+    lib = kernels.library()
+    grad = torch.empty(layout.size, device=flat.device)
+    aux = torch.empty(AUX_WIDTH, device=flat.device)
+    with torch.cuda.device(flat.device):
+        n_scratch = lib.fsrl_ppo_grad_scratch_floats(B, D, layout.H, A, K)
+        scratch = torch.empty(n_scratch, device=flat.device)
+        rc = lib.fsrl_ppo_grad(
+            flat.data_ptr(), obs.data_ptr(), act.data_ptr(),
+            logp_old.data_ptr(), adv.data_ptr(), ret.data_ptr(),
+            lam.data_ptr(), resc.data_ptr(), grad.data_ptr(), aux.data_ptr(),
+            scratch.data_ptr(), B, D, layout.H, A, K, int(bf16), n_scratch,
+            1.0 - eps_clip, 1.0 + eps_clip, vf_coef, kernels.stream_ptr())
+    kernels.check(rc, "fused PPO grad kernel")
+    kernels.LAUNCHES["fused_ppo_grad"] += 1
+    return grad, aux
+
+
+def ppo_grad_rows(flat, layout, obs, act, logp_old, adv, ret, lam, resc, *,
+                  eps_clip: float = 0.2, vf_coef: float = 0.25,
+                  bf16: bool = False):
+    """``(grad, aux_row)`` from the kernel (CUDA) or the plain version
+    (CPU)."""
+    fn = ppo_grad_plain if flat.device.type == "cpu" else _launch
+    return fn(flat, layout, obs, act, logp_old, adv, ret, lam, resc,
+              eps_clip=eps_clip, vf_coef=vf_coef, bf16=bf16)
+
+
+def ppo_grad_minibatch(flat, layout: GradLayout, obs, act, logp_old, adv,
+                       ret, lam, resc, *, eps_clip: float = 0.2,
+                       vf_coef: float = 0.25, bf16: bool = False):
+    """Gradient of the PPO-Lag minibatch loss. ``adv`` must already be
+    normalized. Returns ``(loss, aux, grad)``: ``aux`` is the metric dict the
+    autograd path produces, ``grad`` the flat gradient."""
+    grad, row = ppo_grad_rows(flat, layout, obs, act, logp_old, adv, ret,
+                              lam, resc, eps_clip=eps_clip, vf_coef=vf_coef,
+                              bf16=bf16)
+    B, M = obs.shape[0], layout.K - 1
+    kl = row[0] / B
+    loss_rew = -row[1] / B
+    loss_vf = row[2] / B
+    cost_terms = row[3: 3 + M] / B
+    loss_actor = resc * (loss_rew + (lam * cost_terms).sum())
+    lsig = layout.views(flat)["actor.log_sigma"]
+    entropy = (torch.log(torch.exp(lsig)) + 0.5 + LOG_SQRT_2PI).sum()
+    aux = dict(loss_actor_rew=loss_rew, loss_actor_total=loss_actor,
+               loss_vf_total=loss_vf, kl=kl, entropy=entropy)
+    return loss_actor + vf_coef * loss_vf, aux, grad

@@ -1,0 +1,180 @@
+"""Epoch-driven on-policy training loop (port of the feedforward, single
+device part of ``fsrl_tpu/trainer/trainer.py``).
+
+The inner loop collects a segment and updates the policy until
+``step_per_epoch`` env steps, then runs the episode-exact test, keeps the
+feasibility-first best result and checks ``stop_fn``. All collect and
+update work stays on the device; the host reads metrics back once every
+``log_every`` iterations, in one transfer.
+
+Not ported yet: the device mesh, ``fuse_iters``, the recurrent branch,
+checkpoints and resume.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from fsrl_torch.data.collector import evaluate, make_rollout_fn
+from fsrl_torch.envs.base import SafeEnv
+from fsrl_torch.types import EpisodeStats
+from fsrl_torch.utils.logger import BaseLogger, DummyLogger
+
+
+def perf_is_better(new_rew, new_cost, old_rew, old_cost, cost_limit) -> bool:
+    """Feasibility-first comparison: a feasible policy (every cost within its
+    limit) beats any infeasible one; within one feasibility class the higher
+    reward wins. ``cost_limit`` is a scalar or per-constraint list; scalar
+    costs compare against the sum of the limits."""
+    limit = np.atleast_1d(np.asarray(cost_limit, dtype=float))
+
+    def feasible(c):
+        c = np.atleast_1d(np.asarray(c, dtype=float))
+        if c.shape != limit.shape:
+            return float(np.sum(c)) <= float(np.sum(limit))
+        return bool(np.all(c <= limit))
+
+    new_feas, old_feas = feasible(new_cost), feasible(old_cost)
+    if new_feas and not old_feas:
+        return True
+    if old_feas and not new_feas:
+        return False
+    return new_rew > old_rew
+
+
+class BaseTrainer:
+    """Epoch iterator: train iterations up to ``step_per_epoch``, then the
+    episode-exact test, best-result tracking, ``stop_fn`` and speed
+    counters. ``state`` may be passed in (the agent does); otherwise it is
+    ``algo.init(seed)``."""
+
+    def __init__(self, algo, env: SafeEnv,
+                 logger: Optional[BaseLogger] = None, *, epochs: int = 100,
+                 step_per_epoch: int = 10000, n_envs: int = 20,
+                 steps_per_collect: int = 125, episode_per_test: int = 10,
+                 cost_limit: float = 10.0,
+                 stop_fn: Optional[Callable[[float, float], bool]] = None,
+                 seed: int = 0, verbose: bool = True, log_every: int = 1,
+                 state=None):
+        self.algo, self.env = algo, env
+        self.device = algo.device
+        self.logger = logger or DummyLogger()
+        self.epochs, self.step_per_epoch = epochs, step_per_epoch
+        self.n_envs, self.T = n_envs, steps_per_collect
+        self.episode_per_test = episode_per_test
+        self.cost_limit = cost_limit
+        self.stop_fn = stop_fn
+        self.verbose = verbose
+        self.log_every = max(1, int(log_every))
+        self._iter_count = 0
+
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.state = algo.init(seed) if state is None else state
+        # staggered episode clocks: a steady stream of finished episodes
+        # for the PID multiplier instead of lockstep truncation bursts
+        self.env_state = env.reset_vec(n_envs, self.generator, stagger=True)
+        self.stats = EpisodeStats.init(n_envs, env.num_costs, self.device)
+
+        self.epoch = 0
+        self.env_step = 0
+        self.best_rew, self.best_cost = -np.inf, np.inf
+        self.has_best = False
+        self.start_time = time.time()
+        self.last_metrics: dict = {}
+
+    def _run_iter(self) -> dict:
+        raise NotImplementedError
+
+    def test_step(self) -> tuple[float, float, float]:
+        out = evaluate(self.env, self.algo.act_fn_eval, self.state.params,
+                       self.generator, self.episode_per_test)
+        host = {k: float(v) for k, v in out.items()
+                if k in ("reward", "cost", "length")}
+        self.logger.store(tab="test", **host)
+        return host["reward"], host["cost"], host["length"]
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.epoch >= self.epochs:
+            raise StopIteration
+        self.epoch += 1
+        steps_this_epoch = 0
+        steps_per_iter = self.T * self.n_envs
+        while steps_this_epoch < self.step_per_epoch:
+            self._run_iter()
+            steps_this_epoch += steps_per_iter
+            self.env_step += steps_per_iter
+
+        rew, cost, length = self.test_step()
+        if perf_is_better(rew, cost, self.best_rew, self.best_cost,
+                          self.cost_limit) or not self.has_best:
+            self.best_rew, self.best_cost = rew, cost
+            self.has_best = True
+
+        dur = time.time() - self.start_time
+        speed = self.env_step / max(dur, 1e-9)
+        self.logger.store(tab="update", env_step=self.env_step, speed=speed,
+                          duration=dur, epoch=self.epoch,
+                          gradient_step=int(self.state.gradient_steps))
+        info = dict(epoch=self.epoch, env_step=self.env_step,
+                    best_reward=self.best_rew, best_cost=self.best_cost,
+                    test_reward=rew, test_cost=cost, test_length=length,
+                    speed=speed)
+        epoch_stats = dict(self.logger.stats_mean())
+        self.logger.write(self.env_step, display=self.verbose)
+
+        if self.stop_fn and self.stop_fn(self.best_rew, self.best_cost):
+            self.epoch = self.epochs
+        return self.epoch, epoch_stats, info
+
+    def run(self) -> dict:
+        info = {}
+        for _, _, info in self:
+            pass
+        return info
+
+    def _log_train(self, stats: EpisodeStats, metrics: dict) -> None:
+        """Every ``log_every`` iterations, one device-to-host transfer of
+        the collect's episodic statistics and the update's metrics."""
+        self._iter_count += 1
+        if self._iter_count % self.log_every:
+            return
+        names = list(metrics)
+        vals = torch.stack(
+            [stats.n_episodes.float(), stats.mean_reward,
+             stats.mean_cost.sum(), stats.mean_length]
+            + [metrics[k].float().reshape(()) for k in names]).tolist()
+        n_ep, rew, cost, length = vals[:4]
+        if n_ep > 0:
+            self.logger.store(tab="train", reward=rew, cost=cost,
+                              length=length, num_episodes=int(n_ep))
+        self.last_metrics = dict(zip(names, vals[4:]))
+        for k, v in self.last_metrics.items():
+            tab, name = k.split("/", 1)
+            self.logger.store(tab=tab, **{name: v})
+
+
+class OnpolicyTrainer(BaseTrainer):
+    """Collect a segment, step the PID multiplier, update the policy on the
+    whole segment: the on-policy schedule, feedforward policies only."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.rollout = make_rollout_fn(self.env, self.algo.act_fn, self.T,
+                                       self.device)
+
+    def _run_iter(self) -> dict:
+        res = self.rollout(self.state.params, self.env_state,
+                           self.stats.reset_aggregates(), self.generator)
+        self.state, metrics = self.algo.update(
+            self.state, res.transitions, res.stats.mean_cost,
+            res.stats.n_episodes, self.generator)
+        self.env_state, self.stats = res.env_state, res.stats
+        self._log_train(self.stats, metrics)
+        return metrics
