@@ -15,10 +15,16 @@ Phases, each of which must pass:
    are timed;
 2. update parity: one small f32 ``PPOLag.update`` on the card against the
    same update on the CPU (plain versions);
-3. K1: the GAE kernel against its plain version at (64, 4096, 2);
+3. K1: the GAE kernel against its plain version, bit for bit, at
+   (T, N, K) = (64, 4096, 2) and at ragged strips, a T above one time tile
+   and a column count that takes the 4-byte path; two launches on the same
+   inputs must give identical outputs;
 4. K2: the fused PPO-Lag grad kernel against its plain version at 32768 rows,
    D = 9, A = 2, H = 128, K = 2 and K = 3 in bf16 and K = 2 in f32, half the
-   rows with ratio == 1 exactly;
+   rows with ratio == 1 exactly; then at the envelope's edges (1000 and 100
+   rows, K = 1, K = 6, D = 12 with A = 4, D = 1); two launches on the same
+   inputs must give identical outputs; the reduce launch and an empty kernel
+   are timed on their own;
 5. summary: one JSON line of kernels, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}``.
 
@@ -165,34 +171,31 @@ def phase_breakdown(tr):
     tr.env_state, tr.stats = res.env_state, res.stats
     print(f"[breakdown] collect {roll_ms:.2f} ms; update {upd_ms:.2f} ms "
           f"(of which process_rollout {proc_ms:.2f} ms)", flush=True)
-    try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            torch.cuda.synchronize()
-            t = time.time()
-            tr._run_iter()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.time() - t)
-        # device-side events only: an aten op's row repeats the time of
-        # the kernels it launched
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        n_kernels = sum(e.count for e in events)
-        print(f"[breakdown] profiled iteration {wall_ms:.2f} ms wall, device "
-              f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-              f"{n_kernels} device ops", flush=True)
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-        for e in top:
-            print(f"[breakdown]   {e.self_device_time_total / 1e3:9.3f} ms "
-                  f"x{e.count:<6d} {e.key[:70]}", flush=True)
-    except Exception as e:  # measurement only: the run does not need it
-        print(f"[breakdown] device busy share not measured ({e!r})",
-              flush=True)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        torch.cuda.synchronize()
+        t = time.time()
+        tr._run_iter()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t)
+    # device-side events only: an aten op's row repeats the time of the
+    # kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    if not events:
+        fail("the profiler recorded no device time")
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    n_kernels = sum(e.count for e in events)
+    print(f"[breakdown] profiled iteration {wall_ms:.2f} ms wall, device "
+          f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{n_kernels} device ops", flush=True)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        print(f"[breakdown]   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<6d} {e.key[:70]}", flush=True)
 
 
 def phase_update_parity():
@@ -239,47 +242,71 @@ def phase_update_parity():
         fail("CUDA update disagrees with the CPU update")
 
 
-def phase_gae():
+def _gae_case(T: int, N: int, K: int):
+    """K1 against its plain version at one shape: max abs error (must be
+    0) and the inputs, for timing."""
     import torch
     from fsrl_torch.ops.gae import gae_advantages
     from fsrl_torch.ops.gae_kernel import gae_advantages_fused
 
-    T, N, K = 64, 4096, 2
-    g = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.Generator(device="cuda").manual_seed(T)
     m, v, vn = (torch.randn(T, N, K, device="cuda", generator=g)
                 for _ in range(3))
     end = torch.rand(T, N, device="cuda", generator=g) < 0.05
-    gamma, lam = 0.99, 0.95
-    adv_k, ret_k = gae_advantages_fused(m, v, vn, end, gamma, lam)
-    adv_p, ret_p = gae_advantages(m, v, vn, end, gamma, lam)
+    args = (m, v, vn, end, 0.99, 0.95)
+    adv_k, ret_k = gae_advantages_fused(*args)
+    adv_2, ret_2 = gae_advantages_fused(*args)
+    adv_p, ret_p = gae_advantages(*args)
     torch.cuda.synchronize()
     err = max(float((adv_k - adv_p).abs().max()),
               float((ret_k - ret_p).abs().max()))
-    ref = max(float(adv_p.abs().max()), float(ret_p.abs().max()))
-    # same operation order as the plain loop, no FMA contraction: f32
-    # rounding at most
-    tol = 1e-6 * ref + 1e-6
-    print(f"[K1 gae] max abs err {err:.3e} (tol {tol:.3e}, |ref| max "
-          f"{ref:.3f})", flush=True)
-    if not err <= tol:
-        fail("GAE kernel disagrees with its plain version")
-    ms = time_ms(lambda: gae_advantages_fused(m, v, vn, end, gamma, lam))
-    plain_ms = time_ms(lambda: gae_advantages(m, v, vn, end, gamma, lam))
+    same = torch.equal(adv_k, adv_2) and torch.equal(ret_k, ret_2)
+    # same operation order as the plain loop, no FMA contraction: the
+    # kernel must equal it bit for bit
+    print(f"[K1 gae ({T}, {N}, {K})] max abs err {err:.3e} (tol 0); two "
+          f"launches identical: {same}", flush=True)
+    if err != 0.0 or not same:
+        fail(f"GAE kernel disagrees with its plain version at {(T, N, K)}")
+    return err, args
+
+
+def phase_gae():
+    from fsrl_torch.ops import kernels
+    from fsrl_torch.ops.gae import gae_advantages
+    from fsrl_torch.ops.gae_kernel import (STRIP, TIME_TILE,
+                                           gae_advantages_fused)
+
+    lib = kernels.library()
+    if (lib.fsrl_gae_strip(), lib.fsrl_gae_time_tile()) != (STRIP, TIME_TILE):
+        fail("gae_kernel.py's STRIP / TIME_TILE are not the kernel's")
+    # ragged strip; T above one time tile with a ragged tile; a column
+    # count that is no multiple of 4 (4-byte accesses)
+    for shape in ((33, 1000, 3), (2 * TIME_TILE + 22, 500 + STRIP // 2, 2),
+                  (TIME_TILE + 1, 1001, 3)):
+        _gae_case(*shape)
+    T, N, K = 64, 4096, 2
+    err, args = _gae_case(T, N, K)
+    ms = time_ms(lambda: gae_advantages_fused(*args))
+    plain_ms = time_ms(lambda: gae_advantages(*args))
+    empty_ms = time_ms(kernels.empty_launch)
     nbytes = 5 * 4 * T * N * K + T * N
     flops = 6 * T * N * K
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
     print(f"[K1 gae] kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
           f"{bound_ms:.4f} ({nbytes} bytes)", flush=True)
+    print(f"[empty kernel] ms {empty_ms:.4f} (one launch replayed from a "
+          f"CUDA graph, as the kernels are timed)", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes")
 
 
-def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2):
+def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2,
+             timed: bool = True):
     import torch
     from fsrl_torch.algos.common import normalize_adv
     from fsrl_torch.algos.ppo_lag import PPOLag
     from fsrl_torch.ops.fused_ppo_grad import (policy_logp, ppo_grad_plain,
-                                               ppo_grad_rows)
+                                               ppo_grad_rows, reduce_launch)
 
     algo = PPOLag(D, A, num_costs=K - 1, cost_limit=[10.0] * (K - 1),
                   device="cuda")
@@ -302,6 +329,7 @@ def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2):
     args = (flat, layout, obs, act, logp_old, adv, ret, lam, resc)
     kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=bf16)
     gk, ak = ppo_grad_rows(*args, **kw)
+    g2, a2 = ppo_grad_rows(*args, **kw)
     gp, ap = ppo_grad_plain(*args, **kw)
     torch.cuda.synchronize()
     # bf16: both round the same f32 values to bf16, but f32 sums taken in
@@ -317,14 +345,18 @@ def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2):
         max_abs = max(max_abs, err)
         worst = max(worst, err / (scale + 1e-12))
     aux_err = float(((ak - ap).abs() / (ap.abs() + 1.0)).max())
-    tag = f"K={K} {'bf16' if bf16 else 'f32'}"
+    same = torch.equal(gk, g2) and torch.equal(ak, a2)
+    tag = f"B={B} D={D} A={A} K={K} {'bf16' if bf16 else 'f32'}"
     print(f"[K2 {tag}] max abs err {max_abs:.3e}, worst err / max|ref| "
           f"{worst:.3e} (tol {rel_tol:.0e}), aux rel err {aux_err:.3e} "
-          f"(tol {rel_tol:.0e})", flush=True)
-    if not (worst <= rel_tol and aux_err <= rel_tol):
+          f"(tol {rel_tol:.0e}); two launches identical: {same}", flush=True)
+    if not (worst <= rel_tol and aux_err <= rel_tol and same):
         fail(f"fused grad kernel disagrees with its plain version ({tag})")
+    if not timed:
+        return None
     ms = time_ms(lambda: ppo_grad_rows(*args, **kw))
     plain_ms = time_ms(lambda: ppo_grad_plain(*args, **kw))
+    reduce_ms = time_ms(lambda: reduce_launch(layout, B))
     H = layout.H
     per_row = sum(6 * H * H + 4 * D * H + 6 * H * o
                   for o in [A] + [1] * K)
@@ -334,10 +366,37 @@ def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2):
     bound_ms = 1e3 * max(flops / peak, nbytes / HBM_BYTES_PER_S)
     bound_by = "operations" if flops / peak > nbytes / HBM_BYTES_PER_S \
         else "bytes"
-    print(f"[K2 {tag}] kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+    print(f"[K2 {tag}] kernel_ms {ms:.4f} (of which the reduce launch "
+          f"{reduce_ms:.4f}) plain_ms {plain_ms:.4f} bound_ms "
           f"{bound_ms:.4f} ({flops} FLOP, {nbytes} bytes)", flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_k2_scaling(full_ms: float, B: int = 32768, K: int = 2):
+    """Splits the main-path time of the bf16 kernel into a cost per 128-row
+    chunk and a fixed cost (launches, weights, partials, reduce), from a
+    second timing at one chunk per block."""
+    from fsrl_torch.ops import kernels
+    # blocks per tower, as the library picks them for B rows
+    blocks = kernels.library().fsrl_ppo_grad_blocks(B, K)
+    walk = -(-(B // 128) // blocks)          # chunks of the longest block
+    one_ms = _k2_case(K, True, B=128 * blocks)["ms"]
+    per_chunk = (full_ms - one_ms) / (walk - 1)
+    print(f"[K2 scaling] {walk} chunks a block {full_ms:.4f} ms, 1 chunk a "
+          f"block {one_ms:.4f} ms: {1e3 * per_chunk:.2f} us a chunk, "
+          f"{1e3 * (one_ms - per_chunk):.2f} us fixed", flush=True)
+
+
+def phase_k2_edges():
+    """The bf16 kernel at the edges of its envelope, and the f32 kernel on
+    a ragged batch: errors only."""
+    for kw in (dict(K=2, B=1000), dict(K=2, B=100), dict(K=1, B=4096),
+               dict(K=6, B=4096), dict(K=2, B=4096, D=12, A=4),
+               dict(K=2, B=4096, D=1), dict(K=3, B=1000, D=5, A=3),
+               dict(K=2, B=4096, D=8, A=1)):
+        _k2_case(bf16=True, timed=False, **kw)
+    _k2_case(K=2, bf16=False, B=1000, timed=False)
 
 
 def main() -> int:
@@ -360,8 +419,10 @@ def main() -> int:
     phase_update_parity()
     k1 = phase_gae()
     k2 = _k2_case(2, True)
+    phase_k2_scaling(k2["ms"])
     _k2_case(3, True)
     _k2_case(2, False)
+    phase_k2_edges()
 
     kernels = [
         dict(name="gae", route="cuda", source="fsrl_torch/csrc/gae.cu",

@@ -1,5 +1,7 @@
 // Fused PPO-Lagrangian minibatch loss gradient: actor and K critic towers,
 // forward and hand-derived backward, in one launch plus a reduce launch.
+// This file holds the bf16 kernel (the main path), the reduce launch and the
+// entry point; the float32 kernel is in fused_ppo_grad_f32.cu.
 //
 // Replaces: fsrl_tpu/ops/fused_ppo_grad.py `_kernel` (entry
 // `ppo_grad_minibatch`). That Pallas kernel walks the minibatch in row
@@ -7,459 +9,608 @@
 // output block with `+=`, relying on the grid running in order.
 //
 // Bound on this card: operations. Per row and tower the forward and
-// backward take three 128x128 matmul-vector products (h1 W2, h1^T g_h2,
+// backward take three 128x128 matrix-vector products (h1 W2, h1^T g_h2,
 // g_h2 W2^T) plus small ones: ~312k FLOP per row for 3 towers, ~10.2 GFLOP
 // per launch at 32768 rows, ~10 us at the bf16 tensor-core peak of
-// 989 TFLOP/s. The inputs are ~2.5 MB. This first version uses the FP32
-// pipes (67 TFLOP/s peak), not the tensor cores, so its floor is ~150 us.
+// 989 TFLOP/s. The inputs are ~2.5 MB.
 //
 // Design:
-// * Grid (G, 1+K): blockIdx.y picks the tower (0 = actor, 1..K = critics).
-//   The actor and each critic depend only on their own parameters, so
-//   towers never exchange data. Each block loops over row chunks
-//   c = blockIdx.x, blockIdx.x + G, ...; G is chosen so the grid about
-//   fills the SMs once.
-// * No accumulation across blocks: each block keeps its tower's gradient
-//   partial (H*H in registers, 8x8 per thread; the rest in shared memory),
-//   writes it to scratch once, and a second kernel sums the G partials in a
-//   fixed order. No float atomics, so runs reproduce bit for bit.
-// * A chunk is 128 rows. x, h1, h2 (later g_h2) and W2 live in shared
-//   memory (~218 KB at D=9); the three large products use an interleaved
-//   8x8 register tile per thread over a 16x16 thread grid, with a row
-//   stride of H+1 floats so row and column reads are both free of bank
-//   conflicts. The ragged last chunk is masked: its rows get zero
+// * Grid (G, 1+K): blockIdx.y picks the tower (0 = actor, 1..K = critics);
+//   towers never exchange data. A block of two warpgroups walks the 128-row
+//   chunks blockIdx.x, blockIdx.x + G, ...; G is the smallest grid that keeps
+//   the longest walk as short as filling the SMs once allows, so blocks do
+//   equal numbers of chunks up to one.
+// * All five products of a chunk run on the tensor cores with `wgmma`
+//   (m64n128k16, and m64n16k16 for dW1), each warpgroup owning 64 of the M
+//   rows:
+//     P0  h1  = relu(x W1^T + b1)       M rows,  N out, K = D padded to 16
+//     P1  h2  = relu(h1 W2^T + b2)      M rows,  N out, K in
+//     P2  dW2 += g_h2^T h1              M out,   N in,  K rows
+//     P3  g_h1 = (g_h2 W2) * (h1 > 0)   M rows,  N in,  K out
+//     P4  dW1 += g_h1^T x               M out,   N = D padded to 16, K rows
+//   Operands are bf16 tiles in shared memory in wgmma's unswizzled
+//   core-matrix layout (wgmma.cuh). One stored copy of W2 serves P1 and P3,
+//   one of h1 P1 and P2, one of g_h2 P2 and P3, one of x P0 and P4, through
+//   the descriptors' transpose bits. h1, g_h2 and g_h1 are written into
+//   that layout by the threads that hold the accumulator fragments.
+// * dW2 (64 registers a thread) and dW1 (8) accumulate in the wgmma
+//   accumulators across the block's chunks and leave registers once.
+// * Epilogues work on the fragments: bias, ReLU and the bf16 rounding. h2
+//   stays in registers until g_h2 replaces it, so it never reaches shared
+//   memory and is its own ReLU mask; the h1 > 0 mask is read back from the
+//   h1 tile. A row of a fragment is spread over the four lanes of a
+//   quad, so the heads' dot products on unrounded f32 h2 are a partial sum
+//   per lane and two shuffles; two lanes of the quad then evaluate one
+//   row's loss each and hand the head's gradient to the quad. Column sums
+//   over rows (head weight and bias gradients) are a halving exchange over
+//   the warp's eight row lanes into per-warp accumulators in shared memory,
+//   summed over the warps at the end.
+// * The chunk's rows (obs, act, logp_old, adv / ret) are fetched one chunk
+//   ahead with cp.async into a two-slot ring; weights are loaded once.
+// * No accumulation across blocks: each block writes its partial to scratch
+//   and `ppo_grad_reduce` sums the G partials in a fixed order. No float
+//   atomics and fixed shuffle orders, so runs reproduce bit for bit.
+// * The ragged last chunk is zero-filled and masked: its rows get zero
 //   gradient and no aux contribution.
-// * Tie conventions are JAX's (fused_ppo_grad.py:103-111): d min(s1, s2)
-//   splits 0.5/0.5 where s1 == s2, and the clip passes 0.5 where
-//   ratio == 1 +- eps.
-// * bf16 (BF = true): every matmul operand that the Pallas kernel casts to
-//   bf16 is rounded with __float2bfloat16 and multiplied in f32, which is
-//   exact, with f32 accumulation. Activations, biases, the actor's mean head
-//   and every bias gradient stay f32, as in the Pallas kernel.
+// * bf16 cast points are the Pallas kernel's: operands of the trunk
+//   products, of the critic head and of every dW are rounded to bf16
+//   (products exact, sums in f32); biases, activations, the actor's mean
+//   head, its weight gradient and every bias gradient stay f32.
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "ppo_grad_common.cuh"
+#include "wgmma.cuh"
 
+namespace ppo {
 namespace {
 
-constexpr int H = 128;      // hidden width (both layers)
-constexpr int R = 128;      // rows per chunk
-constexpr int NT = 256;     // threads per block (16 x 16)
-constexpr int HP = H + 1;   // padded shared-memory row stride
-constexpr int DMAX = 12;    // largest observation width that fits
-constexpr int AMAX = 4;     // largest action width
-constexpr int MMAX = 5;     // largest number of constraints
-constexpr int AUXW = 8;     // aux partial width per tower
+constexpr int NCG = H / 8;        // column groups of a 128-wide tile
+constexpr int XCG = 2;            // column groups of the x / W1 tiles
+constexpr int TILE = R * H * 2;   // bytes of a 128x128 bf16 tile
+constexpr int XTILE = R * 16 * 2; // bytes of a 128x16 bf16 tile
+constexpr int NW = NT / 32;       // warps per block
+constexpr int NSUM = 2 * AMAX + 3 + MMAX;   // per-thread sums of a block
 
-template <bool BF>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (BF) {
-    return __bfloat162float(__float2bfloat16(x));
-  } else {
-    return x;
+__host__ __device__ int slot_floats(int D, int A, int K) {
+  return R * (D + A + 1 + 2 * K);
+}
+__host__ __device__ size_t smem_bytes(int D, int A, int K) {
+  return 4 * TILE + 2 * XTILE +
+         sizeof(float) * (2 * H + AMAX * H + AMAX + NW * AMAX * H +
+                          2 * NW * H + 2 * slot_floats(D, A, K) + NT);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// n_total floats from global to shared memory. A full chunk whose source
+// is 16-byte aligned goes 16 bytes a copy; else 4 bytes a copy, and the
+// floats from n_valid on are zero-filled (source size 0 reads nothing).
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           int n_valid, int n_total,
+                                           bool vec) {
+  if (vec && n_valid == n_total) {
+    for (int i = 4 * threadIdx.x; i < n_total; i += 4 * NT)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       wg::smem_addr(dst + i)),
+                   "l"(src + i)
+                   : "memory");
+    return;
+  }
+  for (int i = threadIdx.x; i < n_total; i += NT) {
+    const bool ok = i < n_valid;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     wg::smem_addr(dst + i)),
+                 "l"(src + (ok ? i : 0)), "r"(ok ? 4 : 0)
+                 : "memory");
   }
 }
 
-// Offsets of one tower's tensors. Segments s: 0 W1 (H,D), 1 b1 (H),
-// 2 W2 (H,H), 3 b2 (H), 4 head weight (O,H), 5 head bias (O),
-// 6 log-sigma (A, actor only). Tower-local order is the segment order; the
-// flat parameter vector holds the actor's segments in order, then each
-// critic segment stacked over the K critics.
-struct Layout {
-  int D, A, K;
-  __host__ __device__ int seg_len(int t, int s) const {
-    switch (s) {
-      case 0: return H * D;
-      case 1: return H;
-      case 2: return H * H;
-      case 3: return H;
-      case 4: return t == 0 ? A * H : H;
-      case 5: return t == 0 ? A : 1;
-      case 6: return t == 0 ? A : 0;
-      default: return 0;
-    }
-  }
-  __host__ __device__ int local_off(int t, int s) const {
-    int o = 0;
-    for (int i = 0; i < s; ++i) o += seg_len(t, i);
-    return o;
-  }
-  __host__ __device__ int tower_size(int t) const { return local_off(t, 7); }
-  __host__ __device__ int global_off(int t, int s) const {
-    if (t == 0) return local_off(0, s);
-    int base = tower_size(0);
-    for (int i = 0; i < s; ++i) base += K * seg_len(1, i);
-    return base + (t - 1) * seg_len(1, s);
-  }
-};
-
-__host__ __device__ int smem_floats(int D) {
-  return R * D + D * H + 2 * R * HP + H * HP + 2 * H + AMAX * H + AMAX +
-         2 * R * AMAX + 2 * H + H * D + 2 * H + AMAX * H + 2 * AMAX + NT;
+// The 32 columns of a thread's fragment (8 * jb + 2 * q, + 1) of a row of
+// floats in shared memory, loaded together so that their latencies overlap.
+__device__ __forceinline__ void load_cols(float2 (&ld)[16], const float* row,
+                                          int q) {
+#pragma unroll
+  for (int jb = 0; jb < 16; ++jb)
+    ld[jb] = *reinterpret_cast<const float2*>(row + 8 * jb + 2 * q);
 }
 
-// Deterministic block sum of one value per thread; result valid in tid 0.
-__device__ float block_sum(float v, float* red) {
-  const int tid = threadIdx.x;
-  red[tid] = v;
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
-    __syncthreads();
+// One level of the sum over a warp's eight row lanes (lane bits 2..4): the
+// lanes of a pair split the N2 * 2 values, each keeps one half and adds the
+// partner's. After levels 16, 8, 4 on 32 values lane l holds in v[0..3] the
+// sums over all eight row lanes of the values 4 * (l / 4) + i.
+template <int N2>
+__device__ __forceinline__ void halve(float (&v)[32], int lane, int bit) {
+  const bool up = lane & bit;
+#pragma unroll
+  for (int i = 0; i < N2; ++i) {
+    const float send = up ? v[i] : v[i + N2];
+    const float keep = up ? v[i + N2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
   }
-  const float out = red[0];
-  __syncthreads();
-  return out;
 }
 
-template <bool BF>
+// Column sums of a fragment-shaped array over the warp's 16 rows, added
+// into acc[col]. v[2 * jb + e] holds the sum of the lane's two rows at
+// column 8 * jb + 2 * (lane % 4) + e.
+__device__ __forceinline__ void add_column_sums(float (&v)[32], int lane,
+                                                float* acc) {
+  halve<16>(v, lane, 16);
+  halve<8>(v, lane, 8);
+  halve<4>(v, lane, 4);
+  const int i0 = 4 * (((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 +
+                      ((lane >> 2) & 1));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int idx = i0 + i;
+    acc[8 * (idx >> 1) + 2 * (lane & 3) + (idx & 1)] += v[i];
+  }
+}
+
 __global__ void __launch_bounds__(NT, 1)
-ppo_grad_kernel(const float* __restrict__ params,
-                const float* __restrict__ obs, const float* __restrict__ act,
-                const float* __restrict__ logp_old,
-                const float* __restrict__ adv, const float* __restrict__ ret,
-                const float* __restrict__ lam,
-                const float* __restrict__ resc_p, float* __restrict__ part,
-                float* __restrict__ part_aux, int B, int D, int A, int K,
-                float clip_lo, float clip_hi, float gv_scale,
-                float a_log_sqrt_2pi) {
-  extern __shared__ float sm[];
+ppo_grad_bf16_kernel(const Args p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int B = p.B, D = p.D, A = p.A, K = p.K;
   const Layout L{D, A, K};
   const int tower = blockIdx.y;
   const int g = blockIdx.x, G = gridDim.x;
   const bool actor = tower == 0;
   const int O = actor ? A : 1;
   const int M = K - 1;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wgid = tid >> 7, q = lane & 3;
+  const int m0 = 64 * wgid;                          // the warpgroup's M rows
+  const int row_lo = m0 + 16 * (warp & 3) + (lane >> 2);  // and row_lo + 8
 
-  float* xs = sm;                  // [R][D]
-  float* W1s = xs + R * D;         // [D][H]  (in, out)
-  float* h1s = W1s + D * H;        // [R][HP] h1, later g_h1
-  float* h2s = h1s + R * HP;       // [R][HP] h2, later g_h2
-  float* W2s = h2s + R * HP;       // [H][HP] (in, out)
-  float* b1s = W2s + H * HP;
+  unsigned char* W2t = smem;            // [out][in]
+  unsigned char* h1t = W2t + TILE;      // [row][in]
+  unsigned char* g2t = h1t + TILE;      // [row][out]  g_h2
+  unsigned char* g1t = g2t + TILE;      // [row][in]   g_h1
+  unsigned char* xt = g1t + TILE;       // [row][16]   x, columns >= D zero
+  unsigned char* W1t = xt + XTILE;      // [out][16]
+  float* b1s = reinterpret_cast<float*>(W1t + XTILE);
   float* b2s = b1s + H;
-  float* whs = b2s + H;            // [O][H] head weight
+  float* whs = b2s + H;                 // [O][H] head weight
   float* bhs = whs + AMAX * H;
-  float* gs = bhs + AMAX;          // [R][AMAX] per-row head gradient
-  float* rowv = gs + R * AMAX;     // [R][AMAX] per-row d logp / d log-sigma
-  float* colp = rowv + R * AMAX;   // [2][H] column partial sums
-  float* pW1 = colp + 2 * H;       // [H][D] gradient partials from here on
-  float* pb1 = pW1 + H * D;
-  float* pb2 = pb1 + H;
-  float* pWh = pb2 + H;            // [O][H]
-  float* pbh = pWh + AMAX * H;
-  float* pls = pbh + AMAX;
-  float* red = pls + AMAX;         // [NT]
+  float* pWh = bhs + AMAX;              // [NW][AMAX][H] per-warp partials
+  float* pb2 = pWh + NW * AMAX * H;     // [NW][H]
+  float* pb1 = pb2 + NW * H;            // [NW][H]
+  float* ring = pb1 + NW * H;           // [2][slot]
+  const int slot = slot_floats(D, A, K);
+  float* red = ring + 2 * slot;         // [NT]
+  const uint32_t aW2 = wg::smem_addr(W2t), ah1 = wg::smem_addr(h1t),
+                 ag2 = wg::smem_addr(g2t), ag1 = wg::smem_addr(g1t),
+                 ax = wg::smem_addr(xt), aW1 = wg::smem_addr(W1t);
 
-  const float* gW1 = params + L.global_off(tower, 0);
-  const float* gb1 = params + L.global_off(tower, 1);
-  const float* gW2 = params + L.global_off(tower, 2);
-  const float* gb2 = params + L.global_off(tower, 3);
-  const float* gWh = params + L.global_off(tower, 4);
-  const float* gbh = params + L.global_off(tower, 5);
-  const float* gls = params + L.global_off(0, 6);
+  const float* gW1 = p.params + L.global_off(tower, 0);
+  const float* gb1 = p.params + L.global_off(tower, 1);
+  const float* gW2 = p.params + L.global_off(tower, 2);
+  const float* gb2 = p.params + L.global_off(tower, 3);
+  const float* gWh = p.params + L.global_off(tower, 4);
+  const float* gbh = p.params + L.global_off(tower, 5);
+  const float* gls = p.params + L.global_off(0, 6);
 
-  for (int i = tid; i < H * D; i += NT) {
-    const int j = i / D, d = i % D;
-    W1s[d * H + j] = rnd<BF>(gW1[i]);
-    pW1[i] = 0.f;
+  // The chunk's rows, one chunk ahead.
+  const int n_chunks = (B + R - 1) / R;
+  auto fetch = [&](int c, int s) {
+    float* dst = ring + s * slot;
+    const size_t r0 = (size_t)c * R;
+    const int nr = min(R, B - (int)r0);
+    const bool vec = p.aligned16;
+    copy_async(dst, p.obs + r0 * D, nr * D, R * D, vec);
+    dst += R * D;
+    if (actor) {
+      copy_async(dst, p.act + r0 * A, nr * A, R * A, vec);
+      copy_async(dst + R * A, p.logp_old + r0, nr, R, vec);
+      copy_async(dst + R * (A + 1), p.adv + r0 * K, nr * K, R * K, vec);
+    } else {
+      copy_async(dst + R * (A + 1 + K), p.ret + r0 * K, nr * K, R * K, vec);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  fetch(g, 0);
+
+  // Weights, once: W2 and W1 as bf16 tiles (16-byte units of 8 inputs).
+  // (unrolled, so that all of a thread's loads are in flight together)
+#pragma unroll
+  for (int u = tid; u < H * NCG; u += NT) {
+    const int j = 8 * (u >> 7) + (u & 7), k = 8 * ((u >> 3) & 15);
+    const float* w = gW2 + j * H + k;   // a tower's offset may be odd
+    *reinterpret_cast<uint4*>(W2t + wg::tile_off(j, k, NCG)) =
+        make_uint4(pack_bf16(w[0], w[1]), pack_bf16(w[2], w[3]),
+                   pack_bf16(w[4], w[5]), pack_bf16(w[6], w[7]));
   }
-  for (int i = tid; i < H * H; i += NT) {
-    const int j = i / H, k = i % H;
-    W2s[k * HP + j] = rnd<BF>(gW2[i]);
+  {
+    const int j = 8 * (tid >> 4) + (tid & 7), d0 = 8 * ((tid >> 3) & 1);
+    float w[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      w[i] = d0 + i < D ? gW1[j * D + d0 + i] : 0.f;
+    *reinterpret_cast<uint4*>(W1t + wg::tile_off(j, d0, XCG)) =
+        make_uint4(pack_bf16(w[0], w[1]), pack_bf16(w[2], w[3]),
+                   pack_bf16(w[4], w[5]), pack_bf16(w[6], w[7]));
   }
   for (int i = tid; i < H; i += NT) {
     b1s[i] = gb1[i];
     b2s[i] = gb2[i];
-    pb1[i] = 0.f;
+  }
+  for (int i = tid; i < O * H; i += NT)
+    whs[i] = actor ? gWh[i] : round_bf16(gWh[i]);
+  if (tid < O) bhs[tid] = gbh[tid];
+  for (int i = tid; i < NW * AMAX * H; i += NT) pWh[i] = 0.f;
+  for (int i = tid; i < NW * H; i += NT) {
     pb2[i] = 0.f;
+    pb1[i] = 0.f;
   }
-  for (int i = tid; i < O * H; i += NT) {
-    whs[i] = actor ? gWh[i] : rnd<BF>(gWh[i]);
-    pWh[i] = 0.f;
-  }
-  if (tid < O) {
-    bhs[tid] = gbh[tid];
-    pbh[tid] = 0.f;
-  }
-  if (tid < AMAX) pls[tid] = 0.f;
 
-  float lsig[AMAX], sig[AMAX], lsig_sum = 0.f, lamv[MMAX];
-  if (actor) {
-    for (int a = 0; a < A; ++a) {
-      lsig[a] = gls[a];
-      sig[a] = expf(lsig[a]);
-      lsig_sum += lsig[a];
-    }
+  float sig[AMAX], lsig_sum = 0.f, lamv[MMAX];
+#pragma unroll
+  for (int a = 0; a < AMAX; ++a) {
+    const float ls = (actor && a < A) ? gls[a] : 0.f;
+    sig[a] = expf(ls);
+    lsig_sum += ls;
   }
-  for (int m = 0; m < M; ++m) lamv[m] = lam[m];
-  const float resc = *resc_p;
+#pragma unroll
+  for (int m = 0; m < MMAX; ++m) lamv[m] = m < M ? p.lam[m] : 0.f;
+  const float resc = *p.resc;
 
-  float dW2[8][8];
+  float dW2[64], dW1[8], acc[64];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 64; ++i) dW2[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dW2[i][j] = 0.f;
-  float a_kl = 0.f, a_mins = 0.f, a_vf = 0.f, a_c[MMAX];
+  for (int i = 0; i < 8; ++i) dW1[i] = 0.f;
+  // per-thread sums over the block's rows (lanes 0 and 1 of each quad)
+  float s_bh[AMAX], s_ls[AMAX], a_c[MMAX], a_kl = 0.f, a_mins = 0.f,
+                                           a_vf = 0.f;
+#pragma unroll
+  for (int a = 0; a < AMAX; ++a) s_bh[a] = s_ls[a] = 0.f;
+#pragma unroll
   for (int m = 0; m < MMAX; ++m) a_c[m] = 0.f;
 
-  const int n_chunks = (B + R - 1) / R;
-  __syncthreads();
-  for (int c = g; c < n_chunks; c += G) {
-    const int r0 = c * R;
-    const int nr = min(R, B - r0);
-
-    for (int i = tid; i < R * D; i += NT)
-      xs[i] = (i / D) < nr ? rnd<BF>(obs[(size_t)r0 * D + i]) : 0.f;
-    __syncthreads();
-
-    // h1 = relu(x W1 + b1)
-    for (int i = tid; i < R * H; i += NT) {
-      const int r = i / H, j = i % H;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s += xs[r * D + d] * W1s[d * H + j];
-      h1s[r * HP + j] = rnd<BF>(fmaxf(s + b1s[j], 0.f));
+  wg::fence_async_smem();
+  int it = 0;
+  for (int c = g; c < n_chunks; c += G, ++it) {
+    const int nr = min(R, B - c * R);
+    const float* rows = ring + (it & 1) * slot;
+    if (c + G < n_chunks) {
+      fetch(c + G, (it + 1) & 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
+    // the chunk's rows have landed, and every warp has left the last chunk
     __syncthreads();
 
-    // h2 = relu(h1 W2 + b2)
+    // x as a bf16 tile; each warpgroup converts the rows it multiplies
     {
-      float acc[8][8];
+      const int r = 8 * (tid >> 4) + (tid & 7), d0 = 8 * ((tid >> 3) & 1);
+      float x[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int k = 0; k < H; ++k) {
-        float a[8], b[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = h1s[(ty + 16 * i) * HP + k];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = W2s[k * HP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = tx + 16 * j;
-          h2s[(ty + 16 * i) * HP + col] = fmaxf(acc[i][j] + b2s[col], 0.f);
-        }
+        x[i] = d0 + i < D ? rows[r * D + d0 + i] : 0.f;
+      *reinterpret_cast<uint4*>(xt + wg::tile_off(r, d0, XCG)) =
+          make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                     pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
     }
-    __syncthreads();
+    wg::fence_async_smem();
+    wg::warpgroup_sync(wgid);
 
-    // per-row head, loss terms and the gradient at the head's output
-    if (tid < R) {
-      const int r = tid;
-      const size_t row = (size_t)r0 + r;
-      const bool live = r < nr;
+    // P0: h1 = relu(x W1^T + b1), rounded to bf16 into its tile
+    wg::arrive();
+    wg::mma_m64n128k16<0, 0>(acc, wg::desc_kmajor(ax, XCG, m0, 0),
+                             wg::desc_kmajor(aW1, XCG, 0, 0), 0);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_regs(acc);
+    float2 ld[16];   // a fragment's worth of loads, issued before their use
+    load_cols(ld, b1s, q);
+#pragma unroll
+    for (int jb = 0; jb < 16; ++jb) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = fmaxf(acc[4 * jb + 2 * h] + ld[jb].x, 0.f);
+        const float v1 = fmaxf(acc[4 * jb + 2 * h + 1] + ld[jb].y, 0.f);
+        *reinterpret_cast<uint32_t*>(
+            h1t + wg::tile_off(row_lo + 8 * h, 8 * jb + 2 * q, NCG)) =
+            pack_bf16(v0, v1);
+      }
+    }
+    wg::fence_async_smem();
+    wg::warpgroup_sync(wgid);
+
+    // P1: h2 = relu(h1 W2^T + b2), kept in registers as f32
+    wg::arrive();
+#pragma unroll
+    for (int ks = 0; ks < H / 16; ++ks)
+      wg::mma_m64n128k16<0, 0>(acc, wg::desc_kmajor(ah1, NCG, m0, 16 * ks),
+                               wg::desc_kmajor(aW2, NCG, 0, 16 * ks), ks > 0);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_regs(acc);
+    load_cols(ld, b2s, q);
+#pragma unroll
+    for (int jb = 0; jb < 16; ++jb) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = fmaxf(acc[4 * jb + 2 * h] + ld[jb].x, 0.f);
+        const float v1 = fmaxf(acc[4 * jb + 2 * h + 1] + ld[jb].y, 0.f);
+        // the critic's head and its weight gradient take h2 in bf16
+        // (rounding keeps the sign, so h2 > 0 can still be read off it)
+        acc[4 * jb + 2 * h] = actor ? v0 : round_bf16(v0);
+        acc[4 * jb + 2 * h + 1] = actor ? v1 : round_bf16(v1);
+      }
+    }
+
+    // heads: a partial dot product per lane, summed over the quad
+    float hd[2][AMAX];
+#pragma unroll
+    for (int a = 0; a < AMAX; ++a) {
+      hd[0][a] = hd[1][a] = 0.f;
+      if (a < O) {
+        load_cols(ld, whs + a * H, q);
+#pragma unroll
+        for (int jb = 0; jb < 16; ++jb) {
+          hd[0][a] += acc[4 * jb] * ld[jb].x + acc[4 * jb + 1] * ld[jb].y;
+          hd[1][a] += acc[4 * jb + 2] * ld[jb].x + acc[4 * jb + 3] * ld[jb].y;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          hd[h][a] += __shfl_xor_sync(0xffffffffu, hd[h][a], 1);
+          hd[h][a] += __shfl_xor_sync(0xffffffffu, hd[h][a], 2);
+          hd[h][a] += bhs[a];
+        }
+      }
+    }
+
+    // the row's loss and the gradient at the head's output. Every lane
+    // of a quad holds both rows' head outputs; lanes 0 and 1 of the quad
+    // take row_lo and row_lo + 8 (lanes 2 and 3 repeat them, unused).
+    float gh[2][AMAX];
+    {
+      const int h = q & 1, r = row_lo + 8 * h;
+      const bool live = r < nr, mine = live && q < 2;
+      float hr[AMAX], g_out[AMAX];
+#pragma unroll
+      for (int a = 0; a < AMAX; ++a) {
+        hr[a] = h ? hd[1][a] : hd[0][a];
+        g_out[a] = 0.f;
+      }
       if (actor) {
-        if (live) {
-          float mu[AMAX], z[AMAX], sq = 0.f;
-          for (int a = 0; a < A; ++a) {
-            float s = 0.f;
-            for (int j = 0; j < H; ++j) s += h2s[r * HP + j] * whs[a * H + j];
-            mu[a] = tanhf(s + bhs[a]);
-            z[a] = (act[row * A + a] - mu[a]) / sig[a];
-            sq += -0.5f * z[a] * z[a];
+        // a dead row is zero-filled, so its loss is finite; it is masked
+        const float* adv_row = rows + R * (D + A + 1) + r * K;
+        const ActorRow o =
+            actor_row(hr, rows + R * D + r * A, rows[R * (D + A) + r],
+                      adv_row, sig, lsig_sum, lamv, resc, p);
+#pragma unroll
+        for (int a = 0; a < AMAX; ++a) g_out[a] = live ? o.g_mu[a] : 0.f;
+        if (mine) {
+#pragma unroll
+          for (int a = 0; a < AMAX; ++a) {
+            s_bh[a] += o.g_mu[a];
+            s_ls[a] += o.g_ls[a];
           }
-          const float logp = sq - lsig_sum - a_log_sqrt_2pi;
-          const float lo = logp_old[row];
-          const float ratio = expf(logp - lo);
-          const float advr = adv[row * K];
-          const float rc = fminf(fmaxf(ratio, clip_lo), clip_hi);
-          const float s1 = ratio * advr, s2 = rc * advr;
-          const float w1 = s1 < s2 ? 1.f : (s1 == s2 ? 0.5f : 0.f);
-          const float w2 = 1.f - w1;
-          const float inside =
-              (ratio > clip_lo && ratio < clip_hi)
-                  ? 1.f
-                  : ((ratio == clip_lo || ratio == clip_hi) ? 0.5f : 0.f);
-          const float dmin = advr * (w1 + w2 * inside);
-          float lsum = 0.f;
-          for (int m = 0; m < M; ++m) {
-            const float ca = adv[row * K + 1 + m];
-            lsum += ca * lamv[m];
-            a_c[m] += ratio * ca;
-          }
-          const float g_ratio = resc * (-dmin + lsum) / (float)B;
-          const float g_logp = g_ratio * ratio;
-          for (int a = 0; a < A; ++a) {
-            gs[r * AMAX + a] = g_logp * (z[a] / sig[a]) * (1.f - mu[a] * mu[a]);
-            rowv[r * AMAX + a] = g_logp * (z[a] * z[a] - 1.f);
-          }
-          a_kl += lo - logp;
-          a_mins += fminf(s1, s2);
-        } else {
-          for (int a = 0; a < A; ++a) {
-            gs[r * AMAX + a] = 0.f;
-            rowv[r * AMAX + a] = 0.f;
-          }
+#pragma unroll
+          for (int m = 0; m < MMAX; ++m)
+            if (m < M) a_c[m] += o.ratio * adv_row[1 + m];
+          a_kl += o.kl;
+          a_mins += o.mins;
         }
       } else {
-        if (live) {
-          float s = 0.f;
-          for (int j = 0; j < H; ++j) s += rnd<BF>(h2s[r * HP + j]) * whs[j];
-          const float diff = (s + bhs[0]) - ret[row * K + (tower - 1)];
+        const float diff =
+            hr[0] - rows[R * (D + A + 1 + K) + r * K + (tower - 1)];
+        const float gv = p.gv_scale * diff;
+        g_out[0] = live ? round_bf16(gv) : 0.f;
+        if (mine) {
           a_vf += diff * diff;
-          gs[r * AMAX] = gv_scale * diff;
-        } else {
-          gs[r * AMAX] = 0.f;
+          s_bh[0] += gv;
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < AMAX; ++a) {
+        gh[0][a] = gh[1][a] = 0.f;
+        if (a < O) {
+          gh[0][a] = __shfl_sync(0xffffffffu, g_out[a], lane & ~3);
+          gh[1][a] = __shfl_sync(0xffffffffu, g_out[a], (lane & ~3) + 1);
         }
       }
     }
-    __syncthreads();
 
-    // head weight / bias / log-sigma gradients
-    for (int o = tid; o < O * H; o += NT) {
-      const int a = o / H, j = o % H;
-      float s = 0.f;
-      if (actor) {
-        for (int r = 0; r < nr; ++r) s += h2s[r * HP + j] * gs[r * AMAX + a];
-      } else {
-        for (int r = 0; r < nr; ++r)
-          s += rnd<BF>(h2s[r * HP + j]) * rnd<BF>(gs[r * AMAX]);
+    // head weight gradient: column sums of gh[row][a] * h2[row][col]
+    float v[32];
+#pragma unroll
+    for (int a = 0; a < AMAX; ++a)
+      if (a < O) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          v[i] = gh[0][a] * acc[4 * (i >> 1) + (i & 1)] +
+                 gh[1][a] * acc[4 * (i >> 1) + 2 + (i & 1)];
+        add_column_sums(v, lane, pWh + (warp * AMAX + a) * H);
       }
-      pWh[o] += s;
-    }
-    if (tid < O) {
-      float s = 0.f;
-      for (int r = 0; r < nr; ++r) s += gs[r * AMAX + tid];
-      pbh[tid] += s;
-    }
-    if (actor && tid >= H && tid - H < A) {
-      const int a = tid - H;
-      float s = 0.f;
-      for (int r = 0; r < nr; ++r) s += rowv[r * AMAX + a];
-      pls[a] += s;
-    }
-    __syncthreads();
 
-    // g_h2 = (g_head Wh) * (h2 > 0), in place of h2; column sums for b2
-    {
-      const int j = tid & (H - 1), half = tid >> 7;
-      float cs = 0.f;
-      for (int r = half; r < R; r += 2) {
-        float s;
-        if (actor) {
-          s = 0.f;
-          for (int a = 0; a < A; ++a) s += gs[r * AMAX + a] * whs[a * H + j];
-        } else {
-          s = rnd<BF>(gs[r * AMAX]) * whs[j];
+    // g_h2 = (gh Wh) * (h2 > 0) in place of h2; its column sums are db2,
+    // and it goes to its tile in bf16
+#pragma unroll
+    for (int j0 = 0; j0 < 16; j0 += 8) {   // 8 column groups at a time
+      float s[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+      for (int a = 0; a < AMAX; ++a)
+        if (a < O) {
+          float2 w[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            w[i] = *reinterpret_cast<const float2*>(whs + a * H +
+                                                    8 * (j0 + i) + 2 * q);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            s[i][0] += gh[0][a] * w[i].x;
+            s[i][1] += gh[0][a] * w[i].y;
+            s[i][2] += gh[1][a] * w[i].x;
+            s[i][3] += gh[1][a] * w[i].y;
+          }
         }
-        const float gv = h2s[r * HP + j] > 0.f ? s : 0.f;
-        cs += gv;
-        h2s[r * HP + j] = rnd<BF>(gv);
-      }
-      colp[half * H + j] = cs;
-    }
-    __syncthreads();
-    if (tid < H) pb2[tid] += colp[tid] + colp[H + tid];
-
-    // dW2 += h1^T g_h2  (registers, [in k = ty+16i][out j = tx+16j])
-    for (int r = 0; r < nr; ++r) {
-      float a[8], b[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = h1s[r * HP + ty + 16 * i];
+      for (int i = 0; i < 8; ++i) {
+        const int jb = j0 + i;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = h2s[r * HP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) dW2[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-
-    // g_h1 = (g_h2 W2^T) * (h1 > 0), in place of h1
-    {
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int jj = 0; jj < H; ++jj) {
-        float a[8], b[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = h2s[(ty + 16 * i) * HP + jj];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = W2s[(tx + 16 * j) * HP + jj];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int idx = (ty + 16 * i) * HP + tx + 16 * j;
-          h1s[idx] = h1s[idx] > 0.f ? acc[i][j] : 0.f;
+        for (int h = 0; h < 2; ++h) {
+          const float g0 = acc[4 * jb + 2 * h] > 0.f ? s[i][2 * h] : 0.f;
+          const float g1 =
+              acc[4 * jb + 2 * h + 1] > 0.f ? s[i][2 * h + 1] : 0.f;
+          acc[4 * jb + 2 * h] = g0;
+          acc[4 * jb + 2 * h + 1] = g1;
+          *reinterpret_cast<uint32_t*>(
+              g2t + wg::tile_off(row_lo + 8 * h, 8 * jb + 2 * q, NCG)) =
+              pack_bf16(g0, g1);
         }
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      v[i] = acc[4 * (i >> 1) + (i & 1)] + acc[4 * (i >> 1) + 2 + (i & 1)];
+    add_column_sums(v, lane, pb2 + warp * H);
+    wg::fence_async_smem();
+    __syncthreads();   // P2 reads every row of g_h2 and h1
 
-    // b1 column sums and dW1 += g_h1^T x  (torch layout [out j][in d])
-    {
-      const int j = tid & (H - 1), half = tid >> 7;
-      float cs = 0.f;
-      for (int r = half; r < R; r += 2) cs += h1s[r * HP + j];
-      colp[half * H + j] = cs;
+    // P3: g_h1 = g_h2 W2; P2: dW2 += g_h2^T h1 (stays in registers).
+    // Every product is waited for where it is issued: left running under
+    // an epilogue, ptxas serialises the whole pipeline (C7515).
+    wg::arrive();
+#pragma unroll
+    for (int ks = 0; ks < H / 16; ++ks)
+      wg::mma_m64n128k16<0, 1>(acc, wg::desc_kmajor(ag2, NCG, m0, 16 * ks),
+                               wg::desc_mnmajor(aW2, NCG, 16 * ks, 0),
+                               ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < R / 16; ++ks)
+      wg::mma_m64n128k16<1, 1>(dW2, wg::desc_mnmajor(ag2, NCG, 16 * ks, m0),
+                               wg::desc_mnmajor(ah1, NCG, 16 * ks, 0), 1);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_regs(acc);
+    wg::fence_regs(dW2);
+    // the h1 > 0 mask is read back from the h1 tile (bf16 keeps the sign)
+    uint32_t h1[32];   // loaded together, so that the latencies overlap
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      h1[i] = *reinterpret_cast<const uint32_t*>(
+          h1t + wg::tile_off(row_lo + 8 * (i & 1), 8 * (i >> 1) + 2 * q, NCG));
+#pragma unroll
+    for (int jb = 0; jb < 16; ++jb) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t m = h1[2 * jb + h];
+        const float g0 = m & 0x00007fffu ? acc[4 * jb + 2 * h] : 0.f;
+        const float g1 = m & 0x7fff0000u ? acc[4 * jb + 2 * h + 1] : 0.f;
+        *reinterpret_cast<uint32_t*>(
+            g1t + wg::tile_off(row_lo + 8 * h, 8 * jb + 2 * q, NCG)) =
+            pack_bf16(g0, g1);
+        v[2 * jb] = h ? v[2 * jb] + g0 : g0;
+        v[2 * jb + 1] = h ? v[2 * jb + 1] + g1 : g1;
+      }
     }
-    for (int o = tid; o < H * D; o += NT) {
-      const int j = o / D, d = o % D;
-      float s = 0.f;
-      for (int r = 0; r < nr; ++r) s += rnd<BF>(h1s[r * HP + j]) * xs[r * D + d];
-      pW1[o] += s;
-    }
-    __syncthreads();
-    if (tid < H) pb1[tid] += colp[tid] + colp[H + tid];
+    add_column_sums(v, lane, pb1 + warp * H);
+    wg::fence_async_smem();
+    __syncthreads();   // P4 reads every row of g_h1 and x
+
+    // P4: dW1 += g_h1^T x (stays in registers)
+    wg::arrive();
+#pragma unroll
+    for (int ks = 0; ks < R / 16; ++ks)
+      wg::mma_m64n16k16<1, 1>(dW1, wg::desc_mnmajor(ag1, NCG, 16 * ks, m0),
+                              wg::desc_mnmajor(ax, XCG, 16 * ks, 0), 1);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_regs(dW1);
   }
   __syncthreads();
 
-  // one partial per block: [G][1+K][Pmax] gradients, [G][1+K][AUXW] aux
+  // one partial per block
   const int T = K + 1;
   const int Pmax = L.tower_size(0);
-  float* out = part + ((size_t)g * T + tower) * Pmax;
-  for (int i = tid; i < H * D; i += NT) out[L.local_off(tower, 0) + i] = pW1[i];
-  for (int i = tid; i < H; i += NT) {
-    out[L.local_off(tower, 1) + i] = pb1[i];
-    out[L.local_off(tower, 3) + i] = pb2[i];
-  }
+  float* out = p.part + ((size_t)g * T + tower) * Pmax;
   {
     float* oW2 = out + L.local_off(tower, 2);
+    float* oW1 = out + L.local_off(tower, 0);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int h = 0; h < 2; ++h) {
+      const int j = row_lo + 8 * h;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        oW2[(tx + 16 * j) * H + ty + 16 * i] = dW2[i][j];
-  }
-  for (int i = tid; i < O * H; i += NT) out[L.local_off(tower, 4) + i] = pWh[i];
-  if (tid < O) out[L.local_off(tower, 5) + tid] = pbh[tid];
-  if (actor && tid < A) out[L.local_off(0, 6) + tid] = pls[tid];
-
-  float* oaux = part_aux + ((size_t)g * T + tower) * AUXW;
-  if (actor) {
-    float v = block_sum(a_kl, red);
-    if (tid == 0) oaux[0] = v;
-    v = block_sum(a_mins, red);
-    if (tid == 0) oaux[1] = v;
-    for (int m = 0; m < M; ++m) {
-      v = block_sum(a_c[m], red);
-      if (tid == 0) oaux[2 + m] = v;
+      for (int jb = 0; jb < 16; ++jb)
+        *reinterpret_cast<float2*>(oW2 + j * H + 8 * jb + 2 * q) =
+            make_float2(dW2[4 * jb + 2 * h], dW2[4 * jb + 2 * h + 1]);
+#pragma unroll
+      for (int jb = 0; jb < 2; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = 8 * jb + 2 * q + e;
+          if (d < D) oW1[j * D + d] = dW1[4 * jb + 2 * h + e];
+        }
     }
-  } else {
-    const float v = block_sum(a_vf, red);
-    if (tid == 0) oaux[0] = v;
+  }
+  // per-warp partials, summed over the warps in order
+  {
+    const int j = tid & (H - 1);
+    const float* src = tid < H ? pb1 : pb2;
+    float s = 0.f;
+    for (int w = 0; w < NW; ++w) s += src[w * H + j];
+    out[L.local_off(tower, tid < H ? 1 : 3) + j] = s;
+  }
+  for (int i = tid; i < O * H; i += NT) {
+    const int a = i / H, j = i % H;
+    float s = 0.f;
+    for (int w = 0; w < NW; ++w) s += pWh[(w * AMAX + a) * H + j];
+    out[L.local_off(tower, 4) + i] = s;
+  }
+  // the per-thread sums: over the warp by shuffles, over the warps in order
+  {
+    float vals[NSUM];
+#pragma unroll
+    for (int a = 0; a < AMAX; ++a) {
+      vals[a] = s_bh[a];
+      vals[AMAX + a] = s_ls[a];
+    }
+    vals[2 * AMAX] = a_kl;
+    vals[2 * AMAX + 1] = a_mins;
+    vals[2 * AMAX + 2] = a_vf;
+#pragma unroll
+    for (int m = 0; m < MMAX; ++m) vals[2 * AMAX + 3 + m] = a_c[m];
+#pragma unroll
+    for (int k = 0; k < NSUM; ++k) {
+#pragma unroll
+      for (int s = 16; s > 0; s >>= 1)
+        vals[k] += __shfl_xor_sync(0xffffffffu, vals[k], s);
+      if (lane == 0) red[warp * NSUM + k] = vals[k];
+    }
+    __syncthreads();
+    if (tid < NSUM) {
+      float s = 0.f;
+      for (int w = 0; w < NW; ++w) s += red[w * NSUM + tid];
+      float* oaux = p.part_aux + ((size_t)g * T + tower) * AUXW;
+      const int k = tid;
+      if (k < AMAX) {
+        if (k < O) out[L.local_off(tower, 5) + k] = s;
+      } else if (k < 2 * AMAX) {
+        if (actor && k - AMAX < A) out[L.local_off(0, 6) + k - AMAX] = s;
+      } else if (k < 2 * AMAX + 2) {
+        if (actor) oaux[k - 2 * AMAX] = s;
+      } else if (k == 2 * AMAX + 2) {
+        if (!actor) oaux[0] = s;
+      } else if (actor && k - (2 * AMAX + 3) < M) {
+        oaux[2 + k - (2 * AMAX + 3)] = s;
+      }
+    }
   }
 }
 
-// Sums the G block partials in a fixed order into the flat gradient and
-// the aux row [sum(logp_old - logp), sum(min surrogate), sum_k sum(diff^2),
-// sum(ratio * cadv_m) for m < M].
+// Second launch: sums the G block partials in a fixed order into the flat
+// gradient, and in its last block into the aux row [sum(logp_old - logp),
+// sum(min surrogate), sum_k sum(diff^2), sum(ratio * cadv_m) for m < M].
 __global__ void ppo_grad_reduce(const float* __restrict__ part,
                                 const float* __restrict__ part_aux,
                                 float* __restrict__ grad,
@@ -468,31 +619,73 @@ __global__ void ppo_grad_reduce(const float* __restrict__ part,
   const Layout L{D, A, K};
   const int T = K + 1;
   const int Pmax = L.tower_size(0);
-  const int id = blockIdx.x * blockDim.x + threadIdx.x;
-  if (id < T * Pmax) {
-    const int t = id / Pmax, l = id % Pmax;
-    if (l >= L.tower_size(t)) return;
-    float s = 0.f;
-    for (int b = 0; b < G; ++b) s += part[((size_t)b * T + t) * Pmax + l];
-    int seg = 0;
-    while (l >= L.local_off(t, seg + 1)) ++seg;
-    grad[L.global_off(t, seg) + (l - L.local_off(t, seg))] = s;
-  } else if (id - T * Pmax < AUXW) {
-    const int q = id - T * Pmax;
-    float s = 0.f;
+  if (blockIdx.x == gridDim.x - 1) {
+    // one warp per aux value: lane j sums the partials j, j + 32, ..., and
+    // the lanes are summed by a fixed shuffle tree
+    const int q = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    // value q sums column `col` of the towers t0 .. t1 - 1 of every block
+    int col = 0, t0 = 0, t1 = 1;
     if (q < 2) {
-      for (int b = 0; b < G; ++b) s += part_aux[(size_t)b * T * AUXW + q];
+      col = q;
     } else if (q == 2) {
-      for (int b = 0; b < G; ++b)
-        for (int t = 1; t < T; ++t) s += part_aux[((size_t)b * T + t) * AUXW];
+      t0 = 1;
+      t1 = T;
     } else if (q - 3 < K - 1) {
-      for (int b = 0; b < G; ++b)
-        s += part_aux[(size_t)b * T * AUXW + 2 + (q - 3)];
+      col = 2 + (q - 3);
+    } else {
+      t1 = 0;
     }
-    aux[q] = s;
+    const int nt = t1 - t0, n = G * nt;
+    float s = 0.f;
+    for (int i = lane; i < n; i += 32)
+      s += part_aux[((size_t)(i / nt) * T + t0 + i % nt) * AUXW + col];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+    if (lane == 0) aux[q] = s;
+    return;
   }
+  // four neighbouring lanes per output: lane j sums the blocks j, j + 4,
+  // ... in order, 16 loads in flight at a time, and the four sums are
+  // added as (s0 + s1) + (s2 + s3)
+  const int id = (blockIdx.x * blockDim.x + threadIdx.x) >> 2;
+  const int j = threadIdx.x & 3;
+  const bool live = id < T * Pmax;     // whole quads, so the shuffles are safe
+  const int t = live ? id / Pmax : 0, l = live ? id % Pmax : 0;
+  const float* src = part + (size_t)t * Pmax + l;
+  const size_t stride = (size_t)T * Pmax;
+  float s = 0.f;
+  for (int b0 = j; b0 < G; b0 += 64) {
+    float x[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+      x[u] = b0 + 4 * u < G ? src[(b0 + 4 * u) * stride] : 0.f;
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+      if (b0 + 4 * u < G) s += x[u];
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  if (!live || j != 0 || l >= L.tower_size(t)) return;
+  int seg = 0;
+  while (l >= L.local_off(t, seg + 1)) ++seg;
+  grad[L.global_off(t, seg) + (l - L.local_off(t, seg))] = s;
 }
 
+cudaError_t launch_reduce(const float* part, const float* part_aux,
+                          float* grad, float* aux, int G, int D, int A, int K,
+                          cudaStream_t s) {
+  static_assert(32 * AUXW == NT, "the aux block has one warp per value");
+  const Layout L{D, A, K};
+  const int n = 4 * (K + 1) * L.tower_size(0);
+  ppo_grad_reduce<<<(n + NT - 1) / NT + 1, NT, 0, s>>>(part, part_aux, grad,
+                                                        aux, G, D, A, K);
+  return cudaGetLastError();
+}
+
+__global__ void empty_kernel() {}
+
+// Blocks per tower: at most the SMs shared among the towers, and no more
+// than keeps the longest walk at ceil(chunks / that).
 int grid_g(int B, int K) {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
@@ -501,15 +694,28 @@ int grid_g(int B, int K) {
   int G = sms / (K + 1);
   if (G < 1) G = 1;
   if (G > n_chunks) G = n_chunks;
-  return G;
+  const int walk = (n_chunks + G - 1) / G;
+  return (n_chunks + walk - 1) / walk;
 }
 
 }  // namespace
+}  // namespace ppo
+
+using namespace ppo;
 
 extern "C" long fsrl_ppo_grad_scratch_floats(int B, int D, int Hd, int A,
                                              int K) {
   const Layout L{D, A, K};
   return (long)grid_g(B, K) * (K + 1) * (L.tower_size(0) + AUXW);
+}
+
+// Blocks per tower that a batch of B rows is spread over.
+extern "C" int fsrl_ppo_grad_blocks(int B, int K) { return grid_g(B, K); }
+
+// Byte offset of element (r, c) of a bf16 operand tile with ncg column
+// groups, as the kernel's threads compute it.
+extern "C" int fsrl_ppo_grad_tile_offset(int r, int c, int ncg) {
+  return (int)wg::tile_off(r, c, ncg);
 }
 
 // params: flat parameter vector; obs (B,D), act (B,A), logp_old (B,),
@@ -531,30 +737,42 @@ extern "C" int fsrl_ppo_grad(const float* params, const float* obs,
   const Layout L{D, A, K};
   const int G = grid_g(B, K);
   const int T = K + 1;
-  float* part = scratch;
-  float* part_aux = scratch + (size_t)G * T * L.tower_size(0);
-  const size_t smem = sizeof(float) * smem_floats(D);
-  const float gv_scale = (float)(2.0 * (double)vf_coef / (double)B);
-  const float a_l2p = (float)(A * 0.91893853320467274178);
+  Args a{params, obs, act, logp_old, adv, ret, lam, resc, scratch,
+         scratch + (size_t)G * T * L.tower_size(0), B, D, A, K, clip_lo,
+         clip_hi, (float)(2.0 * (double)vf_coef / (double)B),
+         (float)(A * 0.91893853320467274178),
+         ((reinterpret_cast<uintptr_t>(obs) | reinterpret_cast<uintptr_t>(act) |
+           reinterpret_cast<uintptr_t>(logp_old) |
+           reinterpret_cast<uintptr_t>(adv) | reinterpret_cast<uintptr_t>(ret)) &
+          15u) == 0};
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid(G, T);
+  cudaError_t err;
   if (bf16) {
-    cudaFuncSetAttribute(ppo_grad_kernel<true>,
+    const size_t smem = smem_bytes(D, A, K);
+    cudaFuncSetAttribute(ppo_grad_bf16_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    ppo_grad_kernel<true><<<grid, NT, smem, s>>>(
-        params, obs, act, logp_old, adv, ret, lam, resc, part, part_aux, B,
-        D, A, K, clip_lo, clip_hi, gv_scale, a_l2p);
+    ppo_grad_bf16_kernel<<<dim3(G, T), NT, smem, s>>>(a);
+    err = cudaGetLastError();
   } else {
-    cudaFuncSetAttribute(ppo_grad_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    ppo_grad_kernel<false><<<grid, NT, smem, s>>>(
-        params, obs, act, logp_old, adv, ret, lam, resc, part, part_aux, B,
-        D, A, K, clip_lo, clip_hi, gv_scale, a_l2p);
+    err = launch_f32(a, G, s);
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n = T * L.tower_size(0) + AUXW;
-  ppo_grad_reduce<<<(n + 255) / 256, 256, 0, s>>>(part, part_aux, grad, aux,
-                                                   G, D, A, K);
+  return (int)launch_reduce(a.part, a.part_aux, grad, aux, G, D, A, K, s);
+}
+
+// The reduce launch alone, on partials already in scratch (for timing it).
+extern "C" int fsrl_ppo_grad_reduce_only(const float* scratch, float* grad,
+                                         float* aux, int B, int D, int A,
+                                         int K, void* stream) {
+  const Layout L{D, A, K};
+  const int G = grid_g(B, K), T = K + 1;
+  return (int)launch_reduce(scratch,
+                            scratch + (size_t)G * T * L.tower_size(0), grad,
+                            aux, G, D, A, K, (cudaStream_t)stream);
+}
+
+// A kernel that does nothing: what a launch costs on its own.
+extern "C" int fsrl_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,124 @@
+// Shared by the two fused PPO-Lagrangian gradient kernels (bf16 on the
+// tensor cores in fused_ppo_grad.cu, f32 on the FMA pipes in
+// fused_ppo_grad_f32.cu): the envelope, the flat parameter layout, the
+// arguments and the per-row loss.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace ppo {
+
+constexpr int H = 128;      // hidden width (both layers)
+constexpr int R = 128;      // rows per chunk
+constexpr int NT = 256;     // threads per block
+constexpr int DMAX = 12;    // largest observation width that fits
+constexpr int AMAX = 4;     // largest action width
+constexpr int MMAX = 5;     // largest number of constraints
+constexpr int AUXW = 8;     // aux partial width per tower
+
+// Offsets of one tower's tensors. Segments s: 0 W1 (H,D), 1 b1 (H),
+// 2 W2 (H,H), 3 b2 (H), 4 head weight (O,H), 5 head bias (O),
+// 6 log-sigma (A, actor only). Tower-local order is the segment order; the
+// flat parameter vector holds the actor's segments in order, then each
+// critic segment stacked over the K critics.
+struct Layout {
+  int D, A, K;
+  __host__ __device__ int seg_len(int t, int s) const {
+    switch (s) {
+      case 0: return H * D;
+      case 1: return H;
+      case 2: return H * H;
+      case 3: return H;
+      case 4: return t == 0 ? A * H : H;
+      case 5: return t == 0 ? A : 1;
+      case 6: return t == 0 ? A : 0;
+      default: return 0;
+    }
+  }
+  __host__ __device__ int local_off(int t, int s) const {
+    int o = 0;
+    for (int i = 0; i < s; ++i) o += seg_len(t, i);
+    return o;
+  }
+  __host__ __device__ int tower_size(int t) const { return local_off(t, 7); }
+  __host__ __device__ int global_off(int t, int s) const {
+    if (t == 0) return local_off(0, s);
+    int base = tower_size(0);
+    for (int i = 0; i < s; ++i) base += K * seg_len(1, i);
+    return base + (t - 1) * seg_len(1, s);
+  }
+};
+
+// What a gradient kernel gets. Both kernels run on a grid (G, 1+K):
+// blockIdx.y picks the tower (0 = actor, 1..K = critics), the block walks the
+// row chunks blockIdx.x, blockIdx.x + G, ... and writes one partial:
+// part [G][1+K][tower_size(0)] gradients in tower-local order, part_aux
+// [G][1+K][AUXW] sums (actor: sum(logp_old - logp), sum(min surrogate),
+// sum(ratio * cadv_m); critic: sum(diff^2)).
+struct Args {
+  const float *params, *obs, *act, *logp_old, *adv, *ret, *lam, *resc;
+  float *part, *part_aux;
+  int B, D, A, K;
+  float clip_lo, clip_hi, gv_scale, a_log_sqrt_2pi;
+  bool aligned16;   // obs, act, logp_old, adv and ret start on 16 bytes
+};
+
+// The actor's loss at one row from the pre-tanh mean `s` (bias included):
+// gradient at the mean head's output, per-row d loss / d log-sigma, and the
+// row's aux terms. Tie conventions are JAX's: d min(s1, s2) splits 0.5/0.5
+// where s1 == s2, and the clip passes 0.5 where ratio == 1 +- eps.
+struct ActorRow {
+  float g_mu[AMAX], g_ls[AMAX], kl, mins, ratio;
+};
+__device__ __forceinline__ ActorRow actor_row(
+    const float (&s)[AMAX], const float* act_row, float logp_old,
+    const float* adv_row, const float (&sig)[AMAX], float lsig_sum,
+    const float (&lamv)[MMAX], float resc, const Args& a) {
+  ActorRow o;
+  float mu[AMAX], z[AMAX], sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < AMAX; ++i)
+    if (i < a.A) {
+      mu[i] = tanhf(s[i]);
+      z[i] = (act_row[i] - mu[i]) / sig[i];
+      sq += -0.5f * z[i] * z[i];
+    }
+  const float logp = sq - lsig_sum - a.a_log_sqrt_2pi;
+  const float ratio = expf(logp - logp_old);
+  const float advr = adv_row[0];
+  const float rc = fminf(fmaxf(ratio, a.clip_lo), a.clip_hi);
+  const float s1 = ratio * advr, s2 = rc * advr;
+  const float w1 = s1 < s2 ? 1.f : (s1 == s2 ? 0.5f : 0.f);
+  const float w2 = 1.f - w1;
+  const float inside =
+      (ratio > a.clip_lo && ratio < a.clip_hi)
+          ? 1.f
+          : ((ratio == a.clip_lo || ratio == a.clip_hi) ? 0.5f : 0.f);
+  const float dmin = advr * (w1 + w2 * inside);
+  float lsum = 0.f;
+#pragma unroll
+  for (int m = 0; m < MMAX; ++m)
+    if (m < a.K - 1) lsum += adv_row[1 + m] * lamv[m];
+  const float g_ratio = resc * (-dmin + lsum) / (float)a.B;
+  const float g_logp = g_ratio * ratio;
+#pragma unroll
+  for (int i = 0; i < AMAX; ++i)
+    if (i < a.A) {
+      o.g_mu[i] = g_logp * (z[i] / sig[i]) * (1.f - mu[i] * mu[i]);
+      o.g_ls[i] = g_logp * (z[i] * z[i] - 1.f);
+    } else {
+      o.g_mu[i] = 0.f;
+      o.g_ls[i] = 0.f;
+    }
+  o.kl = logp_old - logp;
+  o.mins = fminf(s1, s2);
+  o.ratio = ratio;
+  return o;
+}
+
+// The f32 kernel's launcher (fused_ppo_grad_f32.cu).
+cudaError_t launch_f32(const Args& a, int G, cudaStream_t stream);
+
+}  // namespace ppo

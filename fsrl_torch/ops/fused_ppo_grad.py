@@ -1,5 +1,10 @@
 """Kernel K2: the whole PPO-Lagrangian minibatch loss and its hand-derived
-gradient in one fused CUDA launch (``csrc/fused_ppo_grad.cu``).
+gradient in one fused CUDA launch plus a fixed-order reduce launch. With
+``bf16=True`` (the main path) the kernel is ``csrc/fused_ppo_grad.cu``: every
+product of a 128-row chunk runs on Hopper's tensor cores (``wgmma``) from
+bf16 tiles that the kernel writes into shared memory itself
+(:func:`tile_offset` mirrors their layout). With ``bf16=False`` it is the
+float32 FMA kernel ``csrc/fused_ppo_grad_f32.cu``.
 
 Replaces ``fsrl_tpu/ops/fused_ppo_grad.py::ppo_grad_minibatch``. The math is
 the Pallas kernel's (``fused_ppo_grad.py:68-165``):
@@ -34,8 +39,8 @@ from fsrl_torch.ops import kernels
 
 LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 AUX_WIDTH = 8
-KERNEL_H = 128       # the kernel's thread tiling is written for width 128
-KERNEL_D_MAX = 12    # shared memory holds x, W1 and dW1 up to this width
+KERNEL_H = 128       # the kernels' tiling is written for width 128
+KERNEL_D_MAX = 12    # x and W1 are padded to one 16-deep tensor-core step
 KERNEL_A_MAX = 4
 KERNEL_M_MAX = 5     # the aux row holds 3 + M sums in 8 slots
 
@@ -83,6 +88,16 @@ class GradLayout:
         return (self.H == KERNEL_H and 1 <= self.D <= KERNEL_D_MAX
                 and 1 <= self.A <= KERNEL_A_MAX
                 and 1 <= self.K <= KERNEL_M_MAX + 1)
+
+
+def tile_offset(r: int, c: int, n_col_groups: int) -> int:
+    """Byte offset of element (r, c) of a bf16 tile in the layout the bf16
+    kernel's tensor-core products read (``wg::tile_off`` in
+    ``csrc/wgmma.cuh``): 8x8 core matrices of 128 contiguous bytes, row-major
+    inside (16 bytes a row), core matrix (r // 8, c // 8) at
+    ``((r // 8) * n_col_groups + c // 8) * 128``."""
+    return ((((r >> 3) * n_col_groups + (c >> 3)) << 7) + ((r & 7) << 4)
+            + ((c & 7) << 1))
 
 
 def _bf(x: torch.Tensor, bf16: bool) -> torch.Tensor:
@@ -226,6 +241,24 @@ def _launch(flat, layout: GradLayout, obs, act, logp_old, adv, ret, lam,
             1.0 - eps_clip, 1.0 + eps_clip, vf_coef, kernels.stream_ptr())
     kernels.check(rc, "fused PPO grad kernel")
     kernels.LAUNCHES["fused_ppo_grad"] += 1
+    return grad, aux
+
+
+def reduce_launch(layout: GradLayout, B: int, device="cuda"):
+    """The kernel's second launch alone (the fixed-order sum of the block
+    partials) on scratch of the size a batch of ``B`` rows takes, so that it
+    can be timed on its own. The scratch is not initialised, so the sums
+    mean nothing; not counted as a launch of the kernel."""
+    lib = kernels.library()
+    grad = torch.empty(layout.size, device=device)
+    aux = torch.empty(AUX_WIDTH, device=device)
+    with torch.cuda.device(grad.device):
+        scratch = torch.empty(lib.fsrl_ppo_grad_scratch_floats(
+            B, layout.D, layout.H, layout.A, layout.K), device=device)
+        rc = lib.fsrl_ppo_grad_reduce_only(
+            scratch.data_ptr(), grad.data_ptr(), aux.data_ptr(), B, layout.D,
+            layout.A, layout.K, kernels.stream_ptr())
+    kernels.check(rc, "fused PPO grad reduce launch")
     return grad, aux
 
 

@@ -4,7 +4,11 @@ Replaces ``fsrl_tpu/ops/pallas_gae.py::gae_advantages_pallas``. On a CUDA
 tensor the wrapper launches the kernel (or raises); on a CPU tensor it runs
 the plain version, ``fsrl_torch.ops.gae.gae_advantages``. The kernel reads
 m, v, v' and the end flags once each and writes adv and ret once; nothing is
-padded.
+padded. A block owns a strip of ``STRIP`` columns of the time-major
+``(T, N*K)`` view and walks time in tiles of ``TIME_TILE`` steps from the
+end: all its threads load a tile, one thread per column runs the recurrence
+out of shared memory, all threads write back. The result equals the plain
+loop's bit for bit.
 """
 
 from __future__ import annotations
@@ -13,6 +17,9 @@ import torch
 
 from fsrl_torch.ops import kernels
 from fsrl_torch.ops.gae import gae_advantages
+
+STRIP = 32        # columns per block (CW in gae.cu)
+TIME_TILE = 64    # time steps per shared-memory tile (TT in gae.cu)
 
 
 def gae_advantages_fused(metrics: torch.Tensor, values: torch.Tensor,

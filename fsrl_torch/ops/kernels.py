@@ -31,7 +31,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("gae.cu", "fused_ppo_grad.cu")
+SOURCES = ("gae.cu", "fused_ppo_grad.cu", "fused_ppo_grad_f32.cu")
+HEADERS = ("wgmma.cuh", "ppo_grad_common.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -54,7 +55,7 @@ def build(verbose: bool = False) -> Path:
     """Compile the sources (in parallel) and link the shared library;
     return its path. ``verbose`` prints ptxas' register/spill report."""
     digest = hashlib.sha256()
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         digest.update((CSRC / s).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     so = BUILD / f"libfsrl_kernels_{digest.hexdigest()[:16]}.so"
@@ -100,11 +101,25 @@ def library() -> ctypes.CDLL:
     lib.fsrl_ppo_grad.restype = I
     lib.fsrl_ppo_grad_scratch_floats.argtypes = [I, I, I, I, I]
     lib.fsrl_ppo_grad_scratch_floats.restype = ctypes.c_long
+    lib.fsrl_ppo_grad_reduce_only.argtypes = [P, P, P, I, I, I, I, P]
+    lib.fsrl_ppo_grad_reduce_only.restype = I
+    lib.fsrl_ppo_grad_blocks.argtypes = [I, I]
+    lib.fsrl_ppo_grad_tile_offset.argtypes = [I, I, I]
+    lib.fsrl_gae_strip.argtypes = []
+    lib.fsrl_gae_time_tile.argtypes = []
+    lib.fsrl_empty_launch.argtypes = [P]
+    lib.fsrl_empty_launch.restype = I
     return lib
 
 
 def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def empty_launch() -> None:
+    """Launch a kernel that does nothing on the current stream: timed, it
+    is what a launch costs on its own. Not counted in ``LAUNCHES``."""
+    check(library().fsrl_empty_launch(stream_ptr()), "empty kernel")
 
 
 def check(rc: int, name: str) -> None:

@@ -71,3 +71,136 @@ def test_fused_grad_kernel_matches_plain(cuda, bf16):
         assert float((x - ref).abs().max()) <= tol * float(
             ref.abs().max()) + 1e-7, name
     torch.testing.assert_close(ak, ap, rtol=tol, atol=1e-5)
+
+
+def _grad_case(cuda, B, D, A, K, bf16, seed=1):
+    """Arguments of the fused grad kernel at one shape, half the rows with
+    ratio == 1 exactly in the plain version."""
+    from fsrl_torch.algos.common import normalize_adv
+    from fsrl_torch.algos.ppo_lag import PPOLag
+    from fsrl_torch.ops.fused_ppo_grad import policy_logp
+    algo = PPOLag(D, A, num_costs=K - 1, cost_limit=[10.0] * (K - 1),
+                  device=cuda)
+    state = algo.init(seed=seed)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    obs = torch.randn(B, D, device=cuda, generator=g)
+    act = (0.5 * torch.randn(B, A, device=cuda, generator=g)).clamp(-0.99,
+                                                                    0.99)
+    logp = policy_logp(state.flat, algo.grad_layout, obs, act, bf16=bf16)
+    logp_old = torch.where(
+        torch.arange(B, device=cuda) % 2 == 0, logp,
+        logp + 0.1 * torch.randn(B, device=cuda, generator=g)).contiguous()
+    adv = normalize_adv(torch.randn(B, K, device=cuda, generator=g))
+    ret = torch.randn(B, K, device=cuda, generator=g)
+    lam = torch.linspace(0.5, 2.0, K - 1, device=cuda)
+    resc = 1.0 / (lam.sum() + 1.0)
+    return [state.flat, algo.grad_layout, obs, act, logp_old, adv, ret, lam,
+            resc]
+
+
+# ragged strips, a T above one time tile, a column count that takes the
+# 4-byte path, and the main path's shape
+@pytest.mark.parametrize("T,N,K", [(33, 1000, 3), (150, 516, 2),
+                                   (65, 1001, 3), (64, 4096, 2)])
+def test_gae_kernel_equals_plain_bit_for_bit(cuda, T, N, K):
+    from fsrl_torch.ops.gae import gae_advantages
+    from fsrl_torch.ops.gae_kernel import gae_advantages_fused
+    g = torch.Generator(device=cuda).manual_seed(T)
+    m, v, vn = (torch.randn(T, N, K, device=cuda, generator=g)
+                for _ in range(3))
+    end = torch.rand(T, N, device=cuda, generator=g) < 0.05
+    a, r = gae_advantages_fused(m, v, vn, end, 0.99, 0.95)
+    a2, r2 = gae_advantages_fused(m, v, vn, end, 0.99, 0.95)
+    pa, pr = gae_advantages(m, v, vn, end, 0.99, 0.95)
+    # the plain loop's operation order, no FMA contraction: no rounding
+    # differs
+    assert torch.equal(a, pa) and torch.equal(r, pr)
+    assert torch.equal(a, a2) and torch.equal(r, r2)
+
+
+# the bf16 (tensor-core) kernel at the edges of its envelope
+@pytest.mark.parametrize("B,D,A,K", [
+    (1000, 9, 2, 2), (100, 9, 2, 2), (4096, 9, 2, 1), (4096, 9, 2, 6),
+    (4096, 12, 4, 2), (4096, 1, 2, 2), (1000, 5, 3, 3), (32768, 9, 2, 2)])
+def test_fused_grad_kernel_at_envelope_edges(cuda, B, D, A, K):
+    from fsrl_torch.ops.fused_ppo_grad import ppo_grad_plain, ppo_grad_rows
+    args = _grad_case(cuda, B, D, A, K, bf16=True)
+    layout = args[1]
+    kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=True)
+    before = kernels.LAUNCHES["fused_ppo_grad"]
+    gk, ak = ppo_grad_rows(*args, **kw)
+    g2, a2 = ppo_grad_rows(*args, **kw)
+    assert kernels.LAUNCHES["fused_ppo_grad"] == before + 2
+    gp, ap = ppo_grad_plain(*args, **kw)
+    # an operand may round to the neighbouring bf16 value when its f32 sum
+    # came out in another order: 1e-2 of each tensor's largest entry
+    for name, x in layout.views(gk).items():
+        ref = layout.views(gp)[name]
+        assert float((x - ref).abs().max()) <= 1e-2 * float(
+            ref.abs().max()) + 1e-7, name
+    torch.testing.assert_close(ak, ap, rtol=1e-2, atol=1e-5)
+    # no atomics, fixed summation orders: a launch reproduces bit for bit
+    assert torch.equal(gk, g2) and torch.equal(ak, a2)
+
+
+def test_fused_grad_f32_two_launches_identical(cuda):
+    from fsrl_torch.ops.fused_ppo_grad import ppo_grad_rows
+    args = _grad_case(cuda, 1000, 9, 2, 2, bf16=False)
+    g1, a1 = ppo_grad_rows(*args, bf16=False)
+    g2, a2 = ppo_grad_rows(*args, bf16=False)
+    assert torch.equal(g1, g2) and torch.equal(a1, a2)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_fused_grad_wrapper_raises_rather_than_falling_back(cuda, bf16):
+    from fsrl_torch.ops.fused_ppo_grad import GradLayout, ppo_grad_rows
+    args = _grad_case(cuda, 256, 9, 2, 2, bf16=bf16)
+    before = kernels.LAUNCHES["fused_ppo_grad"]
+    bad = list(args)
+    bad[2] = torch.randn(9, 256, device=cuda).T          # not contiguous
+    with pytest.raises(ValueError):
+        ppo_grad_rows(*bad, bf16=bf16)
+    bad = list(args)
+    bad[3] = args[3].double()                            # wrong dtype
+    with pytest.raises(ValueError):
+        ppo_grad_rows(*bad, bf16=bf16)
+    bad = list(args)
+    bad[5] = args[5][:, :1].contiguous()                 # wrong shape
+    with pytest.raises(ValueError):
+        ppo_grad_rows(*bad, bf16=bf16)
+    bad = list(args)
+    bad[1] = GradLayout(D=9, H=64, A=2, K=2)             # outside the envelope
+    with pytest.raises(ValueError):
+        ppo_grad_rows(*bad, bf16=bf16)
+    assert kernels.LAUNCHES["fused_ppo_grad"] == before
+
+
+def test_gae_wrapper_raises_rather_than_falling_back(cuda):
+    from fsrl_torch.ops.gae_kernel import gae_advantages_fused
+    T, N, K = 8, 64, 2
+    m, v, vn = (torch.randn(T, N, K, device=cuda) for _ in range(3))
+    end = torch.zeros(T, N, dtype=torch.bool, device=cuda)
+    before = kernels.LAUNCHES["gae"]
+    with pytest.raises(ValueError):                      # not contiguous
+        gae_advantages_fused(m.transpose(0, 1), v, vn, end, 0.99, 0.95)
+    with pytest.raises(ValueError):                      # wrong dtype
+        gae_advantages_fused(m.double(), v, vn, end, 0.99, 0.95)
+    with pytest.raises(ValueError):                      # flags not bool
+        gae_advantages_fused(m, v, vn, end.float(), 0.99, 0.95)
+    assert kernels.LAUNCHES["gae"] == before
+
+
+def test_python_mirrors_of_the_kernels_tiling_agree_with_the_library(cuda):
+    """``STRIP`` / ``TIME_TILE`` and ``tile_offset`` are copies of constants
+    in the CUDA sources that tests and callers pick shapes from: the built
+    library reports what the kernels really use."""
+    from fsrl_torch.ops.fused_ppo_grad import tile_offset
+    from fsrl_torch.ops.gae_kernel import STRIP, TIME_TILE
+    lib = kernels.library()
+    assert (lib.fsrl_gae_strip(), lib.fsrl_gae_time_tile()) == (STRIP,
+                                                                TIME_TILE)
+    for ncg in (16, 2):
+        for r in range(128):
+            for c in range(8 * ncg):
+                assert lib.fsrl_ppo_grad_tile_offset(r, c, ncg) == \
+                    tile_offset(r, c, ncg), (r, c, ncg)

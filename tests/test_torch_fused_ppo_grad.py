@@ -1,7 +1,7 @@
 """Kernel K2's plain version (the hand-derived PPO-Lag minibatch gradient)
-against the JAX package's Pallas kernel in interpret mode, on bridged
-weights, with tie rows (ratio == 1 exactly, as on every epoch's first grad
-step)."""
+against the JAX package's Pallas kernel in interpret mode, in f32 and in
+bf16 compute and at the edges of the kernel's envelope, on bridged weights,
+with tie rows (ratio == 1 exactly, as on every epoch's first grad step)."""
 
 import functools
 
@@ -18,7 +18,8 @@ from fsrl_torch.algos.common import OnPolicyBatch, normalize_adv
 from fsrl_torch.algos.ppo_lag import PPOLag
 from fsrl_torch.ops import kernels
 from fsrl_torch.ops.fused_ppo_grad import (GradLayout, _launch,
-                                           ppo_grad_minibatch, ppo_grad_rows)
+                                           ppo_grad_minibatch, ppo_grad_rows,
+                                           tile_offset)
 from fsrl_torch.utils.params import to_jax_params
 
 torch.set_num_threads(1)
@@ -112,3 +113,111 @@ def test_kernel_envelope():
     assert not PPOLag(9, 2, value_clip=True, device="cpu").use_grad_kernel
     assert not PPOLag(9, 2, hidden_sizes=(64, 64),
                       device="cpu").use_grad_kernel
+
+
+def _np_case(D_, A_, K, B, seed):
+    """Weights from the JAX init, inputs from a numpy seed; half the rows
+    with ratio == 1 in f32."""
+    jalgo = JPPOLag(D_, A_, cost_limit=[10.0] * (K - 1), num_costs=K - 1)
+    params = jax.jit(jalgo.init)(jax.random.PRNGKey(seed)).params
+    rng = np.random.default_rng(seed)
+    f32 = lambda x: jnp.asarray(x.astype(np.float32))
+    obs = f32(rng.normal(size=(B, D_)))
+    act = f32(np.clip(0.5 * rng.normal(size=(B, A_)), -0.99, 0.99))
+    logp_old = jalgo.actor.apply(params["actor"], obs).log_prob(act)
+    logp_old = logp_old + f32(np.where(np.arange(B) % 2 == 0, 0.0,
+                                       0.1 * rng.normal(size=B)))
+    adv_raw = rng.normal(size=(B, K))
+    adv = f32((adv_raw - adv_raw.mean(0)) / (adv_raw.std(0) + 1e-8))
+    ret = f32(rng.normal(size=(B, K)))
+    talgo = PPOLag(D_, A_, cost_limit=[10.0] * (K - 1), num_costs=K - 1,
+                   device="cpu")
+    state = talgo.init(state_dict=state_dict(params))
+    return params, (obs, act, logp_old, adv, ret), talgo, state
+
+
+def _assert_matches_pallas(params, data, talgo, state, K, bf16):
+    lam = jnp.linspace(0.5, 2.0, K - 1)
+    resc = 1.0 / (jnp.sum(lam) + 1.0)
+    jl, jaux, jg = j_grad(params, *data, lam, resc, eps_clip=0.2,
+                          vf_coef=0.25, interpret=True,
+                          compute_dtype=jnp.bfloat16 if bf16 else None)
+    tl, taux, tg = ppo_grad_minibatch(
+        state.flat, talgo.grad_layout, *(t(x) for x in data), t(lam),
+        torch.tensor(float(resc)), eps_clip=0.2, vf_coef=0.25, bf16=bf16)
+    tg_tree = to_jax_params(dict(talgo.grad_layout.views(tg)))
+    jg = jax.device_get(jg)
+    assert jax.tree.structure(tg_tree) == jax.tree.structure(jg)
+    # f32: sums in another order, 1e-5 of each tensor's largest entry.
+    # bf16: both round the same operands to bf16 and sum in f32, but a sum
+    # taken in another order can round to the neighbouring bf16 value
+    # (2^-8 relative), so each tensor is held to 1e-2 of its largest entry
+    tol = 1e-2 if bf16 else 1e-5
+    for a, b in zip(jax.tree.leaves(jg), jax.tree.leaves(tg_tree)):
+        a = np.asarray(a)
+        assert np.abs(b - a).max() <= tol * np.abs(a).max() + 1e-9
+    # the scalars are held relative to the reference (kl and the actor
+    # losses are ~1e-3, so an absolute term of tol would pass any value);
+    # 1e-6 absolute covers a reference that is zero
+    assert float(tl) == pytest.approx(float(jl), rel=tol, abs=1e-6)
+    for k in ("loss_actor_rew", "loss_actor_total", "loss_vf_total", "kl",
+              "entropy"):
+        assert float(taux[k]) == pytest.approx(float(jaux[k]), rel=tol,
+                                               abs=1e-6), k
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_plain_grad_matches_pallas_interpret_bf16(K):
+    """bf16 compute: the plain version's cast points are the Pallas
+    kernel's."""
+    params, data, talgo, state = _setup(K)
+    _assert_matches_pallas(params, data, talgo, state, K, bf16=True)
+
+
+# the envelope's edges: most value channels, widest observation and action,
+# narrowest observation, and row counts that are no multiple of 128 (the
+# Pallas wrapper then takes the batch as one chunk)
+EDGES = {"K6": (9, 2, 6, 256), "D12_A4": (12, 4, 2, 256),
+         "D1": (1, 2, 2, 256), "rows200": (9, 2, 2, 200),
+         "rows72_K3_A3": (5, 3, 3, 72)}
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("edge", sorted(EDGES))
+def test_plain_grad_matches_pallas_at_envelope_edges(edge, bf16):
+    D_, A_, K, B = EDGES[edge]
+    assert GradLayout(D=D_, H=128, A=A_, K=K).kernel_fits()
+    params, data, talgo, state = _np_case(D_, A_, K, B, seed=len(edge))
+    _assert_matches_pallas(params, data, talgo, state, K, bf16)
+
+
+def test_plain_grad_without_cost_channel_matches_port_autograd():
+    """K = 1 (no constraint): the Pallas wrapper does not take it, so the
+    plain version is held against the port's autograd path."""
+    _, data, talgo, state = _np_case(9, 2, 1, 200, seed=5)
+    assert talgo.grad_layout.kernel_fits()
+    obs, act, logp_old, adv, ret = (t(x) for x in data)
+    lam, resc = torch.zeros(0), torch.tensor(1.0)
+    _, _, g_plain = ppo_grad_minibatch(state.flat, talgo.grad_layout, obs,
+                                       act, logp_old, normalize_adv(adv), ret,
+                                       lam, resc)
+    mb = OnPolicyBatch(obs, act, logp_old, adv, ret, torch.zeros_like(ret))
+    _, _, g_auto = talgo._autograd_step(state, mb, lam, resc)
+    np.testing.assert_allclose(n(g_auto), n(g_plain), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_col_groups", [16, 2])
+def test_tile_offset_is_a_bijection_of_core_matrices(n_col_groups):
+    """The bf16 kernel's shared-memory tile layout: every element of a
+    128-row tile gets its own 2 bytes, a core matrix is 8 rows of 16
+    contiguous bytes, 128 bytes in all."""
+    rows, cols = 128, 8 * n_col_groups
+    off = np.array([[tile_offset(r, c, n_col_groups) for c in range(cols)]
+                    for r in range(rows)])
+    assert sorted(off.ravel()) == list(range(0, 2 * rows * cols, 2))
+    assert (off[:, 1:8] - off[:, :7] == 2).all()        # 8 columns: 16 bytes
+    assert (off[1:8, 0] - off[:7, 0] == 16).all()       # next row of a core
+    core = off[8:16, 8:16]
+    assert core.max() - core.min() == 126               # 128 bytes a core
+    assert off[8, 0] - off[0, 0] == 128 * n_col_groups  # next row group
+    assert off[0, 8] - off[0, 0] == 128                 # next column group

@@ -12,7 +12,8 @@ from fsrl_tpu.ops.gae import gae_advantages as j_gae
 from fsrl_tpu.ops.pallas_gae import gae_advantages_pallas
 from fsrl_torch.ops import kernels
 from fsrl_torch.ops.gae import gae_advantages
-from fsrl_torch.ops.gae_kernel import gae_advantages_fused
+from fsrl_torch.ops.gae_kernel import (STRIP, TIME_TILE,
+                                       gae_advantages_fused)
 
 torch.set_num_threads(1)
 
@@ -57,3 +58,23 @@ def test_gae_end_flag_breaks_the_chain():
                           0.9, 0.5)
     np.testing.assert_allclose(n(a), m + 0.9 * vn - v, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(n(r), n(a) + v, rtol=1e-6, atol=1e-6)
+
+
+# the kernel walks time in tiles of TIME_TILE steps and columns in strips of
+# STRIP: T above one tile (and no multiple of it), N*K no multiple of the
+# strip, with N*K a multiple of 4 (16-byte accesses) and not (4-byte)
+@pytest.mark.parametrize("T,N,K", [(TIME_TILE + 36, 37, 3),
+                                   (2 * TIME_TILE + 1, STRIP + 2, 2),
+                                   (TIME_TILE + 1, 2 * STRIP + 3, 1)])
+def test_gae_beyond_one_time_tile_and_strip(T, N, K):
+    assert T > TIME_TILE and (N * K) % STRIP != 0
+    m, v, vn, end = _inputs(T, N, K, T + N)
+    ja, jr = j_gae(*(jnp.asarray(x) for x in (m, v, vn, end)), 0.99, 0.95)
+    pa, pr = gae_advantages_pallas(*(jnp.asarray(x) for x in (m, v, vn, end)),
+                                   0.99, 0.95, interpret=True)
+    fa, fr = gae_advantages_fused(*(torch.from_numpy(x)
+                                    for x in (m, v, vn, end)), 0.99, 0.95)
+    # as above: XLA may contract a step's multiply-add, the port rounds twice
+    atol = 1e-6 * max(1.0, float(np.abs(np.asarray(ja)).max()))
+    for a, b in ((fa, ja), (fr, jr), (fa, pa), (fr, pr)):
+        np.testing.assert_allclose(n(a), np.asarray(b), rtol=1e-6, atol=atol)
