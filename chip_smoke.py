@@ -7,14 +7,24 @@ Phases, each of which must pass:
 
 0. build: compile the CUDA kernels from ``fsrl_torch/csrc`` with ``nvcc``
    for ``sm_90a`` (ptxas' register report is printed);
-1. train: PPO-Lagrangian through the agent API on SafetyCarCircle-v0 at the
-   benchmark width (4096 envs x 64 steps, hidden (128, 128), K = 2 value
-   channels, repeat 4 x 8 minibatches, bf16) for 3 iterations plus the
-   episode-exact test; the kernel launch counters are zeroed just before and
-   read just after, and both kernels must have run; then 3 more iterations
-   are timed;
-2. update parity: one small f32 ``PPOLag.update`` on the card against the
-   same update on the CPU (plain versions);
+1. train: first one critic loss and gradient in the ensemble's form (a
+   plain matmul chain per tower) against one matmul batched over the towers,
+   at the whole batch and at one minibatch; then PPO-Lagrangian through the
+   agent API on SafetyCarCircle-v0 at the benchmark width (4096 envs x 64
+   steps, hidden (128, 128), K = 2 value channels, repeat 4 x 8 minibatches,
+   bf16) for 3 iterations plus the episode-exact test; the kernel launch
+   counters are zeroed just before and read just after, and both kernels
+   must have run; then 3 more iterations are timed;
+   then, each with the launch counters zeroed before and read after, FOCOPS
+   on SafetyCarCircle-v0 (repeat 4 x 8 minibatches), TRPO-Lagrangian on
+   SafetyDroneRun-v0 (whose crashes terminate episodes) and CPO on
+   SafetyAntRun-v0, at the same width, in f32 and in bf16: 3 iterations
+   plus the test, then 3 timed iterations with collect and update apart,
+   and for f32 the split of one trust-region update;
+2. update parity: one small f32 update of each of the four algorithms on
+   the card against the same update on the CPU (plain versions); then a
+   checkpoint of the FOCOPS state trained on the card is loaded into a fresh
+   agent, compared tensor by tensor, and trained one more iteration;
 3. K1: the GAE kernel against its plain version, bit for bit, at
    (T, N, K) = (64, 4096, 2) and at ragged strips, a T above one time tile
    and a column count that takes the 4-byte path; two launches on the same
@@ -25,7 +35,10 @@ Phases, each of which must pass:
    rows, K = 1, K = 6, D = 12 with A = 4, D = 1); two launches on the same
    inputs must give identical outputs; the reduce launch and an empty kernel
    are timed on their own;
-5. summary: one JSON line of kernels, the card's name and power limit, and
+5. breakdown: for PPO-Lag and the three f32 paths the two halves of an
+   iteration and one iteration under ``torch.profiler`` (last, because the
+   profiler leaves every later launch slower for the host);
+6. summary: one JSON line of kernels, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
@@ -51,6 +64,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
+
+# the full width of the on-policy paths: envs x steps per collect
+N_ENVS, T_STEPS = 4096, 64
 
 
 def fail(msg: str) -> None:
@@ -86,6 +102,17 @@ def time_ms(fn, reps: int = 20, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def _timed(fn):
+    """``fn()`` and its host-clock time in ms, the device drained before
+    and after."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.time() - t)
 
 
 def phase_build():
@@ -140,36 +167,28 @@ def phase_train():
     print(f"[train] iteration {ms:.2f} ms (median of 3: "
           f"{[round(1e3 * x, 2) for x in times]}), "
           f"{N * T / (ms / 1e3):.0f} env-steps/s", flush=True)
-    phase_breakdown(tr)
-    return launches
+    return launches, tr
 
 
-def phase_breakdown(tr):
+def phase_breakdown(tr, tag="breakdown"):
     """Host-clock time of the iteration's two halves (collect; process +
-    grad steps) and the device's busy share of one iteration from
+    update) and the device's busy share of one iteration from
     ``torch.profiler``."""
     import torch
     from fsrl_torch.algos.common import process_rollout
     algo = tr.algo
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, 1e3 * (time.time() - t)
-
-    res, roll_ms = timed(lambda: tr.rollout(
+    res, roll_ms = _timed(lambda: tr.rollout(
         tr.state.params, tr.env_state, tr.stats.reset_aggregates(),
         tr.generator))
-    _, proc_ms = timed(lambda: process_rollout(
+    _, proc_ms = _timed(lambda: process_rollout(
         tr.state.params.critics, res.transitions, algo.hp["gamma"],
         algo.hp["gae_lambda"], episode_len=algo.hp["episode_len"]))
-    (tr.state, _), upd_ms = timed(lambda: algo.update(
+    (tr.state, _), upd_ms = _timed(lambda: algo.update(
         tr.state, res.transitions, res.stats.mean_cost, res.stats.n_episodes,
         tr.generator))
     tr.env_state, tr.stats = res.env_state, res.stats
-    print(f"[breakdown] collect {roll_ms:.2f} ms; update {upd_ms:.2f} ms "
+    print(f"[{tag}] collect {roll_ms:.2f} ms; update {upd_ms:.2f} ms "
           f"(of which process_rollout {proc_ms:.2f} ms)", flush=True)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -189,20 +208,302 @@ def phase_breakdown(tr):
         fail("the profiler recorded no device time")
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     n_kernels = sum(e.count for e in events)
-    print(f"[breakdown] profiled iteration {wall_ms:.2f} ms wall, device "
+    print(f"[{tag}] profiled iteration {wall_ms:.2f} ms wall, device "
           f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"{n_kernels} device ops", flush=True)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     for e in top:
-        print(f"[breakdown]   {e.self_device_time_total / 1e3:9.3f} ms "
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<6d} {e.key[:70]}", flush=True)
+
+
+def phase_train_algo(name, agent_cls, task, dtype, **algo_kw):
+    """One of the trust-region / FOCOPS paths at full width: 3 iterations
+    plus the test through ``learn`` with the launch counters read around
+    it, then 3 timed iterations. Returns the agent and K1's launch count."""
+    import torch
+    from fsrl_torch.ops import kernels
+
+    N, T, iters = N_ENVS, T_STEPS, 3
+    tag = f"train {name} {'bf16' if dtype else 'f32'}"
+    agent = agent_cls(task, cost_limit=10.0, compute_dtype=dtype, **algo_kw)
+    if agent.algo.hidden_sizes != (128, 128):
+        fail(f"{tag}: not at the full width")
+    kernels.reset_launch_counts()
+    info, learn_ms = _timed(lambda: agent.learn(
+        epochs=1, step_per_epoch=iters * N * T, n_envs=N,
+        steps_per_collect=T, episode_per_test=10))
+    launches = dict(kernels.LAUNCHES)
+    tr = agent.trainer
+    metrics = tr.last_metrics
+    print(f"[{tag}] {task}: learn(3 iterations + test) "
+          f"{learn_ms / 1e3:.2f} s; launches {launches}; info {info}",
+          flush=True)
+    print(f"[{tag}] last metrics {metrics}", flush=True)
+    if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"{tag}: non-finite or missing metrics: {metrics}")
+    if not all(math.isfinite(info[k]) for k in
+               ("test_reward", "test_cost", "test_length")):
+        fail(f"{tag}: non-finite test result: {info}")
+    if launches.get("gae", 0) < iters:
+        fail(f"{tag}: GAE kernel launched {launches.get('gae', 0)} < "
+             f"{iters} times")
+    if launches.get("fused_ppo_grad", 0):
+        fail(f"{tag}: the PPO-Lag grad kernel is not on this path")
+
+    collect, update, seen_term, backtracks = [], [], 0, []
+    for _ in range(3):
+        res, c_ms = _timed(lambda: tr.rollout(
+            tr.state.params, tr.env_state, tr.stats.reset_aggregates(),
+            tr.generator))
+        (tr.state, m), u_ms = _timed(lambda: agent.algo.update(
+            tr.state, res.transitions, res.stats.mean_cost,
+            res.stats.n_episodes, tr.generator))
+        tr.env_state, tr.stats = res.env_state, res.stats
+        collect.append(c_ms)
+        update.append(u_ms)
+        seen_term += int(res.transitions.terminated.sum())
+        if "loss/backtracks" in m:
+            backtracks.append(int(m["loss/backtracks"]))
+    c_ms, u_ms = statistics.median(collect), statistics.median(update)
+    extra = f"; accepted line-search index {backtracks}" if backtracks else ""
+    print(f"[{tag}] iteration {c_ms + u_ms:.2f} ms = collect {c_ms:.2f} + "
+          f"update {u_ms:.2f} (medians of 3), "
+          f"{N * T / ((c_ms + u_ms) / 1e3):.0f} env-steps/s; terminated "
+          f"flags in the 3 collects: {seen_term}{extra}", flush=True)
+    if task.startswith("SafetyDrone") and seen_term == 0:
+        fail(f"{tag}: no drone crashed: the env's terminations did not "
+             "reach the collector")
+    agent.state = tr.state
+    return agent, launches.get("gae", 0)
+
+
+def phase_update_split(name, tr):
+    """Where one f32 update of a trust-region algorithm goes: rollout
+    processing, the actor's step (of which ten Fisher-vector products of
+    one CG solve on their own) and the critic steps; host-clock ms."""
+    import torch
+    from fsrl_torch.algos.common import (apply_flat, critic_steps,
+                                         normalize_adv, process_rollout,
+                                         split_flat)
+    from fsrl_torch.ops.cg import conjugate_gradient, make_fvp
+    algo, model = tr.algo, tr.state.params
+    hp = algo.hp
+    res = tr.rollout(tr.state.params, tr.env_state,
+                     tr.stats.reset_aggregates(), tr.generator)
+    batch, proc_ms = _timed(lambda: process_rollout(
+        model.critics, res.transitions, hp["gamma"], hp["gae_lambda"],
+        episode_len=hp["episode_len"]))
+    adv = normalize_adv(batch.adv)
+    flat_a, flat_c = split_flat(model, tr.state.flat.clone())
+    dev = flat_a.device
+    if name == "trpo_lag":
+        step = lambda: algo.natural_gradient_step(
+            model, flat_a, batch.obs, batch.act, batch.logp_old, adv,
+            torch.ones(algo.num_costs, device=dev),
+            torch.tensor(0.5, device=dev))
+    else:
+        step = lambda: algo.trust_region_step(
+            model, flat_a, batch.obs, batch.act, batch.logp_old, adv[:, 0],
+            adv[:, 1], torch.tensor(12.0, device=dev), algo.cost_limit)
+    (_, info), step_ms = _timed(step)
+    names = model.actor_names()
+    with torch.no_grad():
+        old = apply_flat(model.actor, names, flat_a, batch.obs)
+    kl = lambda f: old.kl(apply_flat(model.actor, names, f, batch.obs)).mean()
+    b = torch.randn(flat_a.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    _, cg_ms = _timed(lambda: conjugate_gradient(
+        make_fvp(kl, flat_a, hp["damping"]), b, hp["cg_iters"]))
+    _, crit_ms = _timed(lambda: critic_steps(
+        algo.critic_tx, model.critics, model.critic_names(), flat_c,
+        tr.state.critic_opt_state, batch.obs, batch.ret,
+        hp["optim_critic_iters"], hp.get("l2_reg", 0.0)))
+    key = "backtracks" if name == "trpo_lag" else "loss/backtracks"
+    print(f"[update split {name}] process_rollout {proc_ms:.2f} ms; actor "
+          f"step {step_ms:.2f} ms (one CG solve of {hp['cg_iters']} "
+          f"products alone {cg_ms:.2f} ms; line search accepted index "
+          f"{int(info[key])}); "
+          f"{hp['optim_critic_iters']} critic steps {crit_ms:.2f} ms",
+          flush=True)
+
+
+def phase_critic_forms():
+    """One whole-batch critic loss and gradient at the full width, through
+    the ensemble's forward (each tower a chain of plain matmuls) and with
+    every layer one matmul batched over the towers: same values and
+    gradients, and the device time of each (median of 5 CUDA-event
+    timings)."""
+    import torch
+    from fsrl_torch.nets.mlp import VCriticEnsemble
+
+    def batched(c, obs):
+        dt = c.compute_dtype or obs.dtype
+        x = obs.reshape(1, -1, obs.shape[-1]).to(dt)
+        for i, (w, b) in enumerate(zip(c.w, c.b)):
+            x = torch.matmul(x, w.to(dt).transpose(1, 2)) + b.to(dt)[:, None]
+            if i < len(c.w) - 1:
+                x = torch.relu(x)
+        return x[..., 0].T.float()
+
+    def event_ms(fn):
+        times = []
+        for i in range(7):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            if i >= 2:                      # two warm-up calls
+                times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    D, K = 13, 2
+    g = torch.Generator(device="cuda").manual_seed(0)
+    # the whole batch of TRPO-Lag's and CPO's critic steps, and one of
+    # FOCOPS's 8 minibatches
+    for B, dtype in ((N_ENVS * T_STEPS, None),
+                     (N_ENVS * T_STEPS, torch.bfloat16),
+                     (N_ENVS * T_STEPS // 8, None),
+                     (N_ENVS * T_STEPS // 8, torch.bfloat16)):
+        obs = torch.randn(B, D, device="cuda", generator=g)
+        ret = torch.randn(B, K, device="cuda", generator=g)
+        c = VCriticEnsemble(D, K, (128, 128), compute_dtype=dtype,
+                            generator=torch.Generator().manual_seed(1)
+                            ).cuda()
+        params = list(c.parameters())
+
+        def grads(fwd):
+            loss = ((ret - fwd(obs)) ** 2).mean(0).sum()
+            return torch.autograd.grad(loss, params)
+
+        with torch.no_grad():
+            v_err = float((c(obs) - batched(c, obs)).abs().max())
+        g_err = max(float((a - b).abs().max() / (b.abs().max() + 1e-12))
+                    for a, b in zip(grads(c), grads(lambda o: batched(c, o))))
+        ms = event_ms(lambda: grads(c))
+        batched_ms = event_ms(lambda: grads(lambda o: batched(c, o)))
+        tag = "bf16" if dtype else "f32"
+        # f32: summation order; bf16: a value may round to the neighbouring
+        # bf16 number (2^-8 relative) when its f32 sum came out otherwise
+        tol = 2e-2 if dtype else 1e-4
+        print(f"[critic forms {tag}] {B} rows, D {D}, K {K}: max |value "
+              f"diff| {v_err:.3e}, worst gradient err / max|ref| "
+              f"{g_err:.3e} (tol {tol:.0e}); loss + gradient {ms:.3f} ms, "
+              f"every layer a batched matmul {batched_ms:.3f} ms",
+              flush=True)
+        if not (v_err <= tol and g_err <= tol):
+            fail(f"the critic ensemble's two forms disagree ({tag})")
+
+
+def phase_new_paths():
+    """FOCOPS, TRPO-Lag and CPO at full width, f32 then bf16. Returns K1's
+    launch counts by path and the f32 agents (for the checkpoint phase and
+    the profiled breakdowns)."""
+    import torch
+    from fsrl_torch.agent import CPOAgent, FOCOPSAgent, TRPOLagAgent
+    paths = (("focops", FOCOPSAgent, "SafetyCarCircle-v0",
+              dict(repeat=4, n_minibatches=8)),
+             ("trpo_lag", TRPOLagAgent, "SafetyDroneRun-v0", {}),
+             ("cpo", CPOAgent, "SafetyAntRun-v0", {}))
+    counts, f32_agents = {}, {}
+    for name, cls, task, kw in paths:
+        for dtype in (None, torch.bfloat16):
+            agent, n_gae = phase_train_algo(name, cls, task, dtype, **kw)
+            counts[f"{name}_{'bf16' if dtype else 'f32'}"] = n_gae
+            if dtype is None:
+                f32_agents[name] = agent
+                if name != "focops":
+                    phase_update_split(name, agent.trainer)
+    return counts, f32_agents
+
+
+def phase_checkpoint(agent):
+    """Save the FOCOPS state trained on the card, load it into a fresh
+    agent, compare every tensor, train one more iteration."""
+    import tempfile
+
+    import torch
+    from fsrl_torch.agent import FOCOPSAgent
+    from fsrl_torch.utils.checkpoint import (load_checkpoint,
+                                             save_checkpoint, to_state_dict)
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, torch.Tensor):
+            yield prefix, tree
+        else:
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}.{k}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "checkpoint", "model.pt")
+        save_checkpoint(path, agent.state)
+        size = os.path.getsize(path)
+        fresh = FOCOPSAgent("SafetyCarCircle-v0", cost_limit=10.0, seed=11,
+                            repeat=4, n_minibatches=8)
+        if torch.equal(fresh.state.flat, agent.state.flat):
+            fail("[checkpoint] the fresh agent already equals the trained")
+        fresh.state = load_checkpoint(path, fresh.state)
+    saved = dict(leaves(to_state_dict(agent.state)))
+    got = dict(leaves(to_state_dict(fresh.state)))
+    bad = [k for k in saved if k not in got or not torch.equal(saved[k],
+                                                                got[k])]
+    if bad or set(saved) != set(got) or fresh.state.flat.device.type != "cuda":
+        fail(f"[checkpoint] restored state differs at {bad}")
+    if not torch.equal(fresh.state.flat, agent.state.flat):
+        fail("[checkpoint] the flat vector does not hold the restored "
+             "parameters")
+    count = int(fresh.state.update_count)
+    info = fresh.learn(epochs=1, step_per_epoch=N_ENVS * T_STEPS,
+                       n_envs=N_ENVS, steps_per_collect=T_STEPS,
+                       episode_per_test=2)
+    ok = (int(fresh.state.update_count) == count + 1
+          and all(math.isfinite(v)
+                  for v in fresh.trainer.last_metrics.values()))
+    print(f"[checkpoint] {len(saved)} tensors, {size} bytes, restored bit "
+          f"for bit onto the card; update_count {count} -> "
+          f"{int(fresh.state.update_count)}; one more iteration: {info}",
+          flush=True)
+    if not ok:
+        fail("[checkpoint] training did not continue from the restored "
+             "state")
+
+
+def _update_on(dev, algo_cls, rows, **algo_kw):
+    """One small f32 update of ``algo_cls`` on ``dev``: flat parameters,
+    metrics, and the flat parameters before."""
+    import torch
+    from fsrl_torch.types import TileLayout, Transition, draw_tile_perms
+    T, N = rows["reward"].shape
+    algo = algo_cls(rows["obs"].shape[-1], rows["act"].shape[-1],
+                    cost_limit=5.0, device=dev, **algo_kw)
+    state = algo.init(seed=1)
+    start = state.flat.cpu().clone()
+    tr = Transition(**{
+        k: torch.as_tensor(v, dtype=torch.bool if v.dtype == bool
+                           else torch.float32, device=dev)
+        for k, v in rows.items()})
+    extra = {}
+    if algo.name in ("ppo_lag", "focops"):
+        perms = draw_tile_perms(
+            TileLayout.of(T * N, 2), 2, torch.Generator().manual_seed(2),
+            "cpu", roll_per_epoch=algo.name == "focops")
+        extra["perms"] = tuple(p.to(dev) for p in perms)
+    state, m = algo.update(
+        state, tr, torch.tensor([7.0], device=dev),
+        torch.tensor(3, dtype=torch.int32, device=dev), None, **extra)
+    return (algo, state, start, state.flat.cpu(),
+            {k: float(v) for k, v in m.items()})
 
 
 def phase_update_parity():
     import numpy as np
-    import torch
+    from fsrl_torch.algos.common import split_flat
+    from fsrl_torch.algos.cpo import CPO
+    from fsrl_torch.algos.focops import FOCOPS
     from fsrl_torch.algos.ppo_lag import PPOLag
-    from fsrl_torch.types import TileLayout, Transition, draw_tile_perms
+    from fsrl_torch.algos.trpo_lag import TRPOLag
 
     rng = np.random.default_rng(0)
     T, N, D, A = 32, 64, 9, 2
@@ -213,33 +514,65 @@ def phase_update_parity():
         "terminated": rng.random((T, N)) < 0.02,
         "truncated": rng.random((T, N)) < 0.02,
         "logp": rng.normal(size=(T, N)) - 2.0}
-    out = {}
-    for dev in ("cpu", "cuda"):
-        algo = PPOLag(D, A, cost_limit=5.0, repeat=2, n_minibatches=2,
-                      device=dev)
-        state = algo.init(seed=1)
-        tr = Transition(**{
-            k: torch.as_tensor(v, dtype=torch.bool if v.dtype == bool
-                               else torch.float32, device=dev)
-            for k, v in rows.items()})
-        g = torch.Generator().manual_seed(2)
-        perms = draw_tile_perms(TileLayout.of(T * N, 2), 2, g, "cpu")
-        state, m = algo.update(
-            state, tr, torch.tensor([7.0], device=dev),
-            torch.tensor(3, dtype=torch.int32, device=dev), None,
-            perms=tuple(p.to(dev) for p in perms))
-        out[dev] = (state.flat.cpu(), {k: float(v) for k, v in m.items()})
-    (fc, mc), (fg, mg) = out["cpu"], out["cuda"]
-    # the devices sum in other orders (gradients ~1e-7 apart relative);
-    # Adam's lr * m / sqrt(v) passes that on, so after 4 steps of lr 5e-4
-    # (moves of ~1e-3) the weights agree to 1e-5 and the losses to 1e-5
-    param_err = float((fc - fg).abs().max())
-    loss_err = max(abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])) for k in mc)
-    print(f"[update parity] max |param cpu - cuda| {param_err:.3e} "
-          f"(tol 1e-5); max loss rel err {loss_err:.3e} (tol 1e-5)",
-          flush=True)
-    if not (param_err <= 1e-5 and loss_err <= 1e-5):
-        fail("CUDA update disagrees with the CPU update")
+    mb = dict(repeat=2, n_minibatches=2)
+    for cls, kw in ((PPOLag, mb), (FOCOPS, mb),
+                    (TRPOLag, dict(target_kl=0.01)), (CPO, {})):
+        algo, state, start, fc, mc = _update_on("cpu", cls, rows, **kw)
+        _, _, _, fg, mg = _update_on("cuda", cls, rows, **kw)
+        tag = f"update parity {algo.name}"
+        loss_err, worst = max(
+            (abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])), k) for k in mc)
+        if algo.name in ("ppo_lag", "focops"):
+            # the devices sum in other orders (gradients ~1e-7 apart
+            # relative); Adam's lr * m / sqrt(v) passes that on, so after
+            # 4 steps (moves of ~1e-3) the weights agree to 1e-5 and the
+            # losses to 1e-5
+            param_err = float((fc - fg).abs().max())
+            print(f"[{tag}] max |param cpu - cuda| {param_err:.3e} (tol "
+                  f"1e-5); max loss rel err {loss_err:.3e} (tol 1e-5)",
+                  flush=True)
+            ok = param_err <= 1e-5 and loss_err <= 1e-5
+        else:
+            # CG amplifies the summation order (ten unconverged
+            # iterations): the actor's step is held to 5e-3 of its length
+            # with the same accepted index (and optimization case). The
+            # critics take 10 or 20 Adam steps: where a gradient entry is
+            # rounding noise, m / sqrt(v) makes a full step of lr out of
+            # it, in a direction that depends on the summation order, so
+            # the critics' move as a whole is held to 2e-2 of its length
+            # and no entry may differ by more than 5 steps of lr. The
+            # metrics are held to 1e-2 (r, a cross term of two CG
+            # solutions, to 5e-2)
+            model = state.params
+            (ac, cc), (ag, cg) = split_flat(model, fc), split_flat(model, fg)
+            a0 = split_flat(model, start)[0]
+            step_err = float((ac - ag).norm() / (ac - a0).norm())
+            c0 = split_flat(model, start)[1]
+            crit_err = float((cc - cg).norm() / (cc - c0).norm())
+            crit_max = float((cc - cg).abs().max())
+            same = all(mc[k] == mg[k] for k in
+                       ("loss/backtracks", "loss/optim_case") if k in mc)
+            r_err = abs(mc.get("loss/optim_R", 0.0)
+                        - mg.get("loss/optim_R", 0.0))
+            loss_err, worst = max(
+                (abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])), k)
+                for k in mc if k != "loss/optim_R")
+            print(f"[{tag}] actor step err / length {step_err:.3e} (tol "
+                  f"5e-3); accepted index {mg['loss/backtracks']:.0f} "
+                  f"(cpu {mc['loss/backtracks']:.0f})"
+                  + (f", optim_case {mg['loss/optim_case']:.0f} (cpu "
+                     f"{mc['loss/optim_case']:.0f}), |r cpu - cuda| "
+                     f"{r_err:.3e} (tol 5e-2)" if "loss/optim_case" in mc
+                     else "")
+                  + f"; critics move err / length {crit_err:.3e} (tol "
+                  f"2e-2), max abs err {crit_max:.3e} (tol 5e-3); max "
+                  f"metric rel err {loss_err:.3e} at {worst} (tol 1e-2)",
+                  flush=True)
+            ok = (step_err <= 5e-3 and crit_err <= 2e-2 and crit_max <= 5e-3
+                  and same and loss_err <= 1e-2 and r_err <= 5e-2)
+        if not ok:
+            fail(f"the CUDA update of {algo.name} disagrees with the CPU "
+                 "update")
 
 
 def _gae_case(T: int, N: int, K: int):
@@ -415,19 +748,29 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     phase_build()
-    launches = phase_train()
+    # host-clock timings first: once torch.profiler has run in a process,
+    # every later launch costs the host more
+    phase_critic_forms()
+    launches, ppo_trainer = phase_train()
+    gae_by_path, f32_agents = phase_new_paths()
     phase_update_parity()
+    phase_checkpoint(f32_agents["focops"])
     k1 = phase_gae()
     k2 = _k2_case(2, True)
     phase_k2_scaling(k2["ms"])
     _k2_case(3, True)
     _k2_case(2, False)
     phase_k2_edges()
+    phase_breakdown(ppo_trainer)
+    for name, agent in f32_agents.items():
+        phase_breakdown(agent.trainer, tag=f"breakdown {name}")
 
     kernels = [
         dict(name="gae", route="cuda", source="fsrl_torch/csrc/gae.cu",
              replaces="fsrl_tpu/ops/pallas_gae.py:27",
-             launches=launches.get("gae", 0), library_ms=None, **k1),
+             launches=launches.get("gae", 0), library_ms=None,
+             launches_by_path=dict(ppo_lag_bf16=launches.get("gae", 0),
+                                   **gae_by_path), **k1),
         dict(name="fused_ppo_grad", route="cuda",
              source="fsrl_torch/csrc/fused_ppo_grad.cu",
              replaces="fsrl_tpu/ops/fused_ppo_grad.py:68",

@@ -1,5 +1,7 @@
 """Agents: algorithm factories with learn / evaluate."""
 
-from fsrl_torch.agent.agents import BaseAgent, PPOLagAgent
+from fsrl_torch.agent.agents import (BaseAgent, CPOAgent, FOCOPSAgent,
+                                     PPOLagAgent, TRPOLagAgent)
 
-__all__ = ["BaseAgent", "PPOLagAgent"]
+__all__ = ["BaseAgent", "CPOAgent", "FOCOPSAgent", "PPOLagAgent",
+           "TRPOLagAgent"]

@@ -1,7 +1,7 @@
-"""Agent layer (port of ``BaseAgentTPU`` / ``PPOLagAgent`` of
-``fsrl_tpu/agent/agents.py``): the algorithm with its default recipe, the
-trainer, ``stop_fn = reward > threshold and cost < limit``, and an
-episode-exact ``evaluate``.
+"""Agent layer (port of ``BaseAgentTPU`` and the four feedforward on-policy
+agents of ``fsrl_tpu/agent/agents.py``): the algorithm with its default
+recipe, the trainer, ``stop_fn = reward > threshold and cost < limit``, and
+an episode-exact ``evaluate``.
 
 Agents run on CUDA unless ``device="cpu"`` is passed; without CUDA they
 raise.
@@ -15,7 +15,10 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from fsrl_torch.algos.cpo import CPO
+from fsrl_torch.algos.focops import FOCOPS
 from fsrl_torch.algos.ppo_lag import PPOLag
+from fsrl_torch.algos.trpo_lag import TRPOLag
 from fsrl_torch.data.collector import evaluate
 from fsrl_torch.device import resolve_device
 from fsrl_torch.envs.base import SafeEnv, make
@@ -28,6 +31,7 @@ class BaseAgent:
 
     name = "BaseAgent"
     algo_cls = None
+    # CPO and FOCOPS take one constraint
     multi_constraint = True
 
     def __init__(self, env: Union[str, SafeEnv],
@@ -55,7 +59,7 @@ class BaseAgent:
 
     def learn(self, epochs: int = 100, step_per_epoch: int = 10000,
               n_envs: int = 20, steps_per_collect: int = 125,
-              episode_per_test: int = 10,
+              episode_per_test: int = 10, save_model_interval: int = 4,
               reward_threshold: Optional[float] = None,
               verbose: bool = False, **trainer_kwargs) -> dict:
         stop_fn = None
@@ -67,7 +71,7 @@ class BaseAgent:
             step_per_epoch=step_per_epoch, n_envs=n_envs,
             steps_per_collect=steps_per_collect,
             episode_per_test=episode_per_test, cost_limit=self.cost_limit,
-            stop_fn=stop_fn, seed=self.seed, verbose=verbose,
+            save_model_interval=save_model_interval, stop_fn=stop_fn, seed=self.seed, verbose=verbose,
             state=self.state, **trainer_kwargs)
         info = self.trainer.run()
         self.state = self.trainer.state
@@ -91,3 +95,27 @@ class PPOLagAgent(BaseAgent):
 
     name = "PPOLagAgent"
     algo_cls = PPOLag
+
+
+class TRPOLagAgent(BaseAgent):
+    """Defaults: target_kl 0.001, 20 critic iterations, whole-batch natural
+    gradient."""
+
+    name = "TRPOLagAgent"
+    algo_cls = TRPOLag
+
+
+class CPOAgent(BaseAgent):
+    """Defaults: target_kl 0.01, critic lr 1e-3, 10 critic iterations."""
+
+    name = "CPOAgent"
+    algo_cls = CPO
+    multi_constraint = False
+
+
+class FOCOPSAgent(BaseAgent):
+    """Defaults: auto-nu (nu_max 2.0, nu_lr 1e-2, nu_init 0.01)."""
+
+    name = "FOCOPSAgent"
+    algo_cls = FOCOPS
+    multi_constraint = False

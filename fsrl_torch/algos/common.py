@@ -8,15 +8,21 @@ K = 1 + M: column 0 is the reward, columns 1..M the costs.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Callable
 
 import torch
+from torch import nn
+from torch.func import functional_call
 
+from fsrl_torch.nets.mlp import ActorCritic, GaussianActor, VCriticEnsemble
 from fsrl_torch.ops.gae_kernel import gae_advantages_fused
 from fsrl_torch.types import Transition
+from fsrl_torch.utils.params import flatten_parameters_, unflatten
 
 Tensor = torch.Tensor
+# lr(step count) -> learning rate; the count is an int or a 0-d int tensor
+Schedule = Callable[["Tensor | int"], "Tensor | float"]
 
 
 @dataclass
@@ -132,9 +138,12 @@ class AdamState:
 class FlatAdam:
     """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr))`` on one
     flat parameter vector (``make_optimizer(..., flat=True)``), with optax's
-    operation order. ``lr`` is a float."""
+    operation order. ``lr`` is a float or a schedule: a callable of the
+    step count, evaluated on the device at the count before the step's
+    increment, as optax's ``scale_by_schedule`` does."""
 
-    def __init__(self, lr: float, max_grad_norm: float | None = None,
+    def __init__(self, lr: float | Schedule,
+                 max_grad_norm: float | None = None,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.lr, self.max_grad_norm = lr, max_grad_norm
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -158,10 +167,143 @@ class FlatAdam:
         c = count.to(grad.dtype)
         mu_hat = mu / (1 - b1 ** c)
         nu_hat = nu / (1 - b2 ** c)
-        updates = -self.lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
+        lr = self.lr(state.count) if callable(self.lr) else self.lr
+        updates = -lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
         return updates, AdamState(count=count, mu=mu, nu=nu)
 
 
-def make_optimizer(lr: float, max_grad_norm: float | None = None) -> FlatAdam:
-    """Adam with optional global-norm clipping, on one flat vector."""
+def make_optimizer(lr: float | Schedule,
+                   max_grad_norm: float | None = None) -> FlatAdam:
+    """Adam with optional global-norm clipping, on one flat vector. ``lr``
+    may be a schedule; it advances once per gradient step (use
+    :func:`per_update_schedule` for a schedule in trainer-update units)."""
     return FlatAdam(lr, max_grad_norm)
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Schedule:
+    """``optax.linear_schedule``: from ``init_value`` to ``end_value`` over
+    ``transition_steps`` counts, constant after. Takes an int or an integer
+    tensor and returns a float32 tensor on the count's device."""
+    def sched(count):
+        c = torch.clamp(torch.as_tensor(count), 0, transition_steps)
+        frac = 1.0 - c.to(torch.float32) / transition_steps
+        return (init_value - end_value) * frac + end_value
+    return sched
+
+
+def per_update_schedule(schedule: Schedule,
+                        grad_steps_per_update: int) -> Schedule:
+    """Adapt a schedule in trainer-update units to the per-gradient-step
+    count: ``lr(t) = schedule(t // grad_steps_per_update)``. For on-policy
+    algorithms ``grad_steps_per_update = repeat * n_minibatches``."""
+    def sched(count):
+        return schedule(count // grad_steps_per_update)
+    return sched
+
+
+def select_state(stopped: Tensor, old: AdamState, new: AdamState) -> AdamState:
+    """``old`` where ``stopped`` (a 0-d bool tensor) else ``new``, field by
+    field: the masked optimizer step after a KL early stop."""
+    return AdamState(*(torch.where(stopped, getattr(old, f.name),
+                                   getattr(new, f.name))
+                       for f in fields(AdamState)))
+
+
+class ActorCriticAlgo:
+    """What the on-policy algorithms share: the Gaussian actor and V-critic
+    ensemble behind one flat parameter vector, and acting. A subclass sets
+    ``device``, ``obs_dim``, ``act_dim``, ``K``, ``hidden_sizes``,
+    ``compute_dtype``, ``net_kw`` (the actor's keywords) and
+    ``deterministic_eval``."""
+
+    def make_params(self, seed: int = 0) -> ActorCritic:
+        """Orthogonal init from a seeded CPU generator, then moved to the
+        algorithm's device."""
+        g = torch.Generator().manual_seed(seed)
+        actor = GaussianActor(self.obs_dim, self.act_dim, self.hidden_sizes,
+                              compute_dtype=self.compute_dtype, generator=g,
+                              **self.net_kw)
+        critics = VCriticEnsemble(self.obs_dim, self.K, self.hidden_sizes,
+                                  compute_dtype=self.compute_dtype,
+                                  generator=g)
+        return ActorCritic(actor, critics).to(self.device)
+
+    def init_model(self, seed: int = 0, state_dict: dict | None = None
+                   ) -> tuple[ActorCritic, Tensor]:
+        """The model and the flat vector its parameters view (actor first);
+        ``state_dict`` (e.g. from
+        :func:`fsrl_torch.utils.params.from_jax_params`) sets the weights."""
+        model = self.make_params(seed)
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        return model, flatten_parameters_(model, model.flat_names())
+
+    def _counters(self) -> dict[str, Tensor]:
+        z = lambda: torch.zeros((), dtype=torch.int32, device=self.device)
+        return dict(update_count=z(), gradient_steps=z())
+
+    @torch.no_grad()
+    def act_fn(self, params: ActorCritic, obs: Tensor,
+               generator: torch.Generator):
+        dist = params.actor(obs)
+        act = dist.sample(generator)
+        return act, dist.log_prob(act)
+
+    @torch.no_grad()
+    def act_fn_eval(self, params: ActorCritic, obs: Tensor,
+                    generator: torch.Generator):
+        dist = params.actor(obs)
+        act = dist.mode() if self.deterministic_eval else dist.sample(
+            generator)
+        return act, dist.log_prob(act)
+
+
+# ---------------------------------------------------------------------------
+# Separate actor and critic vectors (FOCOPS, TRPO-Lag, CPO): the actor's
+# parameters come first in ``ActorCritic.flat_names``, so both are contiguous
+# views of the one flat vector the module's parameters view.
+# ---------------------------------------------------------------------------
+
+def split_flat(model: nn.Module, flat: Tensor) -> tuple[Tensor, Tensor]:
+    """``(actor vector, critic vector)``, views of ``flat``."""
+    n_actor = sum(p.numel() for p in model.actor.parameters())
+    return flat[:n_actor], flat[n_actor:]
+
+
+def apply_flat(module: nn.Module, names: list[str], flat: Tensor, *args):
+    """``module(*args)`` with its parameters read from ``flat`` (in
+    ``names`` order): differentiable with respect to ``flat``."""
+    return functional_call(module, unflatten(flat, module, names), args)
+
+
+def critic_loss_grad(critics: nn.Module, names: list[str], flat_c: Tensor,
+                     obs: Tensor, ret: Tensor,
+                     l2_reg: float = 0.0) -> tuple[Tensor, Tensor]:
+    """The critic ensemble's loss ``sum_k mean_b (ret - v)^2`` plus
+    ``l2_reg`` times the squared norm of every critic parameter (biases
+    included), and its gradient at ``flat_c``."""
+    with torch.enable_grad():
+        f = flat_c.detach().requires_grad_(True)
+        v = apply_flat(critics, names, f, obs)
+        loss = ((ret - v) ** 2).mean(0).sum()
+        if l2_reg:
+            loss = loss + l2_reg * (f * f).sum()
+        (grad,) = torch.autograd.grad(loss, f)
+    return loss.detach(), grad
+
+
+def critic_steps(tx: FlatAdam, critics: nn.Module, names: list[str],
+                 flat_c: Tensor, opt: AdamState, obs: Tensor, ret: Tensor,
+                 n_iters: int, l2_reg: float = 0.0
+                 ) -> tuple[AdamState, Tensor]:
+    """``n_iters`` whole-batch Adam steps on the critic loss, written into
+    ``flat_c`` in place. Returns the optimizer state and the last step's
+    loss (taken before that step)."""
+    loss = None
+    for _ in range(n_iters):
+        loss, grad = critic_loss_grad(critics, names, flat_c, obs, ret,
+                                      l2_reg)
+        updates, opt = tx.update(grad, opt)
+        flat_c.add_(updates)
+    return opt, loss

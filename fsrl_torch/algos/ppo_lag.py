@@ -30,17 +30,19 @@ from dataclasses import dataclass, fields
 import torch
 from torch.func import functional_call
 
-from fsrl_torch.algos.common import (AdamState, OnPolicyBatch, make_optimizer,
-                                     normalize_adv, process_rollout)
+from fsrl_torch.algos.common import (ActorCriticAlgo, AdamState,
+                                     OnPolicyBatch, Schedule, make_optimizer,
+                                     normalize_adv, process_rollout,
+                                     select_state)
 from fsrl_torch.device import resolve_device
-from fsrl_torch.nets.mlp import ActorCritic, GaussianActor, VCriticEnsemble
+from fsrl_torch.nets.mlp import ActorCritic
 from fsrl_torch.ops.fused_ppo_grad import GradLayout, ppo_grad_minibatch
 from fsrl_torch.ops.lagrange import (PIDLagrangianState, pid_controller_step,
                                      rescaling_factor)
 from fsrl_torch.ops.running_stats import RunningMeanStd
 from fsrl_torch.types import (TileLayout, Transition, draw_tile_perms,
                               is_epoch_end, minibatch_row_index)
-from fsrl_torch.utils.params import flatten_parameters_, unflatten
+from fsrl_torch.utils.params import unflatten
 
 Tensor = torch.Tensor
 
@@ -57,14 +59,14 @@ class PPOLagState:
     gradient_steps: Tensor
 
 
-class PPOLag:
+class PPOLag(ActorCriticAlgo):
     """Config plus the init / act / update functions."""
 
     name = "ppo_lag"
 
     def __init__(self, obs_dim: int, act_dim: int, *,
                  cost_limit: float | list = 10.0, num_costs: int = 1,
-                 hidden_sizes=(128, 128), lr: float = 5e-4,
+                 hidden_sizes=(128, 128), lr: float | Schedule = 5e-4,
                  target_kl: float = 0.02, vf_coef: float = 0.25,
                  max_grad_norm: float | None = 0.5, gae_lambda: float = 0.95,
                  eps_clip: float = 0.2, dual_clip: float | None = None,
@@ -114,25 +116,11 @@ class PPOLag:
         self.tx = make_optimizer(lr, max_grad_norm)
 
     # ---------------- init ----------------
-    def make_params(self, seed: int = 0) -> ActorCritic:
-        """Orthogonal init from a seeded CPU generator, then moved to the
-        algorithm's device."""
-        g = torch.Generator().manual_seed(seed)
-        actor = GaussianActor(self.obs_dim, self.act_dim, self.hidden_sizes,
-                              compute_dtype=self.compute_dtype, generator=g,
-                              **self.net_kw)
-        critics = VCriticEnsemble(self.obs_dim, self.K, self.hidden_sizes,
-                                  compute_dtype=self.compute_dtype,
-                                  generator=g)
-        return ActorCritic(actor, critics).to(self.device)
-
     def init(self, seed: int = 0, state_dict: dict | None = None
              ) -> PPOLagState:
         """Fresh state; ``state_dict`` (e.g. from
         :func:`fsrl_torch.utils.params.from_jax_params`) sets the weights."""
-        model = self.make_params(seed)
-        if state_dict is not None:
-            model.load_state_dict(state_dict)
+        model, flat = self.init_model(seed, state_dict)
         if self.use_grad_kernel:
             # the kernel reads the flat vector in GradLayout's order
             params = dict(model.named_parameters())
@@ -140,31 +128,12 @@ class PPOLag:
                     self.grad_layout.shapes():
                 raise ValueError("flat parameter order differs from the "
                                  "fused grad kernel's layout")
-        flat = flatten_parameters_(model, model.flat_names())
         dev = self.device
         return PPOLagState(
             params=model, flat=flat, opt_state=self.tx.init(flat),
             lag=PIDLagrangianState.init(self.num_costs, dev),
             last_ep_cost=torch.zeros(self.num_costs, device=dev),
-            ret_rms=RunningMeanStd.init((self.K,), dev),
-            update_count=torch.zeros((), dtype=torch.int32, device=dev),
-            gradient_steps=torch.zeros((), dtype=torch.int32, device=dev))
-
-    # ---------------- acting ----------------
-    @torch.no_grad()
-    def act_fn(self, params: ActorCritic, obs: Tensor,
-               generator: torch.Generator):
-        dist = params.actor(obs)
-        act = dist.sample(generator)
-        return act, dist.log_prob(act)
-
-    @torch.no_grad()
-    def act_fn_eval(self, params: ActorCritic, obs: Tensor,
-                    generator: torch.Generator):
-        dist = params.actor(obs)
-        act = dist.mode() if self.deterministic_eval else dist.sample(
-            generator)
-        return act, dist.log_prob(act)
+            ret_rms=RunningMeanStd.init((self.K,), dev), **self._counters())
 
     # ---------------- loss (autograd path) ----------------
     def _autograd_step(self, state: PPOLagState, mb: OnPolicyBatch,
@@ -281,9 +250,7 @@ class PPOLag:
                     state, mb, lam_mult, resc)
             updates, new_opt = self.tx.update(grad, opt)
             flat.copy_(torch.where(stopped, flat, flat + updates))
-            opt = AdamState(*(torch.where(stopped, getattr(opt, f.name),
-                                          getattr(new_opt, f.name))
-                              for f in fields(AdamState)))
+            opt = select_state(stopped, opt, new_opt)
             gsteps = gsteps + (~stopped).to(gsteps.dtype)
             kl_acc = kl_acc + aux["kl"]
             if is_epoch_end(s, n_mb):

@@ -1,0 +1,201 @@
+"""Per-algorithm training configs and the task preset registry (port of
+``fsrl_tpu/config/configs.py`` for the algorithms and tasks the port has).
+
+Each algorithm has a config dataclass with the task, cost limit, seed,
+algorithm knobs, collection knobs and logger knobs, and ``algo_kwargs()``
+for the algorithm's constructor. The budget presets rescale epochs and cost
+limit to a total env-step budget. Collection is ``n_envs`` x
+``steps_per_collect`` fixed-length segments.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass
+class TrainCfg:
+    # general task params
+    task: str = "SafetyCarCircle-v0"
+    cost_limit: float = 10.0
+    seed: int = 10
+    use_default_cfg: bool = False
+    # collection knobs (on-policy defaults)
+    epochs: int = 200
+    step_per_epoch: int = 10000
+    n_envs: int = 20
+    steps_per_collect: int = 500
+    episode_per_test: int = 10
+    # logger knobs
+    logdir: str = "logs"
+    project: str = "fast-safe-rl-torch"
+    group: Optional[str] = None
+    name: Optional[str] = None
+    prefix: str = "fsrl-torch"
+    suffix: Optional[str] = ""
+    verbose: bool = True
+    save_interval: int = 4
+    # stop
+    reward_threshold: Optional[float] = None
+    # shared net / algo knobs
+    hidden_sizes: Tuple[int, ...] = (128, 128)
+    gamma: float = 0.99
+
+
+@dataclass
+class PPOLagCfg(TrainCfg):
+    lr: float = 5e-4
+    target_kl: float = 0.02
+    vf_coef: float = 0.25
+    max_grad_norm: Optional[float] = 0.5
+    gae_lambda: float = 0.95
+    eps_clip: float = 0.2
+    dual_clip: Optional[float] = None
+    value_clip: bool = False
+    norm_adv: bool = True
+    use_lagrangian: bool = True
+    lagrangian_pid: Tuple[float, float, float] = (0.05, 0.0005, 0.1)
+    rescaling: bool = True
+    repeat: int = 4
+    n_minibatches: int = 4
+
+    def algo_kwargs(self) -> dict:
+        return dict(
+            hidden_sizes=self.hidden_sizes, lr=self.lr,
+            target_kl=self.target_kl, vf_coef=self.vf_coef,
+            max_grad_norm=self.max_grad_norm, gae_lambda=self.gae_lambda,
+            eps_clip=self.eps_clip, dual_clip=self.dual_clip,
+            value_clip=self.value_clip,
+            advantage_normalization=self.norm_adv,
+            use_lagrangian=self.use_lagrangian,
+            lagrangian_pid=self.lagrangian_pid, rescaling=self.rescaling,
+            gamma=self.gamma, repeat=self.repeat,
+            n_minibatches=self.n_minibatches)
+
+
+@dataclass
+class TRPOLagCfg(TrainCfg):
+    lr: float = 1e-3
+    target_kl: float = 0.001
+    backtrack_coeff: float = 0.8
+    max_backtracks: int = 10
+    optim_critic_iters: int = 20
+    gae_lambda: float = 0.95
+    norm_adv: bool = True
+    use_lagrangian: bool = True
+    lagrangian_pid: Tuple[float, float, float] = (0.05, 0.0005, 0.1)
+    rescaling: bool = True
+
+    def algo_kwargs(self) -> dict:
+        return dict(
+            hidden_sizes=self.hidden_sizes, lr=self.lr,
+            target_kl=self.target_kl, backtrack_coeff=self.backtrack_coeff,
+            max_backtracks=self.max_backtracks,
+            optim_critic_iters=self.optim_critic_iters,
+            gae_lambda=self.gae_lambda,
+            advantage_normalization=self.norm_adv,
+            use_lagrangian=self.use_lagrangian,
+            lagrangian_pid=self.lagrangian_pid, rescaling=self.rescaling,
+            gamma=self.gamma)
+
+
+@dataclass
+class CPOCfg(TrainCfg):
+    lr: float = 1e-3
+    target_kl: float = 0.01
+    backtrack_coeff: float = 0.8
+    # the step direction has unit norm, so a failed search must back off
+    # very deep before the step that is applied all the same is harmless
+    max_backtracks: int = 100
+    optim_critic_iters: int = 10
+    l2_reg: float = 1e-3
+    gae_lambda: float = 0.95
+    norm_adv: bool = True
+    repeat: int = 1     # trust-region steps per collect
+
+    def algo_kwargs(self) -> dict:
+        return dict(
+            hidden_sizes=self.hidden_sizes, lr=self.lr,
+            target_kl=self.target_kl, backtrack_coeff=self.backtrack_coeff,
+            max_backtracks=self.max_backtracks,
+            optim_critic_iters=self.optim_critic_iters, l2_reg=self.l2_reg,
+            gae_lambda=self.gae_lambda,
+            advantage_normalization=self.norm_adv, gamma=self.gamma,
+            repeat=self.repeat)
+
+
+@dataclass
+class FOCOPSCfg(TrainCfg):
+    actor_lr: float = 3e-4
+    critic_lr: float = 3e-4
+    nu_max: float = 2.0
+    nu_lr: float = 1e-2
+    nu_init: float = 0.01
+    l2_reg: float = 1e-3
+    delta: float = 0.02
+    eta: float = 0.02
+    tem_lambda: float = 0.95
+    gae_lambda: float = 0.95
+    norm_adv: bool = True
+    repeat: int = 4
+    n_minibatches: int = 4
+
+    def algo_kwargs(self) -> dict:
+        return dict(
+            hidden_sizes=self.hidden_sizes, actor_lr=self.actor_lr,
+            critic_lr=self.critic_lr, nu_max=self.nu_max, nu_lr=self.nu_lr,
+            nu_init=self.nu_init, l2_reg=self.l2_reg, delta=self.delta,
+            eta=self.eta, tem_lambda=self.tem_lambda,
+            gae_lambda=self.gae_lambda,
+            advantage_normalization=self.norm_adv, gamma=self.gamma,
+            repeat=self.repeat, n_minibatches=self.n_minibatches)
+
+
+# ---------------------------------------------------------------------------
+# Budget presets: scale the total env-step budget.
+# ---------------------------------------------------------------------------
+
+def preset(cfg, total_steps: int, cost_limit: Optional[float] = None):
+    """Rescale a config's epochs (and optionally its cost limit) to a total
+    env-step budget, in place."""
+    cfg.epochs = max(1, total_steps // cfg.step_per_epoch)
+    if cost_limit is not None:
+        cfg.cost_limit = cost_limit
+    return cfg
+
+
+def bullet_1m(cfg):
+    """Bullet 1M-step preset, cost limit 10."""
+    return preset(cfg, 1_000_000, 10.0)
+
+
+def bullet_5m(cfg):
+    """Bullet 5M-step preset, cost limit 10."""
+    return preset(cfg, 5_000_000, 10.0)
+
+
+def bullet_10m(cfg):
+    """Bullet 10M-step preset, cost limit 10."""
+    return preset(cfg, 10_000_000, 10.0)
+
+
+# Per-task presets for the tasks the port registers. ``None`` is the
+# algorithm's default budget (2M steps).
+TASK_TO_PRESET = {
+    "SafetyCarRun-v0": bullet_1m,
+    "SafetyBallRun-v0": bullet_1m,
+    "SafetyBallCircle-v0": bullet_1m,
+    "SafetyBallCircle2C-v0": bullet_1m,
+    "SafetyCarCircle-v0": None,
+    "SafetyDroneRun-v0": None,
+    "SafetyAntRun-v0": None,
+    "SafetyDroneCircle-v0": bullet_5m,
+    "SafetyAntCircle-v0": bullet_10m,
+}
+
+
+def apply_task_preset(cfg):
+    """Apply the task's registered budget preset to ``cfg`` in place."""
+    fn = TASK_TO_PRESET.get(cfg.task)
+    return fn(cfg) if fn else cfg

@@ -1,6 +1,7 @@
 """Batched safe-RL environments (registration side effects)."""
 
-from fsrl_torch.envs.base import EnvState, SafeEnv, make, register
-from fsrl_torch.envs import ball, car  # noqa: F401  (registers tasks)
+from fsrl_torch.envs.base import (EnvState, SafeEnv, make, register,
+                                  registered_tasks)
+from fsrl_torch.envs import ant, ball, car, drone  # noqa: F401  (registers)
 
-__all__ = ["EnvState", "SafeEnv", "make", "register"]
+__all__ = ["EnvState", "SafeEnv", "make", "register", "registered_tasks"]

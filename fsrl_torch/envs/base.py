@@ -136,6 +136,12 @@ def register(name: str, ctor: Callable[..., SafeEnv]) -> None:
     _REGISTRY[name] = ctor
 
 
+def registered_tasks() -> list[str]:
+    """The ids of every registered task."""
+    import fsrl_torch.envs  # noqa: F401  (registration side effect)
+    return sorted(_REGISTRY)
+
+
 def make(name: str, **kwargs) -> SafeEnv:
     """Create an env by task id, e.g. ``make("SafetyBallRun-v0")``."""
     if name not in _REGISTRY:

@@ -1,8 +1,8 @@
 """Actor and critic networks (port of ``fsrl_tpu/nets/mlp.py``).
 
 Weights use PyTorch's ``(out, in)`` layout; ``utils/params.py`` converts from
-flax's ``(in, out)``. The critic ensemble keeps the JAX design: K towers
-stacked on a leading axis and evaluated as one batched matmul chain.
+flax's ``(in, out)``. The critic ensemble keeps the JAX layout, K towers
+stacked on a leading axis; each tower is evaluated as a plain matmul chain.
 
 Initialization follows the JAX package: orthogonal weights, zero biases,
 free log-sigma at ``sigma_init`` (-0.5), and the optional 0.01 scale of the
@@ -74,6 +74,7 @@ class GaussianActor(nn.Module):
                  hidden_sizes: Sequence[int] = (128, 128),
                  max_action: float = 1.0, unbounded: bool = False,
                  last_layer_scale: bool = False, sigma_init: float = -0.5,
+                 sigma_floor: float | None = None,
                  compute_dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -83,13 +84,24 @@ class GaussianActor(nn.Module):
                         0.01 if last_layer_scale else 1.0, generator)
         self.log_sigma = nn.Parameter(torch.full((act_dim,), sigma_init))
         self.max_action, self.unbounded = max_action, unbounded
+        self.sigma_floor = sigma_floor
+
+    def std(self) -> torch.Tensor:
+        """``exp(log_sigma)``, with the exploration floor ``sigma >= floor``
+        where one is set. ``torch.maximum`` splits the gradient 0.5 / 0.5
+        at ``log_sigma == log(floor)``, as ``jnp.maximum`` does; the
+        floor's logarithm is taken in float32, as there."""
+        log_sigma = self.log_sigma
+        if self.sigma_floor is not None:
+            log_sigma = torch.maximum(log_sigma, torch.log(torch.full_like(
+                log_sigma, self.sigma_floor)))
+        return torch.exp(log_sigma)
 
     def forward(self, obs: torch.Tensor) -> DiagGaussian:
         mu = self.mu(self.trunk(obs))
         if not self.unbounded:
             mu = self.max_action * torch.tanh(mu)
-        std = torch.exp(self.log_sigma).expand(mu.shape)
-        return DiagGaussian(mean=mu, std=std)
+        return DiagGaussian(mean=mu, std=self.std().expand(mu.shape))
 
 
 class VCriticEnsemble(nn.Module):
@@ -114,22 +126,31 @@ class VCriticEnsemble(nn.Module):
         self.compute_dtype = compute_dtype
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        """Each tower is evaluated as its own chain of plain matmuls on
+        its slice of the stacked weights. One batched matmul over the K
+        axis computes the same values, but its backward pass is a batched
+        product with the whole batch of rows as the inner dimension and
+        only K problems to spread over the card, which the library runs
+        several times slower at the training widths."""
         lead = obs.shape[:-1]
-        x = obs.reshape(1, -1, obs.shape[-1])
-        dt = self.compute_dtype or x.dtype
-        x = x.to(dt)
+        dt = self.compute_dtype or obs.dtype
+        x = obs.reshape(-1, obs.shape[-1]).to(dt)
         n = len(self.w)
-        for i, (w, b) in enumerate(zip(self.w, self.b)):
-            x = torch.matmul(x, w.to(dt).transpose(1, 2)) + b.to(dt)[:, None]
-            if i < n - 1:
-                x = torch.relu(x)
-        return x[..., 0].T.reshape(lead + (-1,)).float()
+        cols = []
+        for k in range(self.w[0].shape[0]):
+            h = x
+            for i in range(n):
+                h = h @ self.w[i][k].to(dt).T + self.b[i][k].to(dt)
+                if i < n - 1:
+                    h = torch.relu(h)
+            cols.append(h)                                  # (B, 1)
+        return torch.cat(cols, 1).reshape(lead + (-1,)).float()
 
 
 class ActorCritic(nn.Module):
-    """The PPO parameter set: a Gaussian actor and a V-critic ensemble.
-    ``flat_names`` fixes the order of the one flat parameter vector the
-    optimizer and the fused grad kernel work on."""
+    """The on-policy parameter set: a Gaussian actor and a V-critic
+    ensemble. ``flat_names`` fixes the order of the one flat parameter vector
+    the optimizers and the fused grad kernel work on."""
 
     def __init__(self, actor: GaussianActor, critics: VCriticEnsemble):
         super().__init__()
@@ -148,15 +169,26 @@ class ActorCritic(nn.Module):
             return fused_pi_v_apply(self.actor, self.critics, obs)
         return self.actor(obs), self.critics(obs)
 
-    def flat_names(self) -> list[str]:
+    def actor_names(self) -> list[str]:
+        """The actor's parameters, named within ``self.actor``, in flat
+        order."""
         names = []
         for i in range(len(self.actor.trunk.layers)):
-            names += [f"actor.trunk.layers.{i}.weight",
-                      f"actor.trunk.layers.{i}.bias"]
-        names += ["actor.mu.weight", "actor.mu.bias", "actor.log_sigma"]
+            names += [f"trunk.layers.{i}.weight", f"trunk.layers.{i}.bias"]
+        return names + ["mu.weight", "mu.bias", "log_sigma"]
+
+    def critic_names(self) -> list[str]:
+        """The critics' parameters, named within ``self.critics``."""
+        names = []
         for i in range(len(self.critics.w)):
-            names += [f"critics.w.{i}", f"critics.b.{i}"]
+            names += [f"w.{i}", f"b.{i}"]
         return names
+
+    def flat_names(self) -> list[str]:
+        """Actor first, then critics: both halves of the flat vector are
+        contiguous."""
+        return ([f"actor.{k}" for k in self.actor_names()]
+                + [f"critics.{k}" for k in self.critic_names()])
 
 
 def fused_pi_v_apply(actor: GaussianActor, critics: VCriticEnsemble,
@@ -182,5 +214,4 @@ def fused_pi_v_apply(actor: GaussianActor, critics: VCriticEnsemble,
     mu = actor.mu(h[0].float())
     if not actor.unbounded:
         mu = actor.max_action * torch.tanh(mu)
-    std = torch.exp(actor.log_sigma).expand(mu.shape)
-    return DiagGaussian(mean=mu, std=std), values
+    return DiagGaussian(mean=mu, std=actor.std().expand(mu.shape)), values

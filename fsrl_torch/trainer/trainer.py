@@ -7,12 +7,18 @@ feasibility-first best result and checks ``stop_fn``. All collect and
 update work stays on the device; the host reads metrics back once every
 ``log_every`` iterations, in one transfer.
 
-Not ported yet: the device mesh, ``fuse_iters``, the recurrent branch,
-checkpoints and resume.
+Every ``save_model_interval`` epochs the whole training state is written
+to ``<log_dir>/checkpoint/model.pt``, and the feasibility-first best one to
+``model_best.pt``; ``resume_from`` restores a state and the logger's step
+counters.
+
+Not ported yet: the device mesh, ``fuse_iters``, ``rollout_unroll`` and the
+recurrent branch.
 """
 
 from __future__ import annotations
 
+import os.path as osp
 import time
 from typing import Callable, Optional
 
@@ -22,6 +28,7 @@ import torch
 from fsrl_torch.data.collector import evaluate, make_rollout_fn
 from fsrl_torch.envs.base import SafeEnv
 from fsrl_torch.types import EpisodeStats
+from fsrl_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from fsrl_torch.utils.logger import BaseLogger, DummyLogger
 
 
@@ -56,9 +63,10 @@ class BaseTrainer:
                  logger: Optional[BaseLogger] = None, *, epochs: int = 100,
                  step_per_epoch: int = 10000, n_envs: int = 20,
                  steps_per_collect: int = 125, episode_per_test: int = 10,
-                 cost_limit: float = 10.0,
+                 cost_limit: float = 10.0, save_model_interval: int = 1,
                  stop_fn: Optional[Callable[[float, float], bool]] = None,
-                 seed: int = 0, verbose: bool = True, log_every: int = 1,
+                 seed: int = 0, verbose: bool = True,
+                 resume_from: Optional[str] = None, log_every: int = 1,
                  state=None):
         self.algo, self.env = algo, env
         self.device = algo.device
@@ -67,6 +75,7 @@ class BaseTrainer:
         self.n_envs, self.T = n_envs, steps_per_collect
         self.episode_per_test = episode_per_test
         self.cost_limit = cost_limit
+        self.save_model_interval = save_model_interval
         self.stop_fn = stop_fn
         self.verbose = verbose
         self.log_every = max(1, int(log_every))
@@ -81,6 +90,10 @@ class BaseTrainer:
 
         self.epoch = 0
         self.env_step = 0
+        if resume_from:
+            # the whole training state, and the step counters from the log
+            self.state = load_checkpoint(resume_from, self.state)
+            self.epoch, self.env_step, _ = self.logger.restore_data()
         self.best_rew, self.best_cost = -np.inf, np.inf
         self.has_best = False
         self.start_time = time.time()
@@ -96,6 +109,17 @@ class BaseTrainer:
                 if k in ("reward", "cost", "length")}
         self.logger.store(tab="test", **host)
         return host["reward"], host["cost"], host["length"]
+
+    def _save(self, name: str) -> None:
+        if self.logger.log_dir:
+            save_checkpoint(
+                osp.join(self.logger.log_dir, "checkpoint", name), self.state)
+
+    def checkpoint(self) -> None:
+        self._save("model.pt")
+
+    def checkpoint_best(self) -> None:
+        self._save("model_best.pt")
 
     def __iter__(self):
         return self
@@ -116,6 +140,9 @@ class BaseTrainer:
                           self.cost_limit) or not self.has_best:
             self.best_rew, self.best_cost = rew, cost
             self.has_best = True
+            self.checkpoint_best()
+        if self.epoch % self.save_model_interval == 0:
+            self.checkpoint()
 
         dur = time.time() - self.start_time
         speed = self.env_step / max(dur, 1e-9)

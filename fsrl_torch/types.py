@@ -122,7 +122,11 @@ class EpisodeStats:
 
 
 # ---------------------------------------------------------------------------
-# Minibatch shuffle (``minibatch_epochs_scan``, fsrl_tpu/types.py:307-438)
+# Minibatch shuffle: ``minibatch_epochs_scan`` (fsrl_tpu/types.py:307-438,
+# one roll offset per update) and the per-epoch ``minibatch_scan``
+# (fsrl_tpu/types.py:190-304, a fresh key and so a fresh roll offset every
+# epoch), one block. With ``tile_size == 1`` the same index arithmetic is
+# the exact element shuffle.
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -162,19 +166,23 @@ class TileLayout:
 
 
 def draw_tile_perms(layout: TileLayout, n_epochs: int,
-                    generator: torch.Generator, device) -> tuple[Tensor, Tensor]:
+                    generator: torch.Generator, device,
+                    roll_per_epoch: bool = False) -> tuple[Tensor, Tensor]:
     """Independent tile permutations for every epoch, shape
-    ``(n_epochs, usable)``, and the roll offset (a 0-d long tensor; 0 when
-    the tiles cover the batch). Drawn on ``device`` with ``generator``."""
+    ``(n_epochs, usable)``, and the roll offset: a 0-d long tensor, or with
+    ``roll_per_epoch`` (the ``minibatch_scan`` schedule) one offset per
+    epoch, shape ``(n_epochs,)``; 0 when the tiles cover the batch. Drawn on
+    ``device`` with ``generator``."""
     perms = torch.stack([
         torch.randperm(layout.n_tiles, generator=generator,
                        device=device)[: layout.usable]
         for _ in range(n_epochs)])
+    shape = (n_epochs,) if roll_per_epoch else ()
     if layout.needs_roll:
-        roll = torch.randint(0, layout.size, (), generator=generator,
+        roll = torch.randint(0, layout.size, shape, generator=generator,
                              device=device)
     else:
-        roll = torch.zeros((), dtype=torch.long, device=device)
+        roll = torch.zeros(shape, dtype=torch.long, device=device)
     return perms, roll
 
 
@@ -183,13 +191,17 @@ def minibatch_row_index(layout: TileLayout, perms: Tensor,
     """Row indices of every grad step, ``(n_epochs * n_minibatches,
     mb_rows)``: minibatch ``i`` of epoch ``e`` takes tiles
     ``perms[e, i*tpm:(i+1)*tpm]`` in that order, each tile's rows in order.
-    ``roll`` reproduces ``jnp.roll(batch, roll, axis=0)`` before tiling.
+    ``roll`` reproduces ``jnp.roll(batch, roll, axis=0)`` before tiling:
+    one offset for all epochs (0-d) or one per epoch (``(n_epochs,)``).
     Each row appears at most once per epoch."""
     n_epochs = perms.shape[0]
     ts = layout.tile_size
     within = torch.arange(ts, device=perms.device)
     rows = (perms[:, :, None] * ts + within).reshape(
         n_epochs * layout.n_minibatches, layout.mb_rows)
+    roll = torch.as_tensor(roll, device=perms.device)
+    if roll.dim() == 1:
+        roll = roll.repeat_interleave(layout.n_minibatches)[:, None]
     return torch.remainder(rows - roll, layout.size)
 
 

@@ -1,14 +1,17 @@
-"""Metric logging (the part of ``fsrl_tpu/utils/logger.py`` the trainer
-calls): a running-average registry with tab-prefixed keys (``train/``,
-``test/``, ``loss/``, ``update/``), an epoch-end ``write`` (tabular print and
-a ``progress.txt`` TSV, then reset) and the no-op :class:`DummyLogger`."""
+"""Metric logging (port of ``fsrl_tpu/utils/logger.py``): a running-average
+registry with tab-prefixed keys (``train/``, ``test/``, ``loss/``,
+``update/``), an epoch-end ``write`` (tabular print, a ``progress.txt`` TSV
+and the subclass's stream, then reset), a yaml snapshot of the config next
+to the checkpoints, the step counters for resume, the no-op
+:class:`DummyLogger`, and the Tensorboard and wandb sinks."""
 
 from __future__ import annotations
 
 import atexit
+import dataclasses
 import os
 import os.path as osp
-from typing import Iterable, Optional
+from typing import Any, Iterable, Optional
 
 
 class RunningAverage:
@@ -33,7 +36,7 @@ class BaseLogger:
         self.name = name
         self.log_dir = osp.join(log_dir, name) if log_dir and name else log_dir
         if self.log_dir:
-            os.makedirs(self.log_dir, exist_ok=True)
+            os.makedirs(osp.join(self.log_dir, "checkpoint"), exist_ok=True)
         self.output_file = None
         if log_txt and self.log_dir:
             self.output_file = open(osp.join(self.log_dir, "progress.txt"),
@@ -58,6 +61,7 @@ class BaseLogger:
               display_keys: Optional[Iterable[str]] = None) -> None:
         row = dict(self.stats_mean())
         row["update/env_step"] = step
+        self._stream(row, step)
         if self.output_file is not None:
             keys = sorted(row)
             if self.first_row:
@@ -69,6 +73,24 @@ class BaseLogger:
         if display:
             self.display_tabular(row, display_keys)
         self.reset()
+
+    def _stream(self, row: dict[str, float], step: int) -> None:
+        """Hook of the Tensorboard and wandb subclasses."""
+
+    def save_config(self, config: Any, verbose: bool = False) -> None:
+        """Write ``config`` (a dict or a config dataclass) as
+        ``config.yaml`` into the run directory."""
+        if self.log_dir:
+            import yaml
+            with open(osp.join(self.log_dir, "config.yaml"), "w") as f:
+                yaml.safe_dump(_plain(config), f, default_flow_style=False)
+        if verbose:
+            print(f"config: {config}")
+
+    def restore_data(self) -> tuple[int, int, int]:
+        """``(epoch, env_step, gradient_step)`` for resume; zeros where the
+        logger keeps nothing to restore from."""
+        return 0, 0, 0
 
     def display_tabular(self, row: dict[str, float],
                         display_keys: Optional[Iterable[str]] = None) -> None:
@@ -94,3 +116,85 @@ class DummyLogger(BaseLogger):
 
     def write(self, step, display=True, display_keys=None):
         pass
+
+
+class TensorboardLogger(BaseLogger):
+    """tensorboardX sink, and the step counters recovered from its event
+    files."""
+
+    def __init__(self, log_dir: str, log_txt: bool = True,
+                 name: Optional[str] = None):
+        super().__init__(log_dir, log_txt, name)
+        from tensorboardX import SummaryWriter
+        self.writer = SummaryWriter(self.log_dir)
+        # the writer queues events for a thread of its own: closing drains
+        # the queue, flushing alone does not
+        atexit.register(self.writer.close)
+
+    def _stream(self, row: dict[str, float], step: int) -> None:
+        for k, v in row.items():
+            self.writer.add_scalar(k, v, global_step=step)
+        self.writer.flush()
+
+    def restore_data(self) -> tuple[int, int, int]:
+        """The last ``update/epoch``, ``update/env_step`` and
+        ``update/gradient_step`` the trainer logged; zeros without the
+        ``tensorboard`` package or without events."""
+        try:
+            from tensorboard.backend.event_processing import event_accumulator
+        except ImportError:
+            return 0, 0, 0
+        self.writer.close()      # drain the queue; reopens on the next write
+        ea = event_accumulator.EventAccumulator(self.log_dir)
+        ea.Reload()
+
+        def last_value(tag: str) -> int:
+            try:
+                return int(ea.Scalars(tag)[-1].value)
+            except (KeyError, IndexError):
+                return 0
+
+        return (last_value("update/epoch"), last_value("update/env_step"),
+                last_value("update/gradient_step"))
+
+
+class WandbLogger(BaseLogger):
+    """wandb sink; text only where the ``wandb`` package is missing."""
+
+    def __init__(self, log_dir: str, log_txt: bool = True,
+                 name: Optional[str] = None, project: str = "fsrl-torch",
+                 group: Optional[str] = None):
+        super().__init__(log_dir, log_txt, name)
+        try:
+            import wandb
+        except ImportError:
+            self.wandb_run = None
+        else:
+            self.wandb_run = wandb.run or wandb.init(
+                project=project, group=group, name=name, dir=log_dir,
+                resume="allow")
+
+    def _stream(self, row: dict[str, float], step: int) -> None:
+        if self.wandb_run is not None:
+            self.wandb_run.log(row, step=step)
+
+    def save_config(self, config: Any, verbose: bool = False) -> None:
+        super().save_config(config, verbose)
+        if self.wandb_run is not None:
+            self.wandb_run.config.update(_plain(config),
+                                         allow_val_change=True)
+
+
+def _plain(obj: Any) -> Any:
+    """Dataclasses, tuples and tensor or numpy scalars as plain yaml
+    types, recursively."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: _plain(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    if hasattr(obj, "item") and not isinstance(obj, (str, bytes)):
+        return obj.item()
+    return obj

@@ -68,6 +68,28 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
         assert '"ok"' not in out.stdout
 
 
+def test_package_data_covers_every_kernel_source():
+    """An installed copy must be able to build the kernels: every file
+    ``kernels.build`` compiles or hashes, and every file under ``csrc``,
+    matches one of the package-data globs of ``pyproject.toml``."""
+    import fnmatch
+    import tomllib
+    cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = cfg["tool"]["setuptools"]["package-data"]["fsrl_torch"]
+    needed = {f"csrc/{s}" for s in kernels.SOURCES + kernels.HEADERS}
+    needed |= {f"csrc/{p.name}" for p in kernels.CSRC.iterdir()}
+    assert len(needed) >= 5
+    for rel in sorted(needed):
+        assert (kernels.PKG / rel).is_file(), rel
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), \
+            f"{rel} is not packaged by {globs}"
+    # what the sources include is among the hashed headers
+    for s in kernels.SOURCES + kernels.HEADERS:
+        for line in (kernels.CSRC / s).read_text().splitlines():
+            if line.startswith('#include "'):
+                assert line.split('"')[1] in kernels.HEADERS, (s, line)
+
+
 def _imports(path: Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -82,6 +104,12 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "fsrl_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    rel = {str(f.relative_to(ROOT / "fsrl_torch")) for f in files[:-1]}
+    assert {"algos/focops.py", "algos/trpo_lag.py", "algos/cpo.py",
+            "ops/cg.py", "envs/drone.py", "envs/ant.py",
+            "utils/checkpoint.py", "utils/exp_util.py", "config/configs.py",
+            "config/cli.py"} <= rel
     for f in files:
-        bad = _imports(f) & {"jax", "jaxlib", "flax", "optax", "fsrl_tpu"}
+        bad = _imports(f) & {"jax", "jaxlib", "flax", "optax", "orbax",
+                             "fsrl_tpu"}
         assert not bad, f"{f} imports {bad}"

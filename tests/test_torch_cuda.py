@@ -204,3 +204,77 @@ def test_python_mirrors_of_the_kernels_tiling_agree_with_the_library(cuda):
             for c in range(8 * ncg):
                 assert lib.fsrl_ppo_grad_tile_offset(r, c, ncg) == \
                     tile_offset(r, c, ncg), (r, c, ncg)
+
+
+def _one_update(cls, dev, **kw):
+    """One small f32 update of ``cls`` on ``dev`` from numpy-seeded rows,
+    with the shuffle drawn on the CPU: the flat parameters and metrics."""
+    import numpy as np
+
+    from fsrl_torch.types import TileLayout, Transition, draw_tile_perms
+    rng = np.random.default_rng(0)
+    T, N, D, A = 32, 64, 9, 2
+    rows = {
+        "obs": rng.normal(size=(T, N, D)), "act": rng.normal(size=(T, N, A)),
+        "obs_next": rng.normal(size=(T, N, D)),
+        "reward": rng.normal(size=(T, N)), "cost": rng.random((T, N, 1)),
+        "terminated": rng.random((T, N)) < 0.02,
+        "truncated": rng.random((T, N)) < 0.02,
+        "logp": rng.normal(size=(T, N)) - 2.0}
+    algo = cls(D, A, cost_limit=5.0, device=dev, **kw)
+    state = algo.init(seed=1)
+    tr = Transition(**{
+        k: torch.as_tensor(v, dtype=torch.bool if v.dtype == bool
+                           else torch.float32, device=dev)
+        for k, v in rows.items()})
+    extra = {}
+    if cls.name == "focops":
+        perms = draw_tile_perms(TileLayout.of(T * N, 2), 2,
+                                torch.Generator().manual_seed(2), "cpu",
+                                roll_per_epoch=True)
+        extra["perms"] = tuple(p.to(dev) for p in perms)
+    before = kernels.LAUNCHES["gae"]
+    state, m = algo.update(state, tr, torch.tensor([7.0], device=dev),
+                           torch.tensor(3, dtype=torch.int32, device=dev),
+                           None, **extra)
+    launched = kernels.LAUNCHES["gae"] - before
+    return algo, state.flat.cpu(), {k: float(v) for k, v in m.items()}, \
+        launched
+
+
+@pytest.mark.parametrize("name", ["focops", "trpo_lag", "cpo"])
+def test_update_on_the_card_matches_the_cpu(cuda, name):
+    """One update of each trust-region / FOCOPS algorithm on the card (GAE
+    through kernel K1) against the same update on the CPU."""
+    from fsrl_torch.algos.common import split_flat
+    from fsrl_torch.algos.cpo import CPO
+    from fsrl_torch.algos.focops import FOCOPS
+    from fsrl_torch.algos.trpo_lag import TRPOLag
+    cls, kw = {"focops": (FOCOPS, dict(repeat=2, n_minibatches=2)),
+               "trpo_lag": (TRPOLag, dict(target_kl=0.01)),
+               "cpo": (CPO, dict())}[name]
+    algo, fc, mc, n_cpu = _one_update(cls, "cpu", **kw)
+    _, fg, mg, n_gpu = _one_update(cls, cuda, **kw)
+    assert (n_cpu, n_gpu) == (0, 1)
+    start = algo.init(seed=1)
+    model = start.params
+    if name == "focops":
+        # Adam on gradients ~1e-7 apart: 1e-5 after 4 steps of lr 3e-4
+        assert float((fc - fg).abs().max()) < 1e-5
+    else:
+        # the trust-region step relative to its length (CG amplifies the
+        # devices' summation orders). The critics take 10 or 20 Adam steps:
+        # where a gradient entry is rounding noise, m / sqrt(v) makes a
+        # full step of lr out of it, so their move is held as a whole, to
+        # 2e-2 of its length, and entry by entry to 5 steps of lr 1e-3
+        (ac, cc), (ag, cg) = split_flat(model, fc), split_flat(model, fg)
+        a0, c0 = split_flat(model, start.flat)
+        assert float((ac - ag).norm() / (ac - a0).norm()) < 5e-3
+        assert float((cc - cg).norm() / (cc - c0).norm()) < 2e-2
+        assert float((cc - cg).abs().max()) < 5e-3
+        assert mc["loss/backtracks"] == mg["loss/backtracks"]
+    if name == "cpo":
+        assert mc["loss/optim_case"] == mg["loss/optim_case"]
+    for k in mc:
+        rel = 5e-2 if k == "loss/optim_R" else 1e-2
+        assert mg[k] == pytest.approx(mc[k], rel=rel, abs=1e-5), k

@@ -15,7 +15,9 @@ from fsrl_torch.types import EpisodeStats
 torch.set_num_threads(1)
 
 TASKS = ["SafetyCarRun-v0", "SafetyCarCircle-v0", "SafetyBallRun-v0",
-         "SafetyBallCircle-v0", "SafetyBallCircle2C-v0"]
+         "SafetyBallCircle-v0", "SafetyBallCircle2C-v0",
+         "SafetyDroneRun-v0", "SafetyDroneCircle-v0", "SafetyAntRun-v0",
+         "SafetyAntCircle-v0"]
 # sin/cos/tanh of the two libraries may differ in the last bit, and the
 # states integrate those differences over the steps: 1e-4 over 120 steps
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -53,10 +55,18 @@ def test_step_matches_jax(task):
     np.testing.assert_array_equal(n(ts_state.t), np.asarray(js.t))
 
 
-@pytest.mark.parametrize("task", ["SafetyCarCircle-v0", "SafetyBallRun-v0"])
+# low: mean rotor command -0.5, a quarter of hover thrust, so every drone
+# crashes within a second and again after its reset; lift: every ant leg
+# lifted while the stroke drives the torso, so the ants fall
+AUTORESET = {"SafetyCarCircle-v0": None, "SafetyBallRun-v0": None,
+             "SafetyDroneRun-v0": "low", "SafetyAntRun-v0": "lift"}
+
+
+@pytest.mark.parametrize("task", list(AUTORESET))
 def test_step_autoreset_and_stats_match_jax(task):
     """Staggered clocks make several envs truncate and reset inside the
-    window; the reset states JAX draws are handed to the port."""
+    window; the reset states JAX draws are handed to the port. The drone
+    and the ant also terminate (crash, fall) and pay the crash cost."""
     jenv, tenv = jmake(task), make(task)
     N, steps = 16, 100
     js = jenv.reset_vec(jax.random.PRNGKey(2), N, stagger=True)
@@ -65,6 +75,11 @@ def test_step_autoreset_and_stats_match_jax(task):
         N, tenv.num_costs)
     acts = np.random.default_rng(3).uniform(
         -1, 1, (steps, N, jenv.action_size)).astype(np.float32)
+    if AUTORESET[task] == "low":
+        acts = 0.5 * acts - 0.5
+    elif AUTORESET[task] == "lift":
+        acts[:, :, 1::2] = 1.0                      # lift every leg
+        acts[:, :, 0::2] = -np.abs(acts[:, :, 0::2])  # sweep backward
 
     @jax.jit
     def jstep(state, a):
@@ -83,7 +98,13 @@ def test_step_autoreset_and_stats_match_jax(task):
         np.testing.assert_array_equal(n(ts_state.t), np.asarray(js.t))
         jst, tst = jst.update(ts_j), tst.update(ts_t)
         resets += int(np.asarray(ts_j.done).sum())
+        term = n(ts_t.terminated)
+        if term.any():
+            # the crash rides the cost channel on the terminating step
+            assert float(n(ts_t.cost)[term].min()) >= 25.0
     assert resets >= 3
+    if AUTORESET[task]:
+        assert int(tst.n_terminated) >= 3
     for name in ("ep_reward", "ep_cost", "sum_reward", "sum_cost",
                  "sum_len"):
         np.testing.assert_allclose(n(getattr(tst, name)),
