@@ -14,7 +14,8 @@ Phases, each of which must pass:
    steps, hidden (128, 128), K = 2 value channels, repeat 4 x 8 minibatches,
    bf16) for 3 iterations plus the episode-exact test; the kernel launch
    counters are zeroed just before and read just after, and both kernels
-   must have run; then 3 more iterations are timed;
+   must have run; then 3 more iterations are timed; one f32 PPO-Lag
+   iteration counts the f32 K2 kernel's launches;
    then, each with the launch counters zeroed before and read after, FOCOPS
    on SafetyCarCircle-v0 (repeat 4 x 8 minibatches), TRPO-Lagrangian on
    SafetyDroneRun-v0 (whose crashes terminate episodes) and CPO on
@@ -35,11 +36,26 @@ Phases, each of which must pass:
    rows, K = 1, K = 6, D = 12 with A = 4, D = 1); two launches on the same
    inputs must give identical outputs; the reduce launch and an empty kernel
    are timed on their own;
-5. breakdown: for PPO-Lag and the three f32 paths the two halves of an
-   iteration and one iteration under ``torch.profiler`` (last, because the
-   profiler leaves every later launch slower for the host);
-6. summary: one JSON line of kernels, the card's name and power limit, and
-   the result line ``{"ok": true, "device": {...}}``.
+5. off-policy: DDPG-Lagrangian, SAC-Lagrangian and CVPO through the agent
+   API at the JAX package's off-policy benchmark shape
+   (SafetyBallCircle-v0, 32 envs x 100 steps, 0.2 grad steps per env step,
+   so 640 grad steps per collect, batch 256, buffer 100,000, hidden
+   (128, 128), f32): 3 iterations plus the test with the launch counters
+   zeroed before and read after (K1 and K2 are on none of these paths),
+   each iteration's collect and update timed apart; one short bf16 SAC-Lag
+   run; one ``update_step`` of each algorithm on the card against the CPU
+   from the same state with the same injected draws; a checkpoint of the
+   SAC-Lag state trained on the card restored bit for bit; the Q-critic
+   ensemble's batched form timed against one chain per tower at 256 and
+   4,096 rows;
+6. breakdown: for PPO-Lag and the three f32 trust-region / FOCOPS paths the
+   two halves of an iteration and one iteration under ``torch.profiler``,
+   then one SAC-Lag collect and the first 64 of its 640 grad steps under it
+   (device busy share, device ops and host ms per grad step); last, because
+   the profiler leaves every later launch slower for the host;
+7. summary: one JSON line of kernels (K1, K2 bf16, K2 f32), the card's
+   name and power limit, and the result line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 ``fsrl_torch`` sources are not beside the script, or when any phase fails.
@@ -170,6 +186,34 @@ def phase_train():
     return launches, tr
 
 
+def phase_train_ppo_f32():
+    """One f32 PPO-Lag iteration at the benchmark width through the agent
+    API: the launches of the f32 K2 kernel (32 per iteration)."""
+    from fsrl_torch.agent import PPOLagAgent
+    from fsrl_torch.ops import kernels
+
+    N, T = N_ENVS, T_STEPS
+    agent = PPOLagAgent("SafetyCarCircle-v0", cost_limit=10.0, repeat=4,
+                        n_minibatches=8)
+    if not agent.algo.use_grad_kernel:
+        fail("the f32 PPO-Lag config is outside the grad kernel's envelope")
+    kernels.reset_launch_counts()
+    info, ms = _timed(lambda: agent.learn(
+        epochs=1, step_per_epoch=N * T, n_envs=N, steps_per_collect=T,
+        episode_per_test=2))
+    launches = dict(kernels.LAUNCHES)
+    metrics = agent.trainer.last_metrics
+    print(f"[train ppo_lag f32] learn(1 iteration + test) {ms / 1e3:.2f} s; "
+          f"launches {launches}", flush=True)
+    if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"ppo_lag f32: non-finite or missing losses: {metrics}")
+    if launches.get("fused_ppo_grad_f32", 0) != 32 or \
+            launches.get("fused_ppo_grad", 0):
+        fail(f"ppo_lag f32: expected 32 launches of the f32 grad kernel "
+             f"and none of the bf16 one, got {launches}")
+    return launches["fused_ppo_grad_f32"]
+
+
 def phase_breakdown(tr, tag="breakdown"):
     """Host-clock time of the iteration's two halves (collect; process +
     update) and the device's busy share of one iteration from
@@ -265,6 +309,8 @@ def phase_train_algo(name, agent_cls, task, dtype, **algo_kw):
         seen_term += int(res.transitions.terminated.sum())
         if "loss/backtracks" in m:
             backtracks.append(int(m["loss/backtracks"]))
+        elif name == "trpo_lag":      # not among TRPO-Lag's metrics
+            backtracks.append(int(agent.algo.last_backtracks[-1]))
     c_ms, u_ms = statistics.median(collect), statistics.median(update)
     extra = f"; accepted line-search index {backtracks}" if backtracks else ""
     print(f"[{tag}] iteration {c_ms + u_ms:.2f} ms = collect {c_ms:.2f} + "
@@ -306,7 +352,8 @@ def phase_update_split(name, tr):
         step = lambda: algo.trust_region_step(
             model, flat_a, batch.obs, batch.act, batch.logp_old, adv[:, 0],
             adv[:, 1], torch.tensor(12.0, device=dev), algo.cost_limit)
-    (_, info), step_ms = _timed(step)
+    out, step_ms = _timed(step)
+    accepted = int(out[2] if name == "trpo_lag" else out[1]["loss/backtracks"])
     names = model.actor_names()
     with torch.no_grad():
         old = apply_flat(model.actor, names, flat_a, batch.obs)
@@ -319,11 +366,10 @@ def phase_update_split(name, tr):
         algo.critic_tx, model.critics, model.critic_names(), flat_c,
         tr.state.critic_opt_state, batch.obs, batch.ret,
         hp["optim_critic_iters"], hp.get("l2_reg", 0.0)))
-    key = "backtracks" if name == "trpo_lag" else "loss/backtracks"
     print(f"[update split {name}] process_rollout {proc_ms:.2f} ms; actor "
           f"step {step_ms:.2f} ms (one CG solve of {hp['cg_iters']} "
           f"products alone {cg_ms:.2f} ms; line search accepted index "
-          f"{int(info[key])}); "
+          f"{accepted}); "
           f"{hp['optim_critic_iters']} critic steps {crit_ms:.2f} ms",
           flush=True)
 
@@ -419,13 +465,13 @@ def phase_new_paths():
     return counts, f32_agents
 
 
-def phase_checkpoint(agent):
-    """Save the FOCOPS state trained on the card, load it into a fresh
-    agent, compare every tensor, train one more iteration."""
+def phase_checkpoint(agent, make_fresh, tag, learn_kw):
+    """Save a state trained on the card, load it into a fresh agent
+    (``make_fresh()``, another seed), compare every tensor, train one more
+    iteration (``learn_kw``)."""
     import tempfile
 
     import torch
-    from fsrl_torch.agent import FOCOPSAgent
     from fsrl_torch.utils.checkpoint import (load_checkpoint,
                                              save_checkpoint, to_state_dict)
 
@@ -436,38 +482,38 @@ def phase_checkpoint(agent):
             for k, v in tree.items():
                 yield from leaves(v, f"{prefix}.{k}")
 
+    # the on-policy states keep their flat vector as a field, the
+    # off-policy ones on the module
+    flat = lambda st: st.flat if hasattr(st, "flat") else st.params.flat
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "checkpoint", "model.pt")
         save_checkpoint(path, agent.state)
         size = os.path.getsize(path)
-        fresh = FOCOPSAgent("SafetyCarCircle-v0", cost_limit=10.0, seed=11,
-                            repeat=4, n_minibatches=8)
-        if torch.equal(fresh.state.flat, agent.state.flat):
-            fail("[checkpoint] the fresh agent already equals the trained")
+        fresh = make_fresh()
+        if torch.equal(flat(fresh.state), flat(agent.state)):
+            fail(f"[{tag}] the fresh agent already equals the trained")
         fresh.state = load_checkpoint(path, fresh.state)
     saved = dict(leaves(to_state_dict(agent.state)))
     got = dict(leaves(to_state_dict(fresh.state)))
     bad = [k for k in saved if k not in got or not torch.equal(saved[k],
                                                                 got[k])]
-    if bad or set(saved) != set(got) or fresh.state.flat.device.type != "cuda":
-        fail(f"[checkpoint] restored state differs at {bad}")
-    if not torch.equal(fresh.state.flat, agent.state.flat):
-        fail("[checkpoint] the flat vector does not hold the restored "
+    if bad or set(saved) != set(got) or flat(fresh.state).device.type != \
+            "cuda":
+        fail(f"[{tag}] restored state differs at {bad}")
+    if not torch.equal(flat(fresh.state), flat(agent.state)):
+        fail(f"[{tag}] the flat vector does not hold the restored "
              "parameters")
     count = int(fresh.state.update_count)
-    info = fresh.learn(epochs=1, step_per_epoch=N_ENVS * T_STEPS,
-                       n_envs=N_ENVS, steps_per_collect=T_STEPS,
-                       episode_per_test=2)
-    ok = (int(fresh.state.update_count) == count + 1
+    info = fresh.learn(**learn_kw)
+    ok = (int(fresh.state.update_count) > count
           and all(math.isfinite(v)
                   for v in fresh.trainer.last_metrics.values()))
-    print(f"[checkpoint] {len(saved)} tensors, {size} bytes, restored bit "
+    print(f"[{tag}] {len(saved)} tensors, {size} bytes, restored bit "
           f"for bit onto the card; update_count {count} -> "
           f"{int(fresh.state.update_count)}; one more iteration: {info}",
           flush=True)
     if not ok:
-        fail("[checkpoint] training did not continue from the restored "
-             "state")
+        fail(f"[{tag}] training did not continue from the restored state")
 
 
 def _update_on(dev, algo_cls, rows, **algo_kw):
@@ -493,8 +539,10 @@ def _update_on(dev, algo_cls, rows, **algo_kw):
     state, m = algo.update(
         state, tr, torch.tensor([7.0], device=dev),
         torch.tensor(3, dtype=torch.int32, device=dev), None, **extra)
-    return (algo, state, start, state.flat.cpu(),
-            {k: float(v) for k, v in m.items()})
+    m = {k: float(v) for k, v in m.items()}
+    if algo.name == "trpo_lag":       # not among TRPO-Lag's metrics
+        m["loss/backtracks"] = float(algo.last_backtracks[-1])
+    return algo, state, start, state.flat.cpu(), m
 
 
 def phase_update_parity():
@@ -732,6 +780,315 @@ def phase_k2_edges():
     _k2_case(K=2, bf16=False, B=1000, timed=False)
 
 
+# the JAX package's off-policy benchmark shape (bench.py:184-186,
+# benchmarks/bench_offpolicy.py:31-41)
+OFF_TASK, OFF_ENVS, OFF_T, OFF_UPS = "SafetyBallCircle-v0", 32, 100, 0.2
+OFF_LEARN = dict(n_envs=OFF_ENVS, steps_per_collect=OFF_T,
+                 buffer_size=100000, update_per_step=OFF_UPS)
+
+
+def _offpolicy_agent(name, **kw):
+    from fsrl_torch.agent import CVPOAgent, DDPGLagAgent, SACLagAgent
+    cls = {"ddpg_lag": DDPGLagAgent, "sac_lag": SACLagAgent,
+           "cvpo": CVPOAgent}[name]
+    return cls(OFF_TASK, cost_limit=10.0, hidden_sizes=(128, 128),
+               batch_size=256, **kw)
+
+
+def phase_train_offpolicy(name, dtype=None, iters=3):
+    """One off-policy path at the benchmark shape: ``iters`` iterations
+    plus the test through ``learn``, with the launch counters zeroed before
+    and read after. The trainer's ``collect`` and ``update`` are wrapped
+    for the run, so each iteration's two halves are timed on the host
+    clock (the device drained before and after each). Returns the
+    agent."""
+    from fsrl_torch.ops import kernels
+    from fsrl_torch.trainer import OffpolicyTrainer
+
+    tag = f"train {name}{' bf16' if dtype else ''}"
+    agent = _offpolicy_agent(name, compute_dtype=dtype)
+    times = {"collect": [], "update": []}
+    orig = {k: getattr(OffpolicyTrainer, k) for k in times}
+
+    launch_log = []
+
+    def timed_method(k):
+        def run(self):
+            out, ms = _timed(lambda: orig[k](self))
+            times[k].append(ms)
+            if k == "update":
+                launch_log.append((kernels.LAUNCHES.get("gae", 0),
+                                   kernels.LAUNCHES.get("fused_ppo_grad", 0)
+                                   + kernels.LAUNCHES.get(
+                                       "fused_ppo_grad_f32", 0)))
+            return out
+        return run
+
+    kernels.reset_launch_counts()
+    for k in times:
+        setattr(OffpolicyTrainer, k, timed_method(k))
+    try:
+        info, learn_ms = _timed(lambda: agent.learn(
+            epochs=1, step_per_epoch=iters * OFF_ENVS * OFF_T,
+            episode_per_test=10, **OFF_LEARN))
+    finally:
+        for k, f in orig.items():
+            setattr(OffpolicyTrainer, k, f)
+    launches = dict(kernels.LAUNCHES)
+    tr = agent.trainer
+    metrics = tr.last_metrics
+    n_upd = tr.n_updates
+    print(f"[{tag}] {OFF_TASK}, {OFF_ENVS} envs x {OFF_T} steps, {n_upd} "
+          f"grad steps per collect, batch {agent.algo.hp['batch_size']}, "
+          f"buffer {tr.buffer.C} x {tr.buffer.N}: learn({iters} iterations "
+          f"+ test) {learn_ms / 1e3:.2f} s; K1 launches "
+          f"{launches.get('gae', 0)}, K2 bf16 "
+          f"{launches.get('fused_ppo_grad', 0)}, K2 f32 "
+          f"{launches.get('fused_ppo_grad_f32', 0)}; info {info}",
+          flush=True)
+    for i, (c_ms, u_ms, (k1, k2)) in enumerate(zip(
+            times["collect"], times["update"], launch_log)):
+        print(f"[{tag}] iteration {i}: {c_ms + u_ms:.2f} ms = collect "
+              f"{c_ms:.2f} + update {u_ms:.2f} ({u_ms / n_upd:.3f} ms per "
+              f"grad step), {OFF_ENVS * OFF_T / ((c_ms + u_ms) / 1e3):.0f} "
+              f"env-steps/s; K1 / K2 launches so far {k1} / {k2}",
+              flush=True)
+    print(f"[{tag}] last metrics {metrics}", flush=True)
+    if len(times["update"]) != iters or n_upd != round(
+            OFF_UPS * OFF_ENVS * OFF_T):
+        fail(f"{tag}: {len(times['update'])} iterations of {n_upd} grad "
+             "steps")
+    if int(agent.state.gradient_steps) != iters * n_upd:
+        fail(f"{tag}: {int(agent.state.gradient_steps)} grad steps in "
+             f"{iters} iterations")
+    if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"{tag}: non-finite or missing losses: {metrics}")
+    if not all(math.isfinite(info[k]) for k in
+               ("test_reward", "test_cost", "test_length")):
+        fail(f"{tag}: non-finite test result: {info}")
+    if sum(launches.values()):
+        fail(f"{tag}: a PPO kernel launched on an off-policy path: "
+             f"{launches}")
+    return agent
+
+
+def _offpolicy_step_on(dev, name, rows, draws):
+    """One ``update_step`` of ``name`` on ``dev`` from the seed-1 state on
+    a buffer holding ``rows``: the flat parameters before and after, and
+    the metrics."""
+    import torch
+    from fsrl_torch.algos.cvpo import CVPO
+    from fsrl_torch.algos.ddpg_lag import DDPGLag
+    from fsrl_torch.algos.offpolicy_base import make_nstep_view
+    from fsrl_torch.algos.sac_lag import SACLag
+    from fsrl_torch.data.buffer import ReplayBuffer
+    from fsrl_torch.types import Transition
+    cls = {"ddpg_lag": DDPGLag, "sac_lag": SACLag, "cvpo": CVPO}[name]
+    T, N, D = rows["obs"].shape
+    A = rows["act"].shape[-1]
+    algo = cls(D, A, cost_limit=5.0, batch_size=256, device=dev)
+    state = algo.init(seed=1)
+    state.lag.multiplier.fill_(0.5)
+    start = state.params.flat.cpu().clone()
+    buf = ReplayBuffer(2 * T, N, dev)
+    bs = buf.init(D, A)
+    for half in (slice(0, T // 2), slice(T // 2, T)):
+        bs = buf.add_segment(bs, Transition(**{
+            k: torch.as_tensor(v[half], device=dev,
+                               dtype=torch.bool if v.dtype == bool
+                               else torch.float32)
+            for k, v in rows.items()}))
+    state, m = algo.update_step(
+        state, buf, bs, view=make_nstep_view(buf, bs),
+        draws={k: v.to(dev) for k, v in draws.items()})
+    return algo, start, state.params.flat.cpu(), {k: float(v)
+                                                 for k, v in m.items()}
+
+
+def phase_offpolicy_parity():
+    """One f32 ``update_step`` of each off-policy algorithm on the card and
+    on the CPU, from the same state and buffer with the same injected
+    indices and normal draws."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    T, N, D, A, B = 40, 16, 8, 2, 256
+    rows = {
+        "obs": rng.normal(size=(T, N, D)), "act": rng.normal(size=(T, N, A)),
+        "obs_next": rng.normal(size=(T, N, D)),
+        "reward": rng.normal(size=(T, N)), "cost": rng.random((T, N, 1)),
+        "terminated": rng.random((T, N)) < 0.03,
+        "truncated": rng.random((T, N)) < 0.03,
+        "logp": np.zeros((T, N))}
+    g = torch.Generator().manual_seed(3)
+    draws = dict(rows=torch.randint(0, T, (B,), generator=g),
+                 envs=torch.randint(0, N, (B,), generator=g),
+                 noise_t=torch.randn(B, A, generator=g),
+                 noise_a=torch.randn(B, A, generator=g),
+                 noise_p=torch.randn(16, B, A, generator=g))
+    for name in ("ddpg_lag", "sac_lag", "cvpo"):
+        algo, start, fc, mc = _offpolicy_step_on("cpu", name, rows, draws)
+        _, _, fg, mg = _offpolicy_step_on("cuda", name, rows, draws)
+        # Adam's first step moves each weight by about lr * sign(g): the
+        # devices' summation orders give gradients ~1e-7 apart, so the
+        # weights agree to 1e-6 unless a gradient entry is rounding noise,
+        # whose sign may differ (then two steps of lr); at most 1e-3 of the
+        # entries may do that. Metrics: 1e-4 relative
+        diff = (fc - fg).abs()
+        lr_max = 1e-3
+        flipped = float((diff > 1e-6).float().mean())
+        loss_err, worst = max((abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])), k)
+                              for k in mc)
+        moved = float((fc - start).abs().max())
+        print(f"[offpolicy update parity {name}] max |param cpu - cuda| "
+              f"{float(diff.max()):.3e} (largest move {moved:.3e}); entries "
+              f"off by more than 1e-6: {flipped:.2e} (tol 1e-3, each within "
+              f"2 lr = {2 * lr_max:.0e}); max metric rel err {loss_err:.3e} "
+              f"at {worst} (tol 1e-4)", flush=True)
+        if not (flipped <= 1e-3 and float(diff.max()) <= 2 * lr_max * 1.001
+                and loss_err <= 1e-4 and set(mc) == set(mg)):
+            fail(f"the CUDA update_step of {name} disagrees with the CPU")
+
+
+def phase_q_forms():
+    """The Q-critic ensemble's forward (one matmul chain batched over the
+    M x Q towers) against one plain chain per tower: same values and
+    gradients, and the device time of one critic loss and gradient at an
+    off-policy batch (256 rows) and at CVPO's particle sweep (16 x 256
+    rows), median of 5 CUDA-event timings."""
+    import torch
+    from fsrl_torch.nets.mlp import QCriticEnsemble
+
+    def towers(c, obs, act):
+        x = torch.cat([obs, act], -1)
+        cols = []
+        for m in range(c.num_metrics):
+            for q in range(c.num_q):
+                h = x
+                for i, (w, b) in enumerate(zip(c.w, c.b)):
+                    h = h @ w[m, q].T + b[m, q]
+                    if i < len(c.w) - 1:
+                        h = torch.relu(h)
+                cols.append(h)
+        return torch.cat(cols, 1).reshape(-1, c.num_metrics, c.num_q)
+
+    def event_ms(fn):
+        times = []
+        for i in range(7):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            if i >= 2:
+                times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    D, A = 8, 2
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for B in (256, 16 * 256):
+        obs = torch.randn(B, D, device="cuda", generator=g)
+        act = torch.randn(B, A, device="cuda", generator=g)
+        ret = torch.randn(B, 2, 2, device="cuda", generator=g)
+        c = QCriticEnsemble(D, A, 2, 2, (128, 128),
+                            generator=torch.Generator().manual_seed(1)).cuda()
+        params = list(c.parameters())
+
+        def grads(fwd):
+            loss = ((fwd(obs, act) - ret) ** 2).mean(0).sum()
+            return torch.autograd.grad(loss, params)
+
+        with torch.no_grad():
+            v_err = float((c(obs, act) - towers(c, obs, act)).abs().max())
+        g_err = max(float((a - b).abs().max() / (b.abs().max() + 1e-12))
+                    for a, b in zip(grads(c),
+                                    grads(lambda o, a: towers(c, o, a))))
+        ms = event_ms(lambda: grads(c))
+        tower_ms = event_ms(lambda: grads(lambda o, a: towers(c, o, a)))
+        print(f"[Q critic forms] {B} rows, M 2 x Q 2 towers: max |value "
+              f"diff| {v_err:.3e}, worst gradient err / max|ref| "
+              f"{g_err:.3e} (tol 1e-4); loss + gradient batched "
+              f"{ms:.3f} ms, one chain per tower {tower_ms:.3f} ms",
+              flush=True)
+        if not (v_err <= 1e-4 and g_err <= 1e-4):
+            fail("the Q-critic ensemble's two forms disagree")
+        out[B] = (ms, tower_ms)
+    return out
+
+
+def phase_offpolicy_breakdown(agent, window=64):
+    """One SAC-Lag iteration with its collect and its first ``window``
+    grad steps under ``torch.profiler``, the remaining steps and
+    ``post_update`` on the host clock alone: device busy share, device ops
+    and host ms per grad step, the largest device entries of the update.
+    (Summarising a profile of all 640 grad steps, 600,000 events, takes the
+    profiler about 90 s on that machine; the steps are alike.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    tr, algo = agent.trainer, agent.algo
+    n_upd = tr.n_updates
+    window = min(window, n_upd // 2)
+
+    def steps(n):
+        for _ in range(n):
+            tr.state, _ = algo.update_step(tr.state, tr.buffer, tr.buf_state,
+                                           tr.generator, view=tr.view)
+
+    walls, busy, ops = {}, {}, {}
+    for part, fn in (("collect", tr.collect),
+                     ("update", lambda: steps(window))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            _, walls[part] = _timed(fn)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if not events:
+            fail("the profiler recorded no device time")
+        busy[part] = sum(e.self_device_time_total for e in events) / 1e3
+        ops[part] = sum(e.count for e in events)
+        if part == "update":
+            top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    _, rest_ms = _timed(lambda: steps(n_upd - window))
+    tr.state = algo.post_update(tr.state) if hasattr(algo, "post_update") \
+        else tr.state
+    print(f"[breakdown sac_lag] collect {walls['collect']:.2f} ms wall "
+          f"(profiled), device busy {busy['collect']:.2f} ms "
+          f"({100 * busy['collect'] / walls['collect']:.1f}%), "
+          f"{ops['collect']} device ops; first {window} of {n_upd} grad "
+          f"steps {walls['update']:.2f} ms wall (profiled), device busy "
+          f"{busy['update']:.2f} ms "
+          f"({100 * busy['update'] / walls['update']:.1f}%), "
+          f"{ops['update'] / window:.1f} device ops and "
+          f"{busy['update'] / window:.3f} ms of device time per grad step, "
+          f"{walls['update'] / window:.3f} ms of host time per grad step "
+          f"profiled, {rest_ms / (n_upd - window):.3f} ms not profiled",
+          flush=True)
+    for e in top:
+        print(f"[breakdown sac_lag]   {e.self_device_time_total / 1e3:9.3f} "
+              f"ms x{e.count:<6d} {e.key[:70]}", flush=True)
+
+
+def phase_offpolicy():
+    """The three off-policy paths at the benchmark shape, the short bf16
+    SAC-Lag run, the card-against-CPU step and the checkpoint round trip.
+    Returns the SAC-Lag agent (for the profiled breakdown)."""
+    import torch
+    agents = {name: phase_train_offpolicy(name)
+              for name in ("ddpg_lag", "sac_lag", "cvpo")}
+    phase_train_offpolicy("sac_lag", dtype=torch.bfloat16, iters=1)
+    phase_offpolicy_parity()
+    phase_checkpoint(agents["sac_lag"], lambda: _offpolicy_agent(
+        "sac_lag", seed=11), "offpolicy checkpoint",
+        dict(epochs=1, step_per_epoch=OFF_ENVS * OFF_T, episode_per_test=2,
+             **OFF_LEARN))
+    phase_q_forms()
+    return agents["sac_lag"]
+
+
 def main() -> int:
     try:
         import torch
@@ -747,23 +1104,46 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
+    from fsrl_torch.agent import FOCOPSAgent
+    t_start = time.time()
+
+    def mark(tag):
+        print(f"[time] {tag} done at {time.time() - t_start:.1f} s",
+              flush=True)
+
     phase_build()
     # host-clock timings first: once torch.profiler has run in a process,
     # every later launch costs the host more
     phase_critic_forms()
+    mark("critic forms")
     launches, ppo_trainer = phase_train()
+    mark("ppo_lag")
+    k2_f32_launches = phase_train_ppo_f32()
     gae_by_path, f32_agents = phase_new_paths()
+    mark("on-policy paths")
     phase_update_parity()
-    phase_checkpoint(f32_agents["focops"])
+    mark("update parity")
+    phase_checkpoint(
+        f32_agents["focops"], lambda: FOCOPSAgent(
+            "SafetyCarCircle-v0", cost_limit=10.0, seed=11, repeat=4,
+            n_minibatches=8), "checkpoint",
+        dict(epochs=1, step_per_epoch=N_ENVS * T_STEPS, n_envs=N_ENVS,
+             steps_per_collect=T_STEPS, episode_per_test=2))
+    sac_agent = phase_offpolicy()
+    mark("off-policy paths")
     k1 = phase_gae()
     k2 = _k2_case(2, True)
     phase_k2_scaling(k2["ms"])
     _k2_case(3, True)
-    _k2_case(2, False)
+    k2_f32 = _k2_case(2, False)
     phase_k2_edges()
+    mark("kernels")
     phase_breakdown(ppo_trainer)
     for name, agent in f32_agents.items():
         phase_breakdown(agent.trainer, tag=f"breakdown {name}")
+    mark("on-policy breakdowns")
+    phase_offpolicy_breakdown(sac_agent)
+    mark("sac_lag breakdown")
 
     kernels = [
         dict(name="gae", route="cuda", source="fsrl_torch/csrc/gae.cu",
@@ -776,6 +1156,10 @@ def main() -> int:
              replaces="fsrl_tpu/ops/fused_ppo_grad.py:68",
              launches=launches.get("fused_ppo_grad", 0), library_ms=None,
              **k2),
+        dict(name="fused_ppo_grad_f32", route="cuda",
+             source="fsrl_torch/csrc/fused_ppo_grad_f32.cu",
+             replaces="fsrl_tpu/ops/fused_ppo_grad.py:68",
+             launches=k2_f32_launches, library_ms=None, **k2_f32),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -1,7 +1,8 @@
 """Agents: algorithm factories with learn / evaluate."""
 
-from fsrl_torch.agent.agents import (BaseAgent, CPOAgent, FOCOPSAgent,
-                                     PPOLagAgent, TRPOLagAgent)
+from fsrl_torch.agent.agents import (BaseAgent, CPOAgent, CVPOAgent,
+                                     DDPGLagAgent, FOCOPSAgent, PPOLagAgent,
+                                     SACLagAgent, TRPOLagAgent)
 
-__all__ = ["BaseAgent", "CPOAgent", "FOCOPSAgent", "PPOLagAgent",
-           "TRPOLagAgent"]
+__all__ = ["BaseAgent", "CPOAgent", "CVPOAgent", "DDPGLagAgent",
+           "FOCOPSAgent", "PPOLagAgent", "SACLagAgent", "TRPOLagAgent"]

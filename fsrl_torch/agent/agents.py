@@ -1,7 +1,8 @@
 """Agent layer (port of ``BaseAgentTPU`` and the four feedforward on-policy
-agents of ``fsrl_tpu/agent/agents.py``): the algorithm with its default
-recipe, the trainer, ``stop_fn = reward > threshold and cost < limit``, and
-an episode-exact ``evaluate``.
+and three off-policy agents of ``fsrl_tpu/agent/agents.py``): the algorithm
+with its default recipe, the trainer that fits it (on-policy or
+off-policy), ``stop_fn = reward > threshold and cost < limit``, and an
+episode-exact ``evaluate``.
 
 Agents run on CUDA unless ``device="cpu"`` is passed; without CUDA they
 raise.
@@ -16,13 +17,16 @@ import numpy as np
 import torch
 
 from fsrl_torch.algos.cpo import CPO
+from fsrl_torch.algos.cvpo import CVPO
+from fsrl_torch.algos.ddpg_lag import DDPGLag
 from fsrl_torch.algos.focops import FOCOPS
 from fsrl_torch.algos.ppo_lag import PPOLag
+from fsrl_torch.algos.sac_lag import SACLag
 from fsrl_torch.algos.trpo_lag import TRPOLag
 from fsrl_torch.data.collector import evaluate
 from fsrl_torch.device import resolve_device
 from fsrl_torch.envs.base import SafeEnv, make
-from fsrl_torch.trainer.trainer import OnpolicyTrainer
+from fsrl_torch.trainer.trainer import OffpolicyTrainer, OnpolicyTrainer
 from fsrl_torch.utils.logger import BaseLogger, DummyLogger
 
 
@@ -31,6 +35,7 @@ class BaseAgent:
 
     name = "BaseAgent"
     algo_cls = None
+    onpolicy = True
     # CPO and FOCOPS take one constraint
     multi_constraint = True
 
@@ -61,18 +66,28 @@ class BaseAgent:
               n_envs: int = 20, steps_per_collect: int = 125,
               episode_per_test: int = 10, save_model_interval: int = 4,
               reward_threshold: Optional[float] = None,
+              buffer_size: int = 100000, update_per_step: float = 0.2,
               verbose: bool = False, **trainer_kwargs) -> dict:
+        """Train with the trainer that fits the algorithm; ``buffer_size``
+        and ``update_per_step`` are the off-policy trainer's."""
         stop_fn = None
         if reward_threshold is not None:
             limit = float(np.sum(self.cost_limit))
             stop_fn = lambda rew, cost: rew > reward_threshold and cost < limit
-        self.trainer = OnpolicyTrainer(
-            self.algo, self.env, self.logger, epochs=epochs,
-            step_per_epoch=step_per_epoch, n_envs=n_envs,
+        common = dict(
+            epochs=epochs, step_per_epoch=step_per_epoch, n_envs=n_envs,
             steps_per_collect=steps_per_collect,
             episode_per_test=episode_per_test, cost_limit=self.cost_limit,
-            save_model_interval=save_model_interval, stop_fn=stop_fn, seed=self.seed, verbose=verbose,
-            state=self.state, **trainer_kwargs)
+            save_model_interval=save_model_interval, stop_fn=stop_fn,
+            seed=self.seed, verbose=verbose, state=self.state,
+            **trainer_kwargs)
+        if self.onpolicy:
+            self.trainer = OnpolicyTrainer(self.algo, self.env, self.logger,
+                                           **common)
+        else:
+            self.trainer = OffpolicyTrainer(
+                self.algo, self.env, self.logger, buffer_size=buffer_size,
+                update_per_step=update_per_step, **common)
         info = self.trainer.run()
         self.state = self.trainer.state
         return info
@@ -119,3 +134,34 @@ class FOCOPSAgent(BaseAgent):
     name = "FOCOPSAgent"
     algo_cls = FOCOPS
     multi_constraint = False
+
+
+class DDPGLagAgent(BaseAgent):
+    """Defaults: n_step 3, tau 0.005, exploration noise 0.1, PID
+    (0.5, 0.001, 0.1)."""
+
+    name = "DDPGLagAgent"
+    algo_cls = DDPGLag
+    onpolicy = False
+
+
+class SACLagAgent(BaseAgent):
+    """Defaults: double critics, auto-alpha, conditioned sigma, stochastic
+    evaluation."""
+
+    name = "SACLagAgent"
+    algo_cls = SACLag
+    onpolicy = False
+
+
+class CVPOAgent(BaseAgent):
+    """Defaults: gamma 0.98, 16 particles, E- and M-step duals; the qc
+    threshold takes the env's ``max_episode_steps``."""
+
+    name = "CVPOAgent"
+    algo_cls = CVPO
+    onpolicy = False
+
+    def _build_algo(self, cost_limit, **kw):
+        kw.setdefault("max_episode_steps", self.env.max_episode_steps)
+        return super()._build_algo(cost_limit, **kw)

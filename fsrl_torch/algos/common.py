@@ -1,6 +1,7 @@
-"""Shared on-policy plumbing (port of ``fsrl_tpu/algos/common.py``): rollout
+"""Shared algorithm plumbing (port of ``fsrl_tpu/algos/common.py``): rollout
 processing with GAE over the stacked (reward, cost) channels, advantage
-normalization and the flat Adam optimizer.
+normalization, the flat Adam optimizer (also the plain Adam of the
+off-policy duals and temperature) and the Polyak ``soft_update``.
 
 All (1 + M) metric channels are processed jointly on a trailing axis
 K = 1 + M: column 0 is the reward, columns 1..M the costs.
@@ -307,3 +308,11 @@ def critic_steps(tx: FlatAdam, critics: nn.Module, names: list[str],
         updates, opt = tx.update(grad, opt)
         flat_c.add_(updates)
     return opt, loss
+
+
+@torch.no_grad()
+def soft_update(target: Tensor, online: Tensor, tau: float) -> None:
+    """Polyak averaging of a target vector in place, written as JAX writes
+    it, ``(1 - tau) * target + tau * online`` (``torch.lerp`` rounds
+    otherwise)."""
+    torch.add((1.0 - tau) * target, tau * online, out=target)

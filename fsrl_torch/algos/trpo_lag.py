@@ -125,10 +125,11 @@ class TRPOLag(ActorCriticAlgo):
     def natural_gradient_step(self, model: ActorCritic, flat_a: Tensor,
                               obs: Tensor, act: Tensor, logp_old: Tensor,
                               adv: Tensor, lam_mult: Tensor, resc: Tensor
-                              ) -> tuple[Tensor, dict[str, Tensor]]:
+                              ) -> tuple[Tensor, dict[str, Tensor], Tensor]:
         """One trust-region actor step on a batch from the actor vector
-        ``flat_a``. Returns the new actor vector and scalar diagnostics,
-        among them the accepted candidate's index ``backtracks``."""
+        ``flat_a``. Returns the new actor vector, the scalar diagnostics
+        JAX's step returns, and the accepted candidate's index (a 0-d
+        device tensor, outside the diagnostics, which JAX's lack it)."""
         hp = self.hp
         actor, names = model.actor, model.actor_names()
         old = apply_flat(actor, names, flat_a, obs)
@@ -172,9 +173,8 @@ class TRPOLag(ActorCriticAlgo):
         new_flat = flat_a + frac * step_size * direction
         info = dict(kl=kls[idx], step_size=frac * step_size,
                     line_search_ok=any_ok.float(),
-                    loss_actor_total=losses[idx], loss_actor_old=loss0,
-                    backtracks=idx.float())
-        return new_flat, info
+                    loss_actor_total=losses[idx], loss_actor_old=loss0)
+        return new_flat, info, idx
 
     # ---------------- update ----------------
     @torch.no_grad()
@@ -183,7 +183,10 @@ class TRPOLag(ActorCriticAlgo):
                generator: torch.Generator | None = None,
                cost_limit: Tensor | None = None
                ) -> tuple[TRPOLagState, dict[str, Tensor]]:
-        """One whole-batch update; draws no random numbers."""
+        """One whole-batch update; draws no random numbers. The accepted
+        line-search index of each of its ``repeat`` steps is left in
+        ``self.last_backtracks`` (a device tensor), not in the metrics,
+        whose keys are JAX's."""
         hp = self.hp
         dev = self.device
         model = state.params
@@ -208,17 +211,19 @@ class TRPOLag(ActorCriticAlgo):
 
         flat_a, flat_c = split_flat(model, state.flat)
         copt = state.critic_opt_state
-        infos = []
+        infos, accepted = [], []
         for _ in range(hp["repeat"]):
-            new_flat, info = self.natural_gradient_step(
+            new_flat, info, idx = self.natural_gradient_step(
                 model, flat_a, batch.obs, batch.act, batch.logp_old, adv,
                 lam_mult, resc)
+            accepted.append(idx)
             flat_a.copy_(new_flat)
             copt, info["loss_vf_total"] = critic_steps(
                 self.critic_tx, model.critics, model.critic_names(), flat_c,
                 copt, batch.obs, batch.ret, hp["optim_critic_iters"])
             infos.append(info)
 
+        self.last_backtracks = torch.stack(accepted)
         metrics = {f"loss/{k}": torch.stack([i[k] for i in infos]).mean()
                    for k in infos[0]}
         metrics["loss/rescaling"] = resc

@@ -5,7 +5,8 @@ Each algorithm has a config dataclass with the task, cost limit, seed,
 algorithm knobs, collection knobs and logger knobs, and ``algo_kwargs()``
 for the algorithm's constructor. The budget presets rescale epochs and cost
 limit to a total env-step budget. Collection is ``n_envs`` x
-``steps_per_collect`` fixed-length segments.
+``steps_per_collect`` fixed-length segments; the off-policy configs add the
+replay buffer's size and the grad steps per env step.
 """
 
 from __future__ import annotations
@@ -150,6 +151,99 @@ class FOCOPSCfg(TrainCfg):
             gae_lambda=self.gae_lambda,
             advantage_normalization=self.norm_adv, gamma=self.gamma,
             repeat=self.repeat, n_minibatches=self.n_minibatches)
+
+
+@dataclass
+class OffpolicyCfg(TrainCfg):
+    """The off-policy collection knobs: replay buffer size, grad steps per
+    env step, and short collects from few envs."""
+
+    buffer_size: int = 100000
+    update_per_step: float = 0.2
+    steps_per_collect: int = 100
+    n_envs: int = 10
+    epochs: int = 200
+
+
+@dataclass
+class DDPGLagCfg(OffpolicyCfg):
+    actor_lr: float = 1e-4
+    critic_lr: float = 1e-3
+    tau: float = 0.005
+    exploration_noise: float = 0.1
+    n_step: int = 3
+    use_lagrangian: bool = True
+    lagrangian_pid: Tuple[float, float, float] = (0.5, 0.001, 0.1)
+    rescaling: bool = True
+    batch_size: int = 256
+
+    def algo_kwargs(self) -> dict:
+        return dict(
+            hidden_sizes=self.hidden_sizes, actor_lr=self.actor_lr,
+            critic_lr=self.critic_lr, tau=self.tau,
+            exploration_noise=self.exploration_noise, n_step=self.n_step,
+            use_lagrangian=self.use_lagrangian,
+            lagrangian_pid=self.lagrangian_pid, rescaling=self.rescaling,
+            gamma=self.gamma, batch_size=self.batch_size)
+
+
+@dataclass
+class SACLagCfg(OffpolicyCfg):
+    actor_lr: float = 5e-4
+    critic_lr: float = 1e-3
+    alpha: float = 0.005
+    auto_alpha: bool = True
+    alpha_lr: float = 3e-4
+    tau: float = 0.05
+    n_step: int = 2
+    use_lagrangian: bool = True
+    lagrangian_pid: Tuple[float, float, float] = (0.05, 0.0005, 0.1)
+    rescaling: bool = True
+    batch_size: int = 256
+
+    def algo_kwargs(self) -> dict:
+        return dict(
+            hidden_sizes=self.hidden_sizes, actor_lr=self.actor_lr,
+            critic_lr=self.critic_lr, alpha=self.alpha,
+            auto_alpha=self.auto_alpha, alpha_lr=self.alpha_lr, tau=self.tau,
+            n_step=self.n_step, use_lagrangian=self.use_lagrangian,
+            lagrangian_pid=self.lagrangian_pid, rescaling=self.rescaling,
+            gamma=self.gamma, batch_size=self.batch_size)
+
+
+@dataclass
+class CVPOCfg(OffpolicyCfg):
+    actor_lr: float = 5e-4
+    critic_lr: float = 1e-3
+    gamma: float = 0.98
+    n_step: int = 2
+    tau: float = 0.05
+    estep_iter_num: int = 1
+    estep_kl: float = 0.02
+    estep_dual_max: float = 20.0
+    estep_dual_lr: float = 0.02
+    sample_act_num: int = 16
+    mstep_iter_num: int = 1
+    mstep_kl_mu: float = 0.005
+    mstep_kl_std: float = 0.0005
+    mstep_dual_max: float = 0.5
+    mstep_dual_lr: float = 0.1
+    double_critic: bool = True
+    batch_size: int = 256
+
+    def algo_kwargs(self) -> dict:
+        return dict(
+            hidden_sizes=self.hidden_sizes, actor_lr=self.actor_lr,
+            critic_lr=self.critic_lr, gamma=self.gamma, n_step=self.n_step,
+            tau=self.tau, estep_iter_num=self.estep_iter_num,
+            estep_kl=self.estep_kl, estep_dual_max=self.estep_dual_max,
+            estep_dual_lr=self.estep_dual_lr,
+            sample_act_num=self.sample_act_num,
+            mstep_iter_num=self.mstep_iter_num, mstep_kl_mu=self.mstep_kl_mu,
+            mstep_kl_std=self.mstep_kl_std,
+            mstep_dual_max=self.mstep_dual_max,
+            mstep_dual_lr=self.mstep_dual_lr,
+            double_critic=self.double_critic, batch_size=self.batch_size)
 
 
 # ---------------------------------------------------------------------------

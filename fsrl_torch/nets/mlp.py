@@ -13,6 +13,12 @@ points (``nets/mlp.py:53-67``): the trunk's input, weights and biases are cast
 to bf16, each layer is a bf16 matmul followed by a bf16 bias add, and the
 trunk output is cast back to float32. The actor's mean head runs in float32
 on that output. Parameters stay float32.
+
+The off-policy nets (``nets/mlp.py:100-104,126-139,176-221``): the SAC / CVPO
+actor's state-conditioned log-sigma head, clipped to
+[``SIGMA_MIN``, ``SIGMA_MAX``]; the deterministic DDPG actor; and the
+(M metrics x Q heads) Q-critic ensemble, whose towers run as one matmul
+chain batched over the M x Q axis.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import torch
 from torch import nn
 
 from fsrl_torch.nets.distributions import DiagGaussian
+
+SIGMA_MIN, SIGMA_MAX = -20.0, 2.0
 
 
 class Dense(nn.Module):
@@ -67,12 +75,19 @@ class MLP(nn.Module):
 
 
 class GaussianActor(nn.Module):
-    """Gaussian policy with a free log-sigma (the PPO recipe); mean
-    ``max_action * tanh(mu)`` unless ``unbounded``."""
+    """Gaussian policy; mean ``max_action * tanh(mu)`` unless ``unbounded``.
+
+    * ``conditioned_sigma=False``: a free log-sigma parameter (the
+      PPO / TRPO / CPO / FOCOPS recipe);
+    * ``conditioned_sigma=True``: a log-sigma head on the trunk, clipped to
+      [``SIGMA_MIN``, ``SIGMA_MAX``] (the SAC / CVPO recipe). The clip is
+      ``minimum(maximum(.))``, whose backward passes half the gradient at a
+      bound, as ``jnp.clip`` does (``torch.clamp`` passes all of it)."""
 
     def __init__(self, obs_dim: int, act_dim: int,
                  hidden_sizes: Sequence[int] = (128, 128),
                  max_action: float = 1.0, unbounded: bool = False,
+                 conditioned_sigma: bool = False,
                  last_layer_scale: bool = False, sigma_init: float = -0.5,
                  sigma_floor: float | None = None,
                  compute_dtype: torch.dtype | None = None,
@@ -82,7 +97,15 @@ class GaussianActor(nn.Module):
                          generator=generator)
         self.mu = Dense(hidden_sizes[-1], act_dim,
                         0.01 if last_layer_scale else 1.0, generator)
-        self.log_sigma = nn.Parameter(torch.full((act_dim,), sigma_init))
+        self.conditioned_sigma = conditioned_sigma
+        if conditioned_sigma:
+            self.sigma = Dense(hidden_sizes[-1], act_dim, generator=generator)
+            self.register_buffer("sigma_lo", torch.tensor(SIGMA_MIN),
+                                 persistent=False)
+            self.register_buffer("sigma_hi", torch.tensor(SIGMA_MAX),
+                                 persistent=False)
+        else:
+            self.log_sigma = nn.Parameter(torch.full((act_dim,), sigma_init))
         self.max_action, self.unbounded = max_action, unbounded
         self.sigma_floor = sigma_floor
 
@@ -98,10 +121,33 @@ class GaussianActor(nn.Module):
         return torch.exp(log_sigma)
 
     def forward(self, obs: torch.Tensor) -> DiagGaussian:
-        mu = self.mu(self.trunk(obs))
+        trunk = self.trunk(obs)
+        mu = self.mu(trunk)
         if not self.unbounded:
             mu = self.max_action * torch.tanh(mu)
+        if self.conditioned_sigma:
+            log_sigma = torch.minimum(
+                torch.maximum(self.sigma(trunk), self.sigma_lo), self.sigma_hi)
+            return DiagGaussian(mean=mu, std=torch.exp(log_sigma))
         return DiagGaussian(mean=mu, std=self.std().expand(mu.shape))
+
+
+class DeterministicActor(nn.Module):
+    """The DDPG policy: ``max_action * tanh(mu(trunk(obs)))``."""
+
+    def __init__(self, obs_dim: int, act_dim: int,
+                 hidden_sizes: Sequence[int] = (128, 128),
+                 max_action: float = 1.0,
+                 compute_dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.trunk = MLP(obs_dim, hidden_sizes, compute_dtype=compute_dtype,
+                         generator=generator)
+        self.mu = Dense(hidden_sizes[-1], act_dim, generator=generator)
+        self.max_action = max_action
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.max_action * torch.tanh(self.mu(self.trunk(obs)))
 
 
 class VCriticEnsemble(nn.Module):
@@ -145,6 +191,73 @@ class VCriticEnsemble(nn.Module):
                     h = torch.relu(h)
             cols.append(h)                                  # (B, 1)
         return torch.cat(cols, 1).reshape(lead + (-1,)).float()
+
+
+class QCriticEnsemble(nn.Module):
+    """(M metrics x Q heads) Q(s, a) towers on ``concat(obs, act)``. Q = 1
+    is a single critic per metric (DDPG-Lag), Q = 2 a double critic (SAC-Lag,
+    CVPO). Output ``(..., M, Q)``. Tower weights are ``w[i]`` of shape
+    ``(M, Q, out, in)``, biases ``b[i]`` of shape ``(M, Q, out)``.
+
+    The M x Q towers run as one matmul chain batched over the tower axis:
+    an off-policy batch is a few hundred rows (a few thousand in CVPO's
+    particle sweep), where the batched products' weight gradients are small
+    and one launch per layer beats one per tower."""
+
+    def __init__(self, obs_dim: int, act_dim: int, num_metrics: int,
+                 num_q: int = 2, hidden_sizes: Sequence[int] = (128, 128),
+                 compute_dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dims = [obs_dim + act_dim, *hidden_sizes, 1]
+        self.w = nn.ParameterList()
+        self.b = nn.ParameterList()
+        for a, b in zip(dims[:-1], dims[1:]):
+            w = torch.empty(num_metrics, num_q, b, a)
+            for m in range(num_metrics):
+                for q in range(num_q):
+                    nn.init.orthogonal_(w[m, q], generator=generator)
+            self.w.append(nn.Parameter(w))
+            self.b.append(nn.Parameter(torch.zeros(num_metrics, num_q, b)))
+        self.num_metrics, self.num_q = num_metrics, num_q
+        self.compute_dtype = compute_dtype
+
+    def forward(self, obs: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+        lead = obs.shape[:-1]
+        dt = self.compute_dtype or obs.dtype
+        x = torch.cat([obs, act], -1).reshape(-1, obs.shape[-1]
+                                              + act.shape[-1]).to(dt)
+        MQ = self.num_metrics * self.num_q
+        n = len(self.w)
+        h = x
+        for i in range(n):
+            w = self.w[i].to(dt)
+            w = w.reshape(MQ, w.shape[-2], w.shape[-1]).transpose(1, 2)
+            # layer 1 broadcasts the shared input over the towers
+            h = torch.matmul(h, w) + self.b[i].to(dt).reshape(MQ, 1, -1)
+            if i < n - 1:
+                h = torch.relu(h)
+        q = h[..., 0].T                                      # (B, M*Q)
+        return q.reshape(lead + (self.num_metrics, self.num_q)).float()
+
+    def predict(self, obs: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+        """Min over the Q heads: ``(..., M)``."""
+        return self(obs, act).amin(-1)
+
+
+class ActorQCritic(nn.Module):
+    """The off-policy parameter set: an actor (Gaussian or deterministic)
+    and a Q-critic ensemble. ``flat_names`` fixes the order of the flat
+    vector: the actor's parameters, then the critics'."""
+
+    def __init__(self, actor: nn.Module, critics: QCriticEnsemble):
+        super().__init__()
+        self.actor, self.critics = actor, critics
+
+    def flat_names(self) -> list[str]:
+        return ([f"actor.{k}" for k, _ in self.actor.named_parameters()]
+                + [f"critics.{k}" for k, _ in
+                   self.critics.named_parameters()])
 
 
 class ActorCritic(nn.Module):

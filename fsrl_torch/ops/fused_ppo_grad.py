@@ -240,7 +240,8 @@ def _launch(flat, layout: GradLayout, obs, act, logp_old, adv, ret, lam,
             scratch.data_ptr(), B, D, layout.H, A, K, int(bf16), n_scratch,
             1.0 - eps_clip, 1.0 + eps_clip, vf_coef, kernels.stream_ptr())
     kernels.check(rc, "fused PPO grad kernel")
-    kernels.LAUNCHES["fused_ppo_grad"] += 1
+    # the bf16 (tensor-core) and f32 kernels are two kernels, counted apart
+    kernels.LAUNCHES["fused_ppo_grad" if bf16 else "fused_ppo_grad_f32"] += 1
     return grad, aux
 
 

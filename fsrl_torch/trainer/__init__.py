@@ -1,6 +1,7 @@
 """Training loops."""
 
-from fsrl_torch.trainer.trainer import (BaseTrainer, OnpolicyTrainer,
-                                       perf_is_better)
+from fsrl_torch.trainer.trainer import (BaseTrainer, OffpolicyTrainer,
+                                       OnpolicyTrainer, perf_is_better)
 
-__all__ = ["BaseTrainer", "OnpolicyTrainer", "perf_is_better"]
+__all__ = ["BaseTrainer", "OffpolicyTrainer", "OnpolicyTrainer",
+           "perf_is_better"]

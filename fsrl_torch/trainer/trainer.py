@@ -12,6 +12,9 @@ to ``<log_dir>/checkpoint/model.pt``, and the feasibility-first best one to
 ``model_best.pt``; ``resume_from`` restores a state and the logger's step
 counters.
 
+``OffpolicyTrainer`` keeps a ring replay buffer on the device and runs
+``round(update_per_step * T * N)`` sampled grad steps per collect.
+
 Not ported yet: the device mesh, ``fuse_iters``, ``rollout_unroll`` and the
 recurrent branch.
 """
@@ -25,6 +28,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from fsrl_torch.algos.offpolicy_base import make_nstep_view
+from fsrl_torch.data.buffer import ReplayBuffer
 from fsrl_torch.data.collector import evaluate, make_rollout_fn
 from fsrl_torch.envs.base import SafeEnv
 from fsrl_torch.types import EpisodeStats
@@ -203,5 +208,68 @@ class OnpolicyTrainer(BaseTrainer):
             self.state, res.transitions, res.stats.mean_cost,
             res.stats.n_episodes, self.generator)
         self.env_state, self.stats = res.env_state, res.stats
+        self._log_train(self.stats, metrics)
+        return metrics
+
+
+class OffpolicyTrainer(BaseTrainer):
+    """Collect a segment into the ring replay buffer, then run
+    ``n_updates = max(1, round(update_per_step * T * N))`` grad steps on
+    batches sampled from it (port of ``OffpolicyTrainerTPU``). Per collect,
+    in the JAX package's order: rollout, ``add_segment``,
+    ``update_lagrangian``, ``pre_update`` (where the algorithm has one),
+    the n-step view, the grad steps, ``post_update``. The train metrics are
+    the last grad step's.
+
+    The buffer holds ``max(buffer_size // n_envs, T)`` rows per env. It is
+    not checkpointed (neither is JAX's). ``update_chunk`` is accepted for
+    the JAX package's signature: there it groups grad steps into one XLA
+    dispatch, here every grad step is issued on its own and the value
+    changes nothing. ``fuse_iters`` and the mesh are not ported."""
+
+    def __init__(self, *args, buffer_size: int = 100000,
+                 update_per_step: float = 0.2, update_chunk: int = 32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        algo, env = self.algo, self.env
+        self.buffer = ReplayBuffer(max(buffer_size // self.n_envs, self.T),
+                                   self.n_envs, self.device)
+        self.buf_state = self.buffer.init(env.observation_size,
+                                          env.action_size, env.num_costs)
+        self.n_updates = max(1, int(round(update_per_step * self.T
+                                          * self.n_envs)))
+        self.rollout = make_rollout_fn(env, algo.act_fn, self.T, self.device)
+        self.view = None
+
+    def collect(self) -> None:
+        """Rollout, buffer write, the per-collect hooks and the n-step
+        view."""
+        algo = self.algo
+        res = self.rollout(self.state.params, self.env_state,
+                           self.stats.reset_aggregates(), self.generator)
+        self.env_state, self.stats = res.env_state, res.stats
+        self.buf_state = self.buffer.add_segment(self.buf_state,
+                                                 res.transitions)
+        self.state = algo.update_lagrangian(self.state, res.stats.mean_cost,
+                                            res.stats.n_episodes)
+        if hasattr(algo, "pre_update"):
+            self.state = algo.pre_update(self.state)
+        self.view = make_nstep_view(self.buffer, self.buf_state)
+
+    def update(self) -> dict:
+        """The collect's grad steps, then ``post_update``; the last step's
+        metrics, as tensors."""
+        metrics = {}
+        for _ in range(self.n_updates):
+            self.state, metrics = self.algo.update_step(
+                self.state, self.buffer, self.buf_state, self.generator,
+                view=self.view)
+        if hasattr(self.algo, "post_update"):
+            self.state = self.algo.post_update(self.state)
+        return metrics
+
+    def _run_iter(self) -> dict:
+        self.collect()
+        metrics = self.update()
         self._log_train(self.stats, metrics)
         return metrics

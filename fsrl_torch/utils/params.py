@@ -9,7 +9,17 @@ This is the one place where layouts are converted:
   kernels ``(K, in, out)`` become ``critics.w.{i}`` of shape ``(K, out, in)``,
   biases ``(K, out)`` stay ``critics.b.{i}``;
 * the actor is ``actor/params/MLP_0/Dense_{i}`` (trunk), ``Dense_0`` (mean
-  head) and a free ``log_sigma``.
+  head) and a free ``log_sigma``;
+* the off-policy Q-critic ensemble sits under
+  ``critics/params/VmapVmap_QHead_0/MLP_0/Dense_{i}`` with leading (M, Q)
+  axes: kernels ``(M, Q, in, out)`` become ``critics.w.{i}`` of shape
+  ``(M, Q, out, in)``, biases ``(M, Q, out)`` stay ``critics.b.{i}``;
+* the SAC / CVPO actor has a second head ``Dense_1`` (log-sigma,
+  ``actor.sigma``) instead of ``log_sigma``; the DDPG actor has only
+  ``Dense_0``.
+
+Either half of a tree may be missing (a target critic, an old actor): the
+state dict then holds the other half only.
 
 Both directions work on numpy arrays, so the bridge needs neither JAX nor
 flax: the tests hand it ``jax.device_get(params)``.
@@ -22,25 +32,37 @@ import torch
 from torch import nn
 
 
+_CRITIC_KEYS = ("Vmap_VHead_0", "VmapVmap_QHead_0")
+
+
 def from_jax_params(tree) -> dict[str, torch.Tensor]:
     """Flax ``{"actor": ..., "critics": ...}`` tree (numpy leaves) → the
-    state dict of :class:`fsrl_torch.nets.mlp.ActorCritic`."""
+    state dict of :class:`fsrl_torch.nets.mlp.ActorCritic` or
+    :class:`fsrl_torch.nets.mlp.ActorQCritic`."""
     out: dict[str, torch.Tensor] = {}
     t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
-    ap = tree["actor"]["params"]
-    trunk = ap["MLP_0"]
-    for i in range(len(trunk)):
-        d = trunk[f"Dense_{i}"]
-        out[f"actor.trunk.layers.{i}.weight"] = t(d["kernel"]).T.contiguous()
-        out[f"actor.trunk.layers.{i}.bias"] = t(d["bias"])
-    out["actor.mu.weight"] = t(ap["Dense_0"]["kernel"]).T.contiguous()
-    out["actor.mu.bias"] = t(ap["Dense_0"]["bias"])
-    out["actor.log_sigma"] = t(ap["log_sigma"])
-    cp = tree["critics"]["params"]["Vmap_VHead_0"]["MLP_0"]
-    for i in range(len(cp)):
-        d = cp[f"Dense_{i}"]
-        out[f"critics.w.{i}"] = t(d["kernel"]).transpose(1, 2).contiguous()
-        out[f"critics.b.{i}"] = t(d["bias"])
+    if "actor" in tree:
+        ap = tree["actor"]["params"]
+        trunk = ap["MLP_0"]
+        for i in range(len(trunk)):
+            d = trunk[f"Dense_{i}"]
+            out[f"actor.trunk.layers.{i}.weight"] = t(d["kernel"]).T.contiguous()
+            out[f"actor.trunk.layers.{i}.bias"] = t(d["bias"])
+        heads = {"Dense_0": "mu", "Dense_1": "sigma"}
+        for key, name in heads.items():
+            if key in ap:
+                out[f"actor.{name}.weight"] = t(ap[key]["kernel"]).T.contiguous()
+                out[f"actor.{name}.bias"] = t(ap[key]["bias"])
+        if "log_sigma" in ap:
+            out["actor.log_sigma"] = t(ap["log_sigma"])
+    if "critics" in tree:
+        ens = tree["critics"]["params"]
+        (key,) = [k for k in _CRITIC_KEYS if k in ens]
+        cp = ens[key]["MLP_0"]
+        for i in range(len(cp)):
+            d = cp[f"Dense_{i}"]
+            out[f"critics.w.{i}"] = t(d["kernel"]).transpose(-1, -2).contiguous()
+            out[f"critics.b.{i}"] = t(d["bias"])
     return out
 
 
@@ -48,22 +70,30 @@ def to_jax_params(sd: dict[str, torch.Tensor]) -> dict:
     """Inverse of :func:`from_jax_params`: a state dict (or gradient dict of
     the same names) → the flax tree layout, numpy leaves."""
     n = lambda x: x.detach().cpu().float().numpy()
-    n_trunk = sum(1 for k in sd if k.startswith("actor.trunk.layers.")
-                  and k.endswith(".weight"))
+    out = {}
+    if "actor.mu.weight" in sd:
+        n_trunk = sum(1 for k in sd if k.startswith("actor.trunk.layers.")
+                      and k.endswith(".weight"))
+        trunk = {f"Dense_{i}": {
+            "kernel": n(sd[f"actor.trunk.layers.{i}.weight"]).T,
+            "bias": n(sd[f"actor.trunk.layers.{i}.bias"])}
+            for i in range(n_trunk)}
+        actor = {"MLP_0": trunk}
+        for key, name in (("Dense_0", "mu"), ("Dense_1", "sigma")):
+            if f"actor.{name}.weight" in sd:
+                actor[key] = {"kernel": n(sd[f"actor.{name}.weight"]).T,
+                              "bias": n(sd[f"actor.{name}.bias"])}
+        if "actor.log_sigma" in sd:
+            actor["log_sigma"] = n(sd["actor.log_sigma"])
+        out["actor"] = {"params": actor}
     n_crit = sum(1 for k in sd if k.startswith("critics.w."))
-    trunk = {f"Dense_{i}": {
-        "kernel": n(sd[f"actor.trunk.layers.{i}.weight"]).T,
-        "bias": n(sd[f"actor.trunk.layers.{i}.bias"])} for i in range(n_trunk)}
-    actor = {"params": {
-        "MLP_0": trunk,
-        "Dense_0": {"kernel": n(sd["actor.mu.weight"]).T,
-                    "bias": n(sd["actor.mu.bias"])},
-        "log_sigma": n(sd["actor.log_sigma"])}}
-    crit = {f"Dense_{i}": {
-        "kernel": n(sd[f"critics.w.{i}"]).transpose(0, 2, 1),
-        "bias": n(sd[f"critics.b.{i}"])} for i in range(n_crit)}
-    return {"actor": actor,
-            "critics": {"params": {"Vmap_VHead_0": {"MLP_0": crit}}}}
+    if n_crit:
+        crit = {f"Dense_{i}": {
+            "kernel": np.swapaxes(n(sd[f"critics.w.{i}"]), -1, -2),
+            "bias": n(sd[f"critics.b.{i}"])} for i in range(n_crit)}
+        key = _CRITIC_KEYS[sd["critics.w.0"].dim() == 4]
+        out["critics"] = {"params": {key: {"MLP_0": crit}}}
+    return out
 
 
 def flatten_parameters_(module: nn.Module,

@@ -110,3 +110,116 @@ def scan_perms(rng, size, n_epochs, n_mb):
                      if layout.needs_roll else 0)
     return (torch.from_numpy(np.stack(perms)).long(), torch.tensor(rolls),
             layout)
+
+
+# ---------------------------------------------------------------------------
+# Off-policy parity: one replay buffer on both sides, JAX's draws recreated
+# ---------------------------------------------------------------------------
+
+def offpolicy_buffers(D, A, M=1, C=16, N=4, seed=0, segments=(10, 10)):
+    """A JAX ring buffer and the port's holding the same random segments
+    (the second write wraps around), with terminations and truncations."""
+    from fsrl_torch.data.buffer import ReplayBuffer
+    from fsrl_tpu.data.buffer import ReplayBuffer as JReplayBuffer
+    jbuf, tbuf = JReplayBuffer(C, N), ReplayBuffer(C, N, device="cpu")
+    js, ts = jbuf.init(D, A, M), tbuf.init(D, A, M)
+    for i, T in enumerate(segments):
+        seg = rollout_transitions(T, N, D, A, M=M, seed=seed + i,
+                                  p_term=0.05, p_trunc=0.05)
+        js = jbuf.add_segment(js, seg)
+        ts = tbuf.add_segment(ts, transition(seg))
+    return jbuf, js, tbuf, ts
+
+
+def offpolicy_draws(rng, batch_size, filled, n_envs, act_dim, kind,
+                    n_particles=0):
+    """The draws a JAX off-policy ``update_step`` makes from ``rng``, for
+    the port's ``draws``: rows from ``rng`` and envs from ``fold_in(rng,
+    1)`` (``sample_indices``); SAC-Lag's target and actor noise from
+    ``split(rng)``; CVPO's target noise and ``n_particles`` particle draws
+    from ``split(rng)`` and ``split(rng_p, Kp)``."""
+    B = batch_size
+    out = dict(
+        rows=t(jax.random.randint(rng, (B,), 0, filled)).long(),
+        envs=t(jax.random.randint(jax.random.fold_in(rng, 1), (B,), 0,
+                                  n_envs)).long())
+    normal = lambda k: t(jax.random.normal(k, (B, act_dim)))
+    if kind == "sac_lag":
+        k_t, k_a = jax.random.split(rng)
+        out.update(noise_t=normal(k_t), noise_a=normal(k_a))
+    elif kind == "cvpo":
+        k_t, k_p = jax.random.split(rng)
+        out.update(noise_t=normal(k_t), noise_p=torch.stack(
+            [normal(k) for k in jax.random.split(k_p, n_particles)]))
+    return out
+
+
+def module_vec(module, tree, prefix):
+    """A flax tree (parameters or Adam moments) of one network → the flat
+    layout of the port's ``module`` (parameter order)."""
+    sd = from_jax_params({prefix: jax.device_get(tree)})
+    return torch.cat([sd[f"{prefix}.{k}"].reshape(-1)
+                      for k, _ in module.named_parameters()])
+
+
+def adam_moments(opt_state):
+    """``(count, mu, nu)`` of the Adam state inside an optax state."""
+    s = adam_state(opt_state)
+    return int(s.count), s.mu, s.nu
+
+
+def offpolicy_chain(jalgo, talgo, kind, n_steps, M=1, batch_size=64,
+                    seed=0):
+    """``n_steps`` chained ``update_step``s of a JAX algorithm and its port
+    from the same weights on the same replay buffer, with JAX's draws
+    injected and a nonzero multiplier. Yields ``(jstate, jmetrics, tstate,
+    tmetrics)`` after each step."""
+    import jax.numpy as jnp
+
+    from fsrl_torch.algos.offpolicy_base import make_nstep_view
+    from fsrl_tpu.algos.offpolicy_base import make_nstep_view as j_view
+    D, A = talgo.obs_dim, talgo.act_dim
+    jbuf, js, tbuf, ts = offpolicy_buffers(D, A, M, seed=seed)
+    lam = np.linspace(0.5, 1.5, M).astype(np.float32)
+    jstate = jax.jit(jalgo.init)(jax.random.PRNGKey(seed))
+    jstate = jstate.replace(lag=jstate.lag.replace(multiplier=jnp.asarray(lam)))
+    tstate = talgo.init(state_dict=state_dict(jstate.params))
+    tstate.lag.multiplier = torch.from_numpy(lam)
+    jv, tv = j_view(jbuf, js), make_nstep_view(tbuf, ts)
+    step = jax.jit(lambda s, k: jalgo.update_step(s, jbuf, js, k, view=jv))
+    kp = getattr(talgo, "hp", {}).get("sample_act_num", 0)
+    for i in range(n_steps):
+        key = jax.random.PRNGKey(100 + i)
+        jstate, jm = step(jstate, key)
+        draws = offpolicy_draws(key, batch_size, int(js.filled), tbuf.N, A,
+                                kind, kp)
+        tstate, tm = talgo.update_step(tstate, tbuf, ts, view=tv, draws=draws)
+        yield jstate, jm, tstate, tm
+
+
+def module_params(module):
+    """The port module's parameters as one vector (parameter order)."""
+    return torch.cat([p.detach().reshape(-1) for p in module.parameters()])
+
+
+def assert_adam_matches(opt_t, opt_j, module, prefix, rtol):
+    """The port's Adam state of ``module`` against optax's, moments held to
+    ``rtol`` of each entry (and of the largest)."""
+    count, mu, nu = adam_moments(opt_j)
+    assert int(opt_t.count) == count
+    for m_j, m_t in ((mu, opt_t.mu), (nu, opt_t.nu)):
+        want = module_vec(module, m_j, prefix)
+        np.testing.assert_allclose(n(m_t), n(want), rtol=rtol,
+                                   atol=rtol * float(want.abs().max()),
+                                   err_msg=prefix)
+
+
+def assert_first_step_close(got, want, lr, max_flipped=0.01):
+    """Parameters after one Adam step from the same start, where bf16
+    rounding may flip the sign of a gradient entry near 0: Adam's first
+    step moves every entry by about ``lr * sign(g)``, so no entry may
+    differ by more than two steps, and at most ``max_flipped`` of the
+    entries by more than one."""
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 2 * lr * (1 + 1e-3) + 1e-7
+    assert float((diff > lr).float().mean()) <= max_flipped

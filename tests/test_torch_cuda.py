@@ -146,16 +146,22 @@ def test_fused_grad_kernel_at_envelope_edges(cuda, B, D, A, K):
 def test_fused_grad_f32_two_launches_identical(cuda):
     from fsrl_torch.ops.fused_ppo_grad import ppo_grad_rows
     args = _grad_case(cuda, 1000, 9, 2, 2, bf16=False)
+    before = dict(kernels.LAUNCHES)
     g1, a1 = ppo_grad_rows(*args, bf16=False)
     g2, a2 = ppo_grad_rows(*args, bf16=False)
     assert torch.equal(g1, g2) and torch.equal(a1, a2)
+    # the f32 kernel is counted apart from the bf16 one
+    assert kernels.LAUNCHES["fused_ppo_grad_f32"] == before.get(
+        "fused_ppo_grad_f32", 0) + 2
+    assert kernels.LAUNCHES["fused_ppo_grad"] == before.get(
+        "fused_ppo_grad", 0)
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_fused_grad_wrapper_raises_rather_than_falling_back(cuda, bf16):
     from fsrl_torch.ops.fused_ppo_grad import GradLayout, ppo_grad_rows
     args = _grad_case(cuda, 256, 9, 2, 2, bf16=bf16)
-    before = kernels.LAUNCHES["fused_ppo_grad"]
+    before = sum(kernels.LAUNCHES.values())
     bad = list(args)
     bad[2] = torch.randn(9, 256, device=cuda).T          # not contiguous
     with pytest.raises(ValueError):
@@ -172,7 +178,7 @@ def test_fused_grad_wrapper_raises_rather_than_falling_back(cuda, bf16):
     bad[1] = GradLayout(D=9, H=64, A=2, K=2)             # outside the envelope
     with pytest.raises(ValueError):
         ppo_grad_rows(*bad, bf16=bf16)
-    assert kernels.LAUNCHES["fused_ppo_grad"] == before
+    assert sum(kernels.LAUNCHES.values()) == before
 
 
 def test_gae_wrapper_raises_rather_than_falling_back(cuda):
@@ -238,8 +244,10 @@ def _one_update(cls, dev, **kw):
                            torch.tensor(3, dtype=torch.int32, device=dev),
                            None, **extra)
     launched = kernels.LAUNCHES["gae"] - before
-    return algo, state.flat.cpu(), {k: float(v) for k, v in m.items()}, \
-        launched
+    m = {k: float(v) for k, v in m.items()}
+    if cls.name == "trpo_lag":       # the index is not among its metrics
+        m["loss/backtracks"] = float(algo.last_backtracks[-1])
+    return algo, state.flat.cpu(), m, launched
 
 
 @pytest.mark.parametrize("name", ["focops", "trpo_lag", "cpo"])
@@ -278,3 +286,62 @@ def test_update_on_the_card_matches_the_cpu(cuda, name):
     for k in mc:
         rel = 5e-2 if k == "loss/optim_R" else 1e-2
         assert mg[k] == pytest.approx(mc[k], rel=rel, abs=1e-5), k
+
+
+def _offpolicy_step(cls, dev):
+    """One ``update_step`` of ``cls`` on ``dev`` from the seed-1 state on
+    a numpy-seeded buffer, with CPU-drawn indices and noise: the flat
+    parameters before and after, and the metrics."""
+    import numpy as np
+
+    from fsrl_torch.algos.offpolicy_base import make_nstep_view
+    from fsrl_torch.data.buffer import ReplayBuffer
+    from fsrl_torch.types import Transition
+    rng = np.random.default_rng(0)
+    T, N, D, A, B = 20, 8, 8, 2, 128
+    f = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                                   device=dev)
+    tr = Transition(obs=f(T, N, D), act=f(T, N, A), obs_next=f(T, N, D),
+                    reward=f(T, N), cost=f(T, N, 1).abs(),
+                    terminated=torch.as_tensor(rng.random((T, N)) < 0.05,
+                                               device=dev),
+                    truncated=torch.zeros(T, N, dtype=torch.bool,
+                                          device=dev),
+                    logp=f(T, N))
+    buf = ReplayBuffer(32, N, dev)
+    bs = buf.add_segment(buf.init(D, A), tr)
+    g = torch.Generator().manual_seed(1)
+    draws = dict(rows=torch.randint(0, T, (B,), generator=g),
+                 envs=torch.randint(0, N, (B,), generator=g),
+                 noise_t=torch.randn(B, A, generator=g),
+                 noise_a=torch.randn(B, A, generator=g),
+                 noise_p=torch.randn(16, B, A, generator=g))
+    algo = cls(D, A, cost_limit=5.0, batch_size=B, device=dev)
+    state = algo.init(seed=1)
+    start = state.params.flat.cpu().clone()
+    state, m = algo.update_step(state, buf, bs, view=make_nstep_view(buf, bs),
+                                draws={k: v.to(dev) for k, v in draws.items()})
+    return start, state.params.flat.cpu(), {k: float(v) for k, v in m.items()}
+
+
+@pytest.mark.parametrize("name", ["ddpg_lag", "sac_lag", "cvpo"])
+def test_offpolicy_update_step_on_the_card_matches_the_cpu(cuda, name):
+    """One off-policy grad step on the card against the same step on the
+    CPU: no kernel of the port runs on these paths."""
+    from fsrl_torch.algos.cvpo import CVPO
+    from fsrl_torch.algos.ddpg_lag import DDPGLag
+    from fsrl_torch.algos.sac_lag import SACLag
+    cls = {"ddpg_lag": DDPGLag, "sac_lag": SACLag, "cvpo": CVPO}[name]
+    before = sum(kernels.LAUNCHES.values())
+    s0, fc, mc = _offpolicy_step(cls, "cpu")
+    _, fg, mg = _offpolicy_step(cls, cuda)
+    assert sum(kernels.LAUNCHES.values()) == before
+    # Adam's first step is about lr * sign(g): gradients ~1e-7 apart give
+    # weights within 1e-6, except an entry whose gradient is rounding noise
+    # (at most 1e-3 of them, each within two steps of lr 1e-3)
+    diff = (fc - fg).abs()
+    assert float(diff.max()) <= 2e-3 * 1.001
+    assert float((diff > 1e-6).float().mean()) <= 1e-3
+    assert set(mc) == set(mg)
+    for k in mc:
+        assert mg[k] == pytest.approx(mc[k], rel=1e-4, abs=1e-5), k
