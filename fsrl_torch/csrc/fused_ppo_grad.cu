@@ -87,68 +87,13 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// n_total floats from global to shared memory. A full chunk whose source
-// is 16-byte aligned goes 16 bytes a copy; else 4 bytes a copy, and the
-// floats from n_valid on are zero-filled (source size 0 reads nothing).
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
-                                           int n_valid, int n_total,
-                                           bool vec) {
-  if (vec && n_valid == n_total) {
-    for (int i = 4 * threadIdx.x; i < n_total; i += 4 * NT)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                       wg::smem_addr(dst + i)),
-                   "l"(src + i)
-                   : "memory");
-    return;
-  }
-  for (int i = threadIdx.x; i < n_total; i += NT) {
-    const bool ok = i < n_valid;
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     wg::smem_addr(dst + i)),
-                 "l"(src + (ok ? i : 0)), "r"(ok ? 4 : 0)
-                 : "memory");
-  }
-}
-
-// The 32 columns of a thread's fragment (8 * jb + 2 * q, + 1) of a row of
-// floats in shared memory, loaded together so that their latencies overlap.
-__device__ __forceinline__ void load_cols(float2 (&ld)[16], const float* row,
-                                          int q) {
-#pragma unroll
-  for (int jb = 0; jb < 16; ++jb)
-    ld[jb] = *reinterpret_cast<const float2*>(row + 8 * jb + 2 * q);
-}
-
-// One level of the sum over a warp's eight row lanes (lane bits 2..4): the
-// lanes of a pair split the N2 * 2 values, each keeps one half and adds the
-// partner's. After levels 16, 8, 4 on 32 values lane l holds in v[0..3] the
-// sums over all eight row lanes of the values 4 * (l / 4) + i.
-template <int N2>
-__device__ __forceinline__ void halve(float (&v)[32], int lane, int bit) {
-  const bool up = lane & bit;
-#pragma unroll
-  for (int i = 0; i < N2; ++i) {
-    const float send = up ? v[i] : v[i + N2];
-    const float keep = up ? v[i + N2] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
-  }
-}
-
 // Column sums of a fragment-shaped array over the warp's 16 rows, added
-// into acc[col]. v[2 * jb + e] holds the sum of the lane's two rows at
-// column 8 * jb + 2 * (lane % 4) + e.
+// into acc[col] (column_sums in ppo_grad_common.cuh).
 __device__ __forceinline__ void add_column_sums(float (&v)[32], int lane,
                                                 float* acc) {
-  halve<16>(v, lane, 16);
-  halve<8>(v, lane, 8);
-  halve<4>(v, lane, 4);
-  const int i0 = 4 * (((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 +
-                      ((lane >> 2) & 1));
+  column_sums(v, lane);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = i0 + i;
-    acc[8 * (idx >> 1) + 2 * (lane & 3) + (idx & 1)] += v[i];
-  }
+  for (int i = 0; i < 4; ++i) acc[column_of<32>(lane, i)] += v[i];
 }
 
 __global__ void __launch_bounds__(NT, 1)
@@ -201,16 +146,16 @@ ppo_grad_bf16_kernel(const Args p) {
     const size_t r0 = (size_t)c * R;
     const int nr = min(R, B - (int)r0);
     const bool vec = p.aligned16;
-    copy_async(dst, p.obs + r0 * D, nr * D, R * D, vec);
+    cp::rows(dst, p.obs + r0 * D, nr * D, R * D, vec);
     dst += R * D;
     if (actor) {
-      copy_async(dst, p.act + r0 * A, nr * A, R * A, vec);
-      copy_async(dst + R * A, p.logp_old + r0, nr, R, vec);
-      copy_async(dst + R * (A + 1), p.adv + r0 * K, nr * K, R * K, vec);
+      cp::rows(dst, p.act + r0 * A, nr * A, R * A, vec);
+      cp::rows(dst + R * A, p.logp_old + r0, nr, R, vec);
+      cp::rows(dst + R * (A + 1), p.adv + r0 * K, nr * K, R * K, vec);
     } else {
-      copy_async(dst + R * (A + 1 + K), p.ret + r0 * K, nr * K, R * K, vec);
+      cp::rows(dst + R * (A + 1 + K), p.ret + r0 * K, nr * K, R * K, vec);
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    cp::commit();
   };
   fetch(g, 0);
 
@@ -278,9 +223,9 @@ ppo_grad_bf16_kernel(const Args p) {
     const float* rows = ring + (it & 1) * slot;
     if (c + G < n_chunks) {
       fetch(c + G, (it + 1) & 1);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      cp::wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      cp::wait<0>();
     }
     // the chunk's rows have landed, and every warp has left the last chunk
     __syncthreads();

@@ -1,58 +1,177 @@
-// Fused PPO-Lagrangian minibatch loss gradient in float32 on the FMA pipes:
-// the kernel behind `compute_dtype` None / float32. Same grid, partials and
-// reduce launch as the bf16 tensor-core kernel in fused_ppo_grad.cu, which
-// holds the entry point; see there for what the kernel computes.
+// Fused PPO-Lagrangian minibatch loss gradient in float32 on Hopper's
+// tensor cores: the kernel behind `compute_dtype` None / float32. Same
+// arguments, grid, per-block partials and reduce launch as the bf16 kernel
+// in fused_ppo_grad.cu, which holds the entry point; see there for what the
+// kernel computes.
 //
-// Replaces: fsrl_tpu/ops/fused_ppo_grad.py `_kernel` run with
-// compute_dtype=None. float32 on the tensor cores would be TF32, another
-// result, so this kernel stays on the FP32 pipes.
+// Replaces: fsrl_tpu/ops/fused_ppo_grad.py `_kernel` (line 68; its
+// pallas_call at line 235 in `ppo_grad_minibatch`) run with
+// compute_dtype=None.
 //
-// Bound on this card: operations on the FP32 pipes (67 TFLOP/s peak):
-// ~312k FLOP per row for 3 towers, ~10.2 GFLOP per launch at 32768 rows,
-// ~0.15 ms.
+// Accuracy: every product is three TF32 products summed in f32 (the split
+// of mma_tf32.cuh): each is off by about 3 * 2^-22 of its size, against
+// 2^-10 for one TF32 product, and each depth step's products are added to
+// the running sum with round-to-nearest adds (the tensor core's own adds
+// truncate). The gradient stays within ~1e-6 of each tensor's largest
+// entry of the plain f32 version, like an f32 sum taken in another order.
 //
-// Design: a chunk is 128 rows. x, h1, h2 (later g_h2) and W2 live in shared
-// memory as float32 (~218 KB at D=9, one block per SM); the three large
-// products use an interleaved 8x8 register tile per thread over a 16x16
-// thread grid, with a row stride of H+1 floats so row and column reads are
-// both free of bank conflicts. The H*H gradient partial stays in registers
-// (8x8 per thread) across the block's chunks; the rest accumulates in shared
-// memory. The ragged last chunk is masked: its rows get zero gradient and no
-// aux contribution.
+// ReLU sides. That is not enough where a pre-activation lies within
+// rounding of 0: there any two float32 computations may take different
+// sides of the ReLU, and the row's whole gradient through the unit moves
+// (at 32,768 rows up to ~4e-3 of a tensor's largest entry; the plain f32
+// version is that far from a float64 evaluation in some draws). The split
+// is ~4x coarser than float32, so this kernel would take the other side
+// more often than the plain version. So a pre-activation within KINK times
+// its operands' norms of 0 (several times the products' error; ~1e-5 at
+// the port's init, a few elements a chunk) is taken again in float64 from
+// the float32 inputs: z1 by its thread, z2 by the whole warp with the
+// row's h1 also taken again in float64. The kernel's ReLU sides are then
+// those of exact arithmetic, and it is nearer the float64 evaluation than
+// the plain f32 version is.
+//
+// Bound on this card: operations. Per row and tower the five products take
+// 6 H^2 + 4 D H FLOP, run three times on the TF32 tensor cores (495 TFLOP/s
+// dense); the heads' 6 H O FLOP run on the FP32 pipes (67 TFLOP/s): about
+// 0.063 ms at 32768 rows, D 9, A 2, K 2 (0.153 ms if all of it ran on the
+// FP32 pipes, the bound of the FMA kernel this design replaced).
+//
+// Design (the bf16 kernel's, with mma.sync for wgmma):
+// * A block of 8 warps walks the 128-row chunks blockIdx.x, + G, ... of one
+//   tower (blockIdx.y). Every product runs on the tensor cores as
+//   mma.sync.m16n8k8 with TF32 operands that the threads load from shared
+//   memory and split in registers (tf32::mma3). A warp owns 16 rows of the
+//   chunk (P0, P1, P3) or 16 outputs of a weight gradient (P2, P4):
+//     P0  h1  = relu(x W1^T + b1)       depth D, padded to 8 or 16
+//     P1  h2  = relu(h1 W2^T + b2)      depth: inputs
+//     P2  dW2 += g_h2^T h1              depth: rows
+//     P3  g_h1 = (g_h2 W2) * (h1 > 0)   depth: outputs
+//     P4  dW1 += g_h1^T [x 1]           depth: rows; N = D + 1 padded to 8
+//                                       or 16 (the column of ones gives db1)
+//   P2 has a 17th tile whose B is ones (exact in TF32): it gives db2.
+// * W2, h1 (later g_h1) and g_h2 are float32 128 x 128 tiles in shared
+//   memory (200 KB), each stored once and read in both orientations: a
+//   thread picks the elements it loads, so no operand needs a transposed
+//   copy, and the split costs no shared memory. W2 and h1 rows are padded
+//   to 136 floats and g_h2's columns XOR-swizzled by row (sw): no bank
+//   conflicts but P3's A loads (2-way), and every address is a base plus
+//   constants. P1 takes the depth slots as (2c, 2c + 1), so that a thread
+//   loads two neighbouring floats at once.
+// * Each depth step's three products go to a fresh accumulator, added to
+//   the product's running sum with round-to-nearest adds; dW1, db1, db2
+//   are summed in registers and dW2 in the block's partial (in L2), each
+//   thread alone reading and writing its entries there, so 64 registers do
+//   not sit idle through the other products.
+// * Epilogues on the fragments: bias, ReLU and the h1 > 0 mask (64 bits in
+//   registers); head dot products as per-lane partial sums and quad
+//   shuffles; the per-row loss on two lanes of the quad; head-weight column
+//   sums by a halving exchange over the warp's row lanes.
+// * The chunk's rows (obs, act, logp_old, adv / ret) are fetched one chunk
+//   ahead with cp.async into a two-slot ring; weights are loaded once, W1
+//   read from global memory where it stays in L1 (shared memory is full at
+//   the envelope's largest D, A, K).
+// * Per-block partials and the fixed-order reduce launch, no float atomics:
+//   runs reproduce bit for bit. The ragged last chunk is zero-filled and
+//   masked.
+//
+// What held the float32 FMA kernel this design replaced back, and what this
+// design does about it:
+// 1. Only the FP32 pipes: every product now runs on the tensor cores.
+// 2. Bound by shared-memory loads (16 scalar loads for 64 FMA, padded rows
+//    that ruled out vector loads): one fragment load feeds a 16 x 8 x 8
+//    product, and P1's loads are 8 bytes.
+// 3. Eight warps an SM and a dozen barriers a chunk: still one block of 8
+//    warps an SM (the tiles fill shared memory, the registers 255 a
+//    thread), but a warp keeps 16 independent tiles in flight per depth
+//    step and a chunk has four block barriers (h1 goes from P0 to P1
+//    inside the warp). What limits it now: ~4 integer and FP instructions
+//    of split per operand value before each product and 4 adds after it,
+//    issued by 2 warps a scheduler at about half an instruction a clock.
+// 4. Serial sections: the first layer, dW1 and both bias gradients are
+//    tensor-core products; the heads and the loss run on all lanes.
+// 5. Synchronous row loads: cp.async one chunk ahead.
 
 #include "ppo_grad_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace ppo {
 namespace {
 
-constexpr int HP = H + 1;   // padded shared-memory row stride
+constexpr int NW = NT / 32;                 // warps per block
+constexpr int TILE = R * H;                 // floats of a 128 x 128 tile
+constexpr int WS = H + 8;                   // row stride of the W2, h1 tiles
+constexpr int NSUM = 2 * AMAX + 3 + MMAX;   // sums over the block's rows
+constexpr int NCST = AMAX + MMAX + 2;       // sigma, lambda, sum log-sigma,
+                                            // rescale
+// A pre-activation nearer 0 than KINK times the norms of its two operand
+// rows (the row of x or h1, the largest row of W1 or W2) is taken again in
+// float64 (z1_exact, z2_exact): the products' error is well inside that
+// (see "ReLU sides" above).
+constexpr float KINK = 0x1p-17f;
 
-// Deterministic block sum of one value per thread; every thread gets it.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int tid = threadIdx.x;
-  red[tid] = v;
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
-    __syncthreads();
-  }
-  const float out = red[0];
-  __syncthreads();
-  return out;
+// Two tile layouts keep every fragment access free of bank conflicts.
+// W2 and h1 have rows of WS = 136 floats (8 banks of padding): a warp's
+// loads either take 4 rows of 8 lanes at one column each (rows apart by
+// 8 banks) or 8 rows of 4 lanes at two neighbouring columns (a half-warp
+// then covers 4 rows, 8 banks apart), and the column of a load never
+// depends on the lane's row, so addresses are a base plus constants.
+// g_h2 is unpadded with bits 3-4 of the column XORed with
+// h(r) = (r ^ r >> 1) & 3, distinct on any four rows 4i..4i+3; its loads
+// come from rows whose h is fixed for the thread.
+__host__ __device__ constexpr int sw(int r, int c) {
+  return r * H + (c ^ (((r ^ (r >> 1)) & 3) << 3));
 }
 
-__host__ __device__ int smem_floats(int D) {
-  return R * D + D * H + 2 * R * HP + H * HP + 2 * H + AMAX * H + AMAX +
-         2 * R * AMAX + 2 * H + H * D + 2 * H + AMAX * H + 2 * AMAX + NT;
+__host__ __device__ int slot_floats(int D, int A, int K) {
+  return R * (D + A + 1 + K);
+}
+__host__ __device__ size_t smem_bytes(int D, int A, int K) {
+  return sizeof(float) * (2 * H * WS + TILE + 2 * H + AMAX * H + AMAX +
+                          2 * slot_floats(D, A, K) + NCST + NW * NSUM +
+                          2 * NW);
+}
+
+__device__ __forceinline__ void zero(float (&v)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) v[i] = 0.f;
+}
+
+// The first layer's pre-activation of a row x (D floats) and a row w of W1,
+// in float64 from the float32 operands.
+__device__ __forceinline__ double z1_exact(const float* x, const float* w,
+                                           float b, int D) {
+  double s = b;
+  for (int d = 0; d < D; ++d) s = fma((double)x[d], (double)__ldg(w + d), s);
+  return s;
+}
+
+// The second layer's pre-activation of a row x and a row w2 of W2, in
+// float64, the row's h1 taken again in float64 from x: by the whole warp,
+// lane l taking inputs l, l + 32, ... and a fixed shuffle tree the sum.
+__device__ __forceinline__ float z2_exact(const float* x, const float* gW1,
+                                          const float* b1, const float* w2,
+                                          float b, int D, int lane) {
+  double s = 0.0;
+#pragma unroll
+  for (int u = 0; u < H / 32; ++u) {
+    const int k = lane + 32 * u;
+    s = fma(fmax(z1_exact(x, gW1 + k * D, b1[k], D), 0.0), (double)w2[k], s);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return (float)(s + b);
+}
+
+// KINK times the largest of the NW warps' squared row norms in m.
+__device__ __forceinline__ float kink_scale(const float* m) {
+  float v = m[0];
+#pragma unroll
+  for (int w = 1; w < NW; ++w) v = fmaxf(v, m[w]);
+  return KINK * sqrtf(v);
 }
 
 __global__ void __launch_bounds__(NT, 1)
 ppo_grad_f32_kernel(const Args p) {
-  extern __shared__ float sm[];
-  const float* __restrict__ params = p.params;
-  const float* __restrict__ obs = p.obs;
-  const float* __restrict__ adv = p.adv;
-  const float* __restrict__ ret = p.ret;
+  extern __shared__ __align__(16) float sm[];
   const int B = p.B, D = p.D, A = p.A, K = p.K;
   const Layout L{D, A, K};
   const int tower = blockIdx.y;
@@ -60,322 +179,576 @@ ppo_grad_f32_kernel(const Args p) {
   const bool actor = tower == 0;
   const int O = actor ? A : 1;
   const int M = K - 1;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lr = lane >> 2, q = lane & 3;    // fragment row, column pair
+  const int m0 = 16 * warp;                  // the warp's rows / outputs
+  const int row_lo = m0 + lr;                // and row_lo + 8
+  const int nd = (D + 7) / 8;                // depth steps of P0
+  const int n4 = D / 8 + 1;                  // P4's tiles: x, a 1s column
 
-  float* xs = sm;                  // [R][D]
-  float* W1s = xs + R * D;         // [D][H]  (in, out)
-  float* h1s = W1s + D * H;        // [R][HP] h1, later g_h1
-  float* h2s = h1s + R * HP;       // [R][HP] h2, later g_h2
-  float* W2s = h2s + R * HP;       // [H][HP] (in, out)
-  float* b1s = W2s + H * HP;
+  float* W2s = sm;                  // [out][WS] (in)
+  float* h1s = W2s + H * WS;        // [row][WS] (in)  h1, later g_h1
+  float* g2s = h1s + R * WS;        // [row][out] swizzled, g_h2
+  float* b1s = g2s + TILE;
   float* b2s = b1s + H;
-  float* whs = b2s + H;            // [O][H] head weight
+  float* whs = b2s + H;             // [O][H] head weight
   float* bhs = whs + AMAX * H;
-  float* gs = bhs + AMAX;          // [R][AMAX] per-row head gradient
-  float* rowv = gs + R * AMAX;     // [R][AMAX] per-row d logp / d log-sigma
-  float* colp = rowv + R * AMAX;   // [2][H] column partial sums
-  float* pW1 = colp + 2 * H;       // [H][D] gradient partials from here on
-  float* pb1 = pW1 + H * D;
-  float* pb2 = pb1 + H;
-  float* pWh = pb2 + H;            // [O][H]
-  float* pbh = pWh + AMAX * H;
-  float* pls = pbh + AMAX;
-  float* red = pls + AMAX;         // [NT]
+  float* ring = bhs + AMAX;         // [2][slot]: obs, act, logp_old, adv/ret
+  const int slot = slot_floats(D, A, K);
+  float* cst = ring + 2 * slot;     // [NCST] the loss's constants
+  float* wsum = cst + NCST;         // [NW][NSUM] the warps' row sums
+  float* nrm = wsum + NW * NSUM;    // [2][NW] largest squared row norms of
+                                    // W1 and W2 over each warp's rows
 
-  const float* gW1 = params + L.global_off(tower, 0);
-  const float* gb1 = params + L.global_off(tower, 1);
-  const float* gW2 = params + L.global_off(tower, 2);
-  const float* gb2 = params + L.global_off(tower, 3);
-  const float* gWh = params + L.global_off(tower, 4);
-  const float* gbh = params + L.global_off(tower, 5);
-  const float* gls = params + L.global_off(0, 6);
+  const float* gW1 = p.params + L.global_off(tower, 0);
+  const float* gb1 = p.params + L.global_off(tower, 1);
+  const float* gW2 = p.params + L.global_off(tower, 2);
+  const float* gb2 = p.params + L.global_off(tower, 3);
+  const float* gWh = p.params + L.global_off(tower, 4);
+  const float* gbh = p.params + L.global_off(tower, 5);
+  const float* gls = p.params + L.global_off(0, 6);
 
-  for (int i = tid; i < H * D; i += NT) {
-    const int j = i / D, d = i % D;
-    W1s[d * H + j] = gW1[i];
-    pW1[i] = 0.f;
-  }
-  for (int i = tid; i < H * H; i += NT) {
-    const int j = i / H, k = i % H;
-    W2s[k * HP + j] = gW2[i];
-  }
+  // The chunk's rows, one chunk ahead.
+  const int n_chunks = (B + R - 1) / R;
+  auto fetch = [&](int c, int s) {
+    float* dst = ring + s * slot;
+    const size_t r0 = (size_t)c * R;
+    const int nr = min(R, B - (int)r0);
+    const bool vec = p.aligned16;
+    cp::rows(dst, p.obs + r0 * D, nr * D, R * D, vec);
+    if (actor) {
+      cp::rows(dst + R * D, p.act + r0 * A, nr * A, R * A, vec);
+      cp::rows(dst + R * (D + A), p.logp_old + r0, nr, R, vec);
+    }
+    cp::rows(dst + R * (D + A + 1), (actor ? p.adv : p.ret) + r0 * K, nr * K,
+             R * K, vec);
+    cp::commit();
+  };
+  fetch(g, 0);
+
+  // Weights, once.
+  for (int i = tid; i < H * H; i += NT)
+    W2s[(i >> 7) * WS + (i & (H - 1))] = gW2[i];
   for (int i = tid; i < H; i += NT) {
     b1s[i] = gb1[i];
     b2s[i] = gb2[i];
-    pb1[i] = 0.f;
-    pb2[i] = 0.f;
   }
-  for (int i = tid; i < O * H; i += NT) {
-    whs[i] = gWh[i];
-    pWh[i] = 0.f;
-  }
-  if (tid < O) {
-    bhs[tid] = gbh[tid];
-    pbh[tid] = 0.f;
-  }
-  if (tid < AMAX) pls[tid] = 0.f;
-
-  float sig[AMAX], lsig_sum = 0.f, lamv[MMAX];
+  for (int i = tid; i < O * H; i += NT) whs[i] = gWh[i];
+  if (tid < O) bhs[tid] = gbh[tid];
+  {
+    float m1 = 0.f, m2 = 0.f;
+    for (int j = warp; j < H; j += NW) {
+      float s1 = lane < D ? gW1[j * D + lane] : 0.f, s2 = 0.f;
+      s1 *= s1;
+      for (int k = lane; k < H; k += 32) s2 = fmaf(gW2[j * H + k],
+                                                   gW2[j * H + k], s2);
 #pragma unroll
-  for (int a = 0; a < AMAX; ++a) {
-    const float ls = (actor && a < A) ? gls[a] : 0.f;
-    sig[a] = expf(ls);
-    lsig_sum += ls;
-  }
-#pragma unroll
-  for (int m = 0; m < MMAX; ++m) lamv[m] = m < M ? p.lam[m] : 0.f;
-  const float resc = *p.resc;
-
-  float dW2[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dW2[i][j] = 0.f;
-  float a_kl = 0.f, a_mins = 0.f, a_vf = 0.f, a_c[MMAX];
-  for (int m = 0; m < MMAX; ++m) a_c[m] = 0.f;
-
-  const int n_chunks = (B + R - 1) / R;
-  __syncthreads();
-  for (int c = g; c < n_chunks; c += G) {
-    const int r0 = c * R;
-    const int nr = min(R, B - r0);
-
-    for (int i = tid; i < R * D; i += NT)
-      xs[i] = (i / D) < nr ? obs[(size_t)r0 * D + i] : 0.f;
-    __syncthreads();
-
-    // h1 = relu(x W1 + b1)
-    for (int i = tid; i < R * H; i += NT) {
-      const int r = i / H, j = i % H;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s += xs[r * D + d] * W1s[d * H + j];
-      h1s[r * HP + j] = fmaxf(s + b1s[j], 0.f);
-    }
-    __syncthreads();
-
-    // h2 = relu(h1 W2 + b2)
-    {
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int k = 0; k < H; ++k) {
-        float a[8], b[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = h1s[(ty + 16 * i) * HP + k];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = W2s[k * HP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
+      for (int o = 16; o > 0; o >>= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, o);
       }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = tx + 16 * j;
-          h2s[(ty + 16 * i) * HP + col] = fmaxf(acc[i][j] + b2s[col], 0.f);
-        }
+      m1 = fmaxf(m1, s1);
+      m2 = fmaxf(m2, s2);
     }
-    __syncthreads();
-
-    // per-row head, loss terms and the gradient at the head's output
-    if (tid < R) {
-      const int r = tid;
-      const size_t row = (size_t)r0 + r;
-      const bool live = r < nr;
-      if (actor) {
-        if (live) {
-          float s[AMAX];
-#pragma unroll
-          for (int a = 0; a < AMAX; ++a) {
-            s[a] = 0.f;
-            if (a < A) {
-              for (int j = 0; j < H; ++j)
-                s[a] += h2s[r * HP + j] * whs[a * H + j];
-              s[a] += bhs[a];
-            }
-          }
-          const ActorRow o =
-              actor_row(s, p.act + row * A, p.logp_old[row], adv + row * K,
-                        sig, lsig_sum, lamv, resc, p);
-#pragma unroll
-          for (int a = 0; a < AMAX; ++a)
-            if (a < A) {
-              gs[r * AMAX + a] = o.g_mu[a];
-              rowv[r * AMAX + a] = o.g_ls[a];
-            }
-#pragma unroll
-          for (int m = 0; m < MMAX; ++m)
-            if (m < M) a_c[m] += o.ratio * adv[row * K + 1 + m];
-          a_kl += o.kl;
-          a_mins += o.mins;
-        } else {
-          for (int a = 0; a < A; ++a) {
-            gs[r * AMAX + a] = 0.f;
-            rowv[r * AMAX + a] = 0.f;
-          }
-        }
-      } else {
-        if (live) {
-          float s = 0.f;
-          for (int j = 0; j < H; ++j) s += h2s[r * HP + j] * whs[j];
-          const float diff = (s + bhs[0]) - ret[row * K + (tower - 1)];
-          a_vf += diff * diff;
-          gs[r * AMAX] = p.gv_scale * diff;
-        } else {
-          gs[r * AMAX] = 0.f;
-        }
-      }
+    if (lane == 0) {
+      nrm[warp] = m1;
+      nrm[NW + warp] = m2;
     }
-    __syncthreads();
-
-    // head weight / bias / log-sigma gradients
-    for (int o = tid; o < O * H; o += NT) {
-      const int a = o / H, j = o % H;
-      float s = 0.f;
-      for (int r = 0; r < nr; ++r) s += h2s[r * HP + j] * gs[r * AMAX + a];
-      pWh[o] += s;
-    }
-    if (tid < O) {
-      float s = 0.f;
-      for (int r = 0; r < nr; ++r) s += gs[r * AMAX + tid];
-      pbh[tid] += s;
-    }
-    if (actor && tid >= H && tid - H < A) {
-      const int a = tid - H;
-      float s = 0.f;
-      for (int r = 0; r < nr; ++r) s += rowv[r * AMAX + a];
-      pls[a] += s;
-    }
-    __syncthreads();
-
-    // g_h2 = (g_head Wh) * (h2 > 0), in place of h2; column sums for b2
-    {
-      const int j = tid & (H - 1), half = tid >> 7;
-      float cs = 0.f;
-      for (int r = half; r < R; r += 2) {
-        float s;
-        if (actor) {
-          s = 0.f;
-          for (int a = 0; a < A; ++a) s += gs[r * AMAX + a] * whs[a * H + j];
-        } else {
-          s = gs[r * AMAX] * whs[j];
-        }
-        const float gv = h2s[r * HP + j] > 0.f ? s : 0.f;
-        cs += gv;
-        h2s[r * HP + j] = gv;
-      }
-      colp[half * H + j] = cs;
-    }
-    __syncthreads();
-    if (tid < H) pb2[tid] += colp[tid] + colp[H + tid];
-
-    // dW2 += h1^T g_h2  (registers, [in k = ty+16i][out j = tx+16j])
-    for (int r = 0; r < nr; ++r) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = h1s[r * HP + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = h2s[r * HP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) dW2[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-
-    // g_h1 = (g_h2 W2^T) * (h1 > 0), in place of h1
-    {
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int jj = 0; jj < H; ++jj) {
-        float a[8], b[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = h2s[(ty + 16 * i) * HP + jj];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = W2s[(tx + 16 * j) * HP + jj];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int idx = (ty + 16 * i) * HP + tx + 16 * j;
-          h1s[idx] = h1s[idx] > 0.f ? acc[i][j] : 0.f;
-        }
-    }
-    __syncthreads();
-
-    // b1 column sums and dW1 += g_h1^T x  (torch layout [out j][in d])
-    {
-      const int j = tid & (H - 1), half = tid >> 7;
-      float cs = 0.f;
-      for (int r = half; r < R; r += 2) cs += h1s[r * HP + j];
-      colp[half * H + j] = cs;
-    }
-    for (int o = tid; o < H * D; o += NT) {
-      const int j = o / D, d = o % D;
-      float s = 0.f;
-      for (int r = 0; r < nr; ++r) s += h1s[r * HP + j] * xs[r * D + d];
-      pW1[o] += s;
-    }
-    __syncthreads();
-    if (tid < H) pb1[tid] += colp[tid] + colp[H + tid];
   }
-  __syncthreads();
 
-  // one partial per block: [G][1+K][Pmax] gradients, [G][1+K][AUXW] aux
+  // the loss's constants and the row sums live in shared memory, out of
+  // the registers that the products need
+  const float(&sig)[AMAX] = *reinterpret_cast<const float(*)[AMAX]>(cst);
+  const float(&lamv)[MMAX] =
+      *reinterpret_cast<const float(*)[MMAX]>(cst + AMAX);
+  if (tid == 0) {
+    float lsig_sum = 0.f;
+    for (int a = 0; a < AMAX; ++a) {
+      const float ls = (actor && a < A) ? gls[a] : 0.f;
+      cst[a] = expf(ls);
+      lsig_sum += ls;
+    }
+    for (int m = 0; m < MMAX; ++m) cst[AMAX + m] = m < M ? p.lam[m] : 0.f;
+    cst[AMAX + MMAX] = lsig_sum;
+    cst[AMAX + MMAX + 1] = *p.resc;
+  }
+  for (int i = tid; i < NW * NSUM; i += NT) wsum[i] = 0.f;
+
+  // the block's partial: [1+K][tower_size(0)] gradients in tower-local order
   const int T = K + 1;
   const int Pmax = L.tower_size(0);
   float* out = p.part + ((size_t)g * T + tower) * Pmax;
-  for (int i = tid; i < H * D; i += NT) out[L.local_off(tower, 0) + i] = pW1[i];
-  for (int i = tid; i < H; i += NT) {
-    out[L.local_off(tower, 1) + i] = pb1[i];
-    out[L.local_off(tower, 3) + i] = pb2[i];
-  }
-  {
-    float* oW2 = out + L.local_off(tower, 2);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        oW2[(tx + 16 * j) * H + ty + 16 * i] = dW2[i][j];
-  }
-  for (int i = tid; i < O * H; i += NT) out[L.local_off(tower, 4) + i] = pWh[i];
-  if (tid < O) out[L.local_off(tower, 5) + tid] = pbh[tid];
-  if (actor && tid < A) out[L.local_off(0, 6) + tid] = pls[tid];
+  float2* oW2 = reinterpret_cast<float2*>(out + L.local_off(tower, 2));
 
-  float* oaux = p.part_aux + ((size_t)g * T + tower) * AUXW;
-  if (actor) {
-    float v = block_sum(a_kl, red);
-    if (tid == 0) oaux[0] = v;
-    v = block_sum(a_mins, red);
-    if (tid == 0) oaux[1] = v;
+  // dW1 holds db1 in its column D (P4's column of ones), db2 the bias
+  // gradient of the warp's outputs row_lo, row_lo + 8 (P2's tile of ones)
+  float dW1[8], db2[2] = {0.f, 0.f}, acc[64];
 #pragma unroll
-    for (int m = 0; m < MMAX; ++m)
-      if (m < M) {
-        v = block_sum(a_c[m], red);
-        if (tid == 0) oaux[2 + m] = v;
+  for (int i = 0; i < 8; ++i) dW1[i] = 0.f;
+  // the lane's head-weight column sums (columns column_of<32>(lane, i))
+  float cs_wh[AMAX][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int a = 0; a < AMAX; ++a) cs_wh[a][i] = 0.f;
+
+  int it = 0;
+  for (int c = g; c < n_chunks; c += G, ++it) {
+    const int nr = min(R, B - c * R);
+    const float* rows = ring + (it & 1) * slot;
+    const float* xs = rows;           // [R][D]
+    cp::wait<0>();
+    // the chunk's rows have landed, and every warp has left the last chunk
+    // (so the other slot and every tile are free)
+    __syncthreads();
+    if (c + G < n_chunks) fetch(c + G, (it + 1) & 1);
+
+    // P0: h1 = relu(x W1^T + b1) on the warp's rows, into its tile; the
+    // h1 > 0 mask stays in registers (bit 4 jb + 2 h + e)
+    // (W1 is read from global memory, where it stays in L1)
+    zero(acc);
+    for (int kk = 0; kk < nd; ++kk) {
+      const int d = 8 * kk + 2 * q;
+      const float* x0 = xs + row_lo * D;
+      const float* x1 = xs + (row_lo + 8) * D;
+      const tf32::FragA a = tf32::frag_a(
+          d < D ? x0[d] : 0.f, d < D ? x1[d] : 0.f,
+          d + 1 < D ? x0[d + 1] : 0.f, d + 1 < D ? x1[d + 1] : 0.f);
+#pragma unroll
+      for (int jb = 0; jb < 16; ++jb) {
+        const float* w = gW1 + (8 * jb + lr) * D;
+        tf32::mma3(acc + 4 * jb, a,
+                   tf32::frag_b(d < D ? __ldg(w + d) : 0.f,
+                                d + 1 < D ? __ldg(w + d + 1) : 0.f));
       }
-  } else {
-    const float v = block_sum(a_vf, red);
-    if (tid == 0) oaux[0] = v;
+    }
+    // Fragment element i = 4 jb + 2 h + e is row row_lo + 8 h, unit
+    // 8 jb + 2 q + e. Those within the bound of 0 (bit i of near) are taken
+    // again in float64.
+    uint32_t mask[2] = {0u, 0u};
+    float tau2[2];   // the bound for the rows' second-layer pre-activations
+    {
+      float2 ld[16];
+      load_cols(ld, b1s, q);
+      const float s1 = kink_scale(nrm);
+      float tau[2], hsq[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* x = xs + (row_lo + 8 * h) * D;
+        float n = 0.f;
+        for (int d = 0; d < D; ++d) n = fmaf(x[d], x[d], n);
+        tau[h] = s1 * sqrtf(n);
+      }
+      uint64_t near = 0;
+#pragma unroll
+      for (int jb = 0; jb < 16; ++jb) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float z0 = acc[4 * jb + 2 * h] + ld[jb].x;
+          const float z1 = acc[4 * jb + 2 * h + 1] + ld[jb].y;
+          const int i = 4 * jb + 2 * h;
+          near |= (uint64_t)(fabsf(z0) < tau[h]) << i;
+          near |= (uint64_t)(fabsf(z1) < tau[h]) << (i + 1);
+          const float v0 = fmaxf(z0, 0.f), v1 = fmaxf(z1, 0.f);
+          mask[jb >> 3] |= (v0 > 0.f ? 1u : 0u) << (i & 31);
+          mask[jb >> 3] |= (v1 > 0.f ? 1u : 0u) << ((i + 1) & 31);
+          hsq[h] = fmaf(v0, v0, fmaf(v1, v1, hsq[h]));
+          *reinterpret_cast<float2*>(h1s + (row_lo + 8 * h) * WS + 8 * jb +
+                                     2 * q) = make_float2(v0, v1);
+        }
+      }
+      while (near) {
+        const int i = __ffsll((long long)near) - 1;
+        near &= near - 1;
+        const int r = row_lo + 8 * ((i >> 1) & 1);
+        const int j = 8 * (i >> 2) + 2 * q + (i & 1);
+        const float v =
+            fmaxf((float)z1_exact(xs + r * D, gW1 + j * D, b1s[j], D), 0.f);
+        h1s[r * WS + j] = v;
+        const uint32_t bit = 1u << (i & 31), on = v > 0.f ? bit : 0u;
+        if (i >> 5)
+          mask[1] = (mask[1] & ~bit) | on;
+        else
+          mask[0] = (mask[0] & ~bit) | on;
+      }
+      const float s2 = kink_scale(nrm + NW);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        hsq[h] += __shfl_xor_sync(0xffffffffu, hsq[h], 1);
+        hsq[h] += __shfl_xor_sync(0xffffffffu, hsq[h], 2);
+        tau2[h] = s2 * sqrtf(hsq[h]);
+      }
+    }
+    __syncwarp();   // P1 reads the warp's own rows of h1
+
+    // P1: h2 = relu(h1 W2^T + b2), kept in registers
+    zero(acc);
+#pragma unroll 1
+    for (int ks = 0; ks < H / 8; ++ks) {
+      const int k = 8 * ks + 2 * q;
+      const float2 u0 =
+          *reinterpret_cast<const float2*>(h1s + row_lo * WS + k);
+      const float2 u1 =
+          *reinterpret_cast<const float2*>(h1s + (row_lo + 8) * WS + k);
+      const tf32::FragA a = tf32::frag_a(u0.x, u1.x, u0.y, u1.y);
+#pragma unroll
+      for (int jb = 0; jb < 16; ++jb) {
+        const float2 w =
+            *reinterpret_cast<const float2*>(W2s + (8 * jb + lr) * WS + k);
+        tf32::mma3(acc + 4 * jb, a, tf32::frag_b(w.x, w.y));
+      }
+    }
+    {
+      float2 ld[16];
+      load_cols(ld, b2s, q);
+      uint64_t near = 0;
+#pragma unroll
+      for (int jb = 0; jb < 16; ++jb)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float z0 = acc[4 * jb + 2 * h] + ld[jb].x;
+          const float z1 = acc[4 * jb + 2 * h + 1] + ld[jb].y;
+          const int i = 4 * jb + 2 * h;
+          near |= (uint64_t)(fabsf(z0) < tau2[h]) << i;
+          near |= (uint64_t)(fabsf(z1) < tau2[h]) << (i + 1);
+          acc[i] = fmaxf(z0, 0.f);
+          acc[i + 1] = fmaxf(z1, 0.f);
+        }
+      // one at a time by the whole warp, the lowest lane's first
+      for (;;) {
+        const unsigned who = __ballot_sync(0xffffffffu, near != 0);
+        if (!who) break;
+        const int src = __ffs(who) - 1;
+        int i = 0;
+        if (lane == src) {
+          i = __ffsll((long long)near) - 1;
+          near &= near - 1;
+        }
+        i = __shfl_sync(0xffffffffu, i, src);
+        const int r = m0 + (src >> 2) + 8 * ((i >> 1) & 1);
+        const int j = 8 * (i >> 2) + 2 * (src & 3) + (i & 1);
+        const float v = fmaxf(
+            z2_exact(xs + r * D, gW1, b1s, W2s + j * WS, b2s[j], D, lane),
+            0.f);
+        if (lane == src) {
+#pragma unroll
+          for (int t = 0; t < 64; ++t)
+            if (t == i) acc[t] = v;
+        }
+      }
+    }
+
+    // heads: a partial dot product per lane, summed over the quad
+    float hd[2][AMAX];
+#pragma unroll
+    for (int a = 0; a < AMAX; ++a) {
+      hd[0][a] = hd[1][a] = 0.f;
+      if (a < O) {
+        float2 ld[16];
+        load_cols(ld, whs + a * H, q);
+#pragma unroll
+        for (int jb = 0; jb < 16; ++jb) {
+          hd[0][a] += acc[4 * jb] * ld[jb].x + acc[4 * jb + 1] * ld[jb].y;
+          hd[1][a] += acc[4 * jb + 2] * ld[jb].x + acc[4 * jb + 3] * ld[jb].y;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          hd[h][a] += __shfl_xor_sync(0xffffffffu, hd[h][a], 1);
+          hd[h][a] += __shfl_xor_sync(0xffffffffu, hd[h][a], 2);
+          hd[h][a] += bhs[a];
+        }
+      }
+    }
+
+    // the row's loss and the gradient at the head's output. Every lane of
+    // a quad holds both rows' head outputs; lanes 0 and 1 of the quad take
+    // row_lo and row_lo + 8 (lanes 2 and 3 repeat them, unused).
+    float gh[2][AMAX];
+    {
+      const int h = q & 1, r = row_lo + 8 * h;
+      const bool live = r < nr, mine = live && q < 2;
+      float hr[AMAX], g_out[AMAX];
+#pragma unroll
+      for (int a = 0; a < AMAX; ++a) {
+        hr[a] = h ? hd[1][a] : hd[0][a];
+        g_out[a] = 0.f;
+      }
+      const float* tail = rows + R * (D + A + 1) + r * K;   // adv / ret
+      // the row's terms of the block's sums: head bias and log-sigma
+      // gradients, kl, min surrogate, diff^2, ratio * cadv
+      float vals[NSUM];
+#pragma unroll
+      for (int k = 0; k < NSUM; ++k) vals[k] = 0.f;
+      if (actor) {
+        // a dead row is zero-filled, so its loss is finite; it is masked
+        const ActorRow o = actor_row(
+            hr, rows + R * D + r * A, rows[R * (D + A) + r], tail, sig,
+            cst[AMAX + MMAX], lamv, cst[AMAX + MMAX + 1], p);
+#pragma unroll
+        for (int a = 0; a < AMAX; ++a) g_out[a] = live ? o.g_mu[a] : 0.f;
+        if (mine) {
+#pragma unroll
+          for (int a = 0; a < AMAX; ++a) {
+            vals[a] = o.g_mu[a];
+            vals[AMAX + a] = o.g_ls[a];
+          }
+          vals[2 * AMAX] = o.kl;
+          vals[2 * AMAX + 1] = o.mins;
+#pragma unroll
+          for (int m = 0; m < MMAX; ++m)
+            if (m < M) vals[2 * AMAX + 3 + m] = o.ratio * tail[1 + m];
+        }
+      } else {
+        const float diff = hr[0] - tail[tower - 1];
+        const float gv = p.gv_scale * diff;
+        g_out[0] = live ? gv : 0.f;
+        if (mine) {
+          vals[0] = gv;
+          vals[2 * AMAX + 2] = diff * diff;
+        }
+      }
+      // summed over the warp's rows by a fixed shuffle tree and added to
+      // the warp's sums (the sums this tower has, a warp-uniform choice)
+#pragma unroll
+      for (int k = 0; k < NSUM; ++k) {
+        const bool used =
+            actor ? (k < A || (k >= AMAX && k < AMAX + A) || k == 2 * AMAX ||
+                     k == 2 * AMAX + 1 ||
+                     (k >= 2 * AMAX + 3 && k < 2 * AMAX + 3 + M))
+                  : (k == 0 || k == 2 * AMAX + 2);
+        if (used) {
+          float v = vals[k];
+#pragma unroll
+          for (int s = 16; s > 0; s >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, s);
+          if (lane == 0) wsum[warp * NSUM + k] += v;
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < AMAX; ++a) {
+        gh[0][a] = gh[1][a] = 0.f;
+        if (a < O) {
+          gh[0][a] = __shfl_sync(0xffffffffu, g_out[a], lane & ~3);
+          gh[1][a] = __shfl_sync(0xffffffffu, g_out[a], (lane & ~3) + 1);
+        }
+      }
+    }
+
+    // head weight gradient: column sums of gh[row][a] * h2[row][col]
+    float v[32];
+#pragma unroll
+    for (int a = 0; a < AMAX; ++a)
+      if (a < O) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          v[i] = gh[0][a] * acc[4 * (i >> 1) + (i & 1)] +
+                 gh[1][a] * acc[4 * (i >> 1) + 2 + (i & 1)];
+        column_sums(v, lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cs_wh[a][i] += v[i];
+      }
+
+    // g_h2 = (gh Wh) * (h2 > 0) in place of h2, into its tile
+#pragma unroll
+    for (int j0 = 0; j0 < 16; j0 += 8) {   // 8 column groups at a time
+      float s[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+      for (int a = 0; a < AMAX; ++a)
+        if (a < O) {
+          float2 w[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            w[i] = *reinterpret_cast<const float2*>(whs + a * H +
+                                                    8 * (j0 + i) + 2 * q);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            s[i][0] += gh[0][a] * w[i].x;
+            s[i][1] += gh[0][a] * w[i].y;
+            s[i][2] += gh[1][a] * w[i].x;
+            s[i][3] += gh[1][a] * w[i].y;
+          }
+        }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int jb = j0 + i;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float g0 = acc[4 * jb + 2 * h] > 0.f ? s[i][2 * h] : 0.f;
+          const float g1 =
+              acc[4 * jb + 2 * h + 1] > 0.f ? s[i][2 * h + 1] : 0.f;
+          acc[4 * jb + 2 * h] = g0;
+          acc[4 * jb + 2 * h + 1] = g1;
+          *reinterpret_cast<float2*>(
+              g2s + sw(row_lo + 8 * h, 8 * jb + 2 * q)) = make_float2(g0, g1);
+        }
+      }
+    }
+    __syncthreads();   // P2 reads every row of g_h2 and h1
+
+    // P2: dW2 += g_h2^T h1 on the warp's 16 outputs, and db2 += g_h2^T 1
+    // in a 17th tile whose B is ones (exact in TF32: its low part is 0).
+    // The chunk's product is added to dW2 with round-to-nearest adds. dW2
+    // is summed in the block's partial (L2-resident), not in 64 registers
+    // that would sit idle through the other products: each thread alone
+    // reads and writes its entries there, the first chunk storing and later
+    // ones adding
+    {
+      zero(acc);
+      float ones[4] = {0.f, 0.f, 0.f, 0.f};
+      const uint32_t one = 0x3f800000u;   // 1.0f
+#pragma unroll 1
+      for (int ks = 0; ks < R / 8; ++ks) {
+        const int r = 8 * ks + q;
+        const tf32::FragA a = tf32::frag_a(
+            g2s[sw(r, row_lo)], g2s[sw(r, row_lo + 8)],
+            g2s[sw(r + 4, row_lo)], g2s[sw(r + 4, row_lo + 8)]);
+        const float* b = h1s + r * WS + lr;
+#pragma unroll
+        for (int jb = 0; jb < 16; ++jb)
+          tf32::mma3(acc + 4 * jb, a,
+                     tf32::frag_b(b[8 * jb], b[4 * WS + 8 * jb]));
+        float t[4];
+        tf32::mma0(t, a.lo, one, one);
+        tf32::mma(t, a.hi, one, one);
+        tf32::add4(ones, t);
+      }
+      // fragment element 4 jb + 2 h (+ 1): output row_lo + 8 h, input
+      // 8 jb + 2 q (+ 1)
+      float2* dw = oW2 + ((row_lo * H) >> 1) + q;
+      if (it > 0) {
+        float2 old[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          old[i] = dw[(i & 1) * 4 * H + 4 * (i >> 1)];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          acc[2 * i] += old[i].x;
+          acc[2 * i + 1] += old[i].y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        dw[(i & 1) * 4 * H + 4 * (i >> 1)] =
+            make_float2(acc[2 * i], acc[2 * i + 1]);
+      db2[0] += ones[0];
+      db2[1] += ones[2];
+    }
+
+    // P3: g_h1 = g_h2 W2 on the warp's rows (masked below)
+    zero(acc);
+#pragma unroll 1
+    for (int ks = 0; ks < H / 8; ++ks) {
+      const int k = 8 * ks + q;
+      const tf32::FragA a = tf32::frag_a(
+          g2s[sw(row_lo, k)], g2s[sw(row_lo + 8, k)], g2s[sw(row_lo, k + 4)],
+          g2s[sw(row_lo + 8, k + 4)]);
+      const float* b = W2s + k * WS + lr;
+#pragma unroll
+      for (int jb = 0; jb < 16; ++jb)
+        tf32::mma3(acc + 4 * jb, a,
+                   tf32::frag_b(b[8 * jb], b[4 * WS + 8 * jb]));
+    }
+
+    __syncthreads();   // every warp has read h1: g_h1 takes its place
+
+    // g_h1 = (g_h2 W2) * (h1 > 0) into the h1 tile
+#pragma unroll
+    for (int jb = 0; jb < 16; ++jb) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int bit = (4 * jb + 2 * h) & 31;
+        const uint32_t m = mask[jb >> 3] >> bit;
+        const float g0 = (m & 1u) ? acc[4 * jb + 2 * h] : 0.f;
+        const float g1 = (m & 2u) ? acc[4 * jb + 2 * h + 1] : 0.f;
+        *reinterpret_cast<float2*>(h1s + (row_lo + 8 * h) * WS + 8 * jb +
+                                   2 * q) = make_float2(g0, g1);
+      }
+    }
+    __syncthreads();   // P4 reads every row of g_h1
+
+    // P4: dW1 += g_h1^T [x 1] on the warp's 16 outputs, as dW2; column D
+    // (ones) gives db1
+    float d1[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d1[i] = 0.f;
+#pragma unroll 1
+    for (int ks = 0; ks < R / 8; ++ks) {
+      const int r = 8 * ks + q;
+      const float* g1 = h1s + r * WS + row_lo;
+      const tf32::FragA a =
+          tf32::frag_a(g1[0], g1[8], g1[4 * WS], g1[4 * WS + 8]);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        if (nt < n4) {
+          const int d = 8 * nt + lr;
+          const float one = d == D ? 1.f : 0.f;
+          tf32::mma3(d1 + 4 * nt, a,
+                     tf32::frag_b(d < D ? xs[r * D + d] : one,
+                                  d < D ? xs[(r + 4) * D + d] : one));
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dW1[i] += d1[i];
+  }
+  __syncthreads();   // the tiles are free from here on
+
+  // the rest of the block's partial
+  {
+    float* oW1 = out + L.local_off(tower, 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = row_lo + 8 * h;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = 8 * nt + 2 * q + e;
+          if (d < D) oW1[j * D + d] = dW1[4 * nt + 2 * h + e];
+          if (d == D) out[L.local_off(tower, 1) + j] = dW1[4 * nt + 2 * h + e];
+        }
+      if (q == 0) out[L.local_off(tower, 3) + j] = db2[h];
+    }
+  }
+  // the lanes' head-weight column sums, per warp, summed over the warps in
+  // order
+  float* pcol = sm;                      // [NW][AMAX][H]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int a = 0; a < AMAX; ++a)
+      pcol[(warp * AMAX + a) * H + column_of<32>(lane, i)] = cs_wh[a][i];
+  __syncthreads();
+  for (int i = tid; i < O * H; i += NT) {
+    float s = 0.f;
+    for (int w = 0; w < NW; ++w) s += pcol[w * AMAX * H + i];
+    out[L.local_off(tower, 4) + i] = s;
+  }
+  // the row sums, over the warps in order
+  if (tid < NSUM) {
+    float s = 0.f;
+    for (int w = 0; w < NW; ++w) s += wsum[w * NSUM + tid];
+    float* oaux = p.part_aux + ((size_t)g * T + tower) * AUXW;
+    const int k = tid;
+    if (k < AMAX) {
+      if (k < O) out[L.local_off(tower, 5) + k] = s;
+    } else if (k < 2 * AMAX) {
+      if (actor && k - AMAX < A) out[L.local_off(0, 6) + k - AMAX] = s;
+    } else if (k < 2 * AMAX + 2) {
+      if (actor) oaux[k - 2 * AMAX] = s;
+    } else if (k == 2 * AMAX + 2) {
+      if (!actor) oaux[0] = s;
+    } else if (actor && k - (2 * AMAX + 3) < M) {
+      oaux[2 + k - (2 * AMAX + 3)] = s;
+    }
   }
 }
 
 }  // namespace
 
 cudaError_t launch_f32(const Args& a, int G, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(a.D);
+  const size_t smem = smem_bytes(a.D, a.A, a.K);
   cudaFuncSetAttribute(ppo_grad_f32_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   ppo_grad_f32_kernel<<<dim3(G, a.K + 1), NT, smem, stream>>>(a);

@@ -1,7 +1,8 @@
-// Shared by the two fused PPO-Lagrangian gradient kernels (bf16 on the
-// tensor cores in fused_ppo_grad.cu, f32 on the FMA pipes in
+// Shared by the two fused PPO-Lagrangian gradient kernels (bf16 with wgmma
+// in fused_ppo_grad.cu, f32 as three TF32 products with mma.sync in
 // fused_ppo_grad_f32.cu): the envelope, the flat parameter layout, the
-// arguments and the per-row loss.
+// arguments, the per-row loss, the row copies and the helpers that work on
+// accumulator fragments.
 
 #pragma once
 
@@ -116,6 +117,89 @@ __device__ __forceinline__ ActorRow actor_row(
   o.mins = fminf(s1, s2);
   o.ratio = ratio;
   return o;
+}
+
+// Asynchronous copies of a chunk's rows into shared memory.
+namespace cp {
+
+// n_total floats from global to shared memory by the block's NT threads. A
+// whole chunk from a 16-byte aligned source goes 16 bytes a copy; else 4
+// bytes a copy, and the floats from n_valid on are zero-filled (source size
+// 0 reads nothing).
+__device__ __forceinline__ void rows(float* dst, const float* src,
+                                     int n_valid, int n_total, bool vec) {
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(dst);
+  if (vec && n_valid == n_total) {
+    for (int i = 4 * threadIdx.x; i < n_total; i += 4 * NT)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       base + 4 * i),
+                   "l"(src + i)
+                   : "memory");
+    return;
+  }
+  for (int i = threadIdx.x; i < n_total; i += NT) {
+    const bool ok = i < n_valid;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     base + 4 * i),
+                 "l"(src + (ok ? i : 0)), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace cp
+
+// Both kernels give a warp 16 rows of a 128-column product. Its
+// accumulator fragment (wgmma's m64 slab, or 16 mma.sync m16n8 tiles side
+// by side) holds in lane l rows l / 4 and l / 4 + 8 at the columns
+// 8 jb + 2 (l % 4) + e, as elements 4 jb + 2 h + e.
+
+// The 32 columns of a thread's fragment (8 * jb + 2 * q, + 1) of a row of
+// floats in shared memory, loaded together so that their latencies overlap.
+__device__ __forceinline__ void load_cols(float2 (&ld)[16], const float* row,
+                                          int q) {
+#pragma unroll
+  for (int jb = 0; jb < 16; ++jb)
+    ld[jb] = *reinterpret_cast<const float2*>(row + 8 * jb + 2 * q);
+}
+
+// One level of the sum over a warp's eight row lanes (lane bits 2..4): the
+// lanes of a pair split the N2 * 2 values, each keeps one half and adds the
+// partner's.
+template <int N2, int N>
+__device__ __forceinline__ void halve(float (&v)[N], int lane, int bit) {
+  const bool up = lane & bit;
+#pragma unroll
+  for (int i = 0; i < N2; ++i) {
+    const float send = up ? v[i] : v[i + N2];
+    const float keep = up ? v[i + N2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+  }
+}
+
+// Column sums of a fragment-shaped array over the warp's 16 rows: v[2 nt +
+// e] holds the sum of the lane's two rows at column 8 nt + 2 (lane % 4) + e
+// (N / 2 tiles of 8 columns). Afterwards v[i], i < N / 8, holds the warp's
+// sum of column column_of<N>(lane, i), and each column is one lane's.
+template <int N>
+__device__ __forceinline__ void column_sums(float (&v)[N], int lane) {
+  halve<N / 2>(v, lane, 16);
+  halve<N / 4>(v, lane, 8);
+  halve<N / 8>(v, lane, 4);
+}
+template <int N>
+__device__ __forceinline__ int column_of(int lane, int i) {
+  const int idx = N / 8 * (lane >> 2) + i;
+  return 8 * (idx >> 1) + 2 * (lane & 3) + (idx & 1);
 }
 
 // The f32 kernel's launcher (fused_ppo_grad_f32.cu).

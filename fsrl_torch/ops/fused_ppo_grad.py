@@ -3,8 +3,12 @@ gradient in one fused CUDA launch plus a fixed-order reduce launch. With
 ``bf16=True`` (the main path) the kernel is ``csrc/fused_ppo_grad.cu``: every
 product of a 128-row chunk runs on Hopper's tensor cores (``wgmma``) from
 bf16 tiles that the kernel writes into shared memory itself
-(:func:`tile_offset` mirrors their layout). With ``bf16=False`` it is the
-float32 FMA kernel ``csrc/fused_ppo_grad_f32.cu``.
+(:func:`tile_offset` mirrors their layout). With ``bf16=False`` it is
+``csrc/fused_ppo_grad_f32.cu``: the same products on the tensor cores with
+``mma.sync``, each float32 product taken as three TF32 products of the
+operands' high and low parts (:func:`tf32_split` mirrors the split), which
+keeps the gradient within a few 1e-6 of each tensor's largest entry of the
+plain float32 version.
 
 Replaces ``fsrl_tpu/ops/fused_ppo_grad.py::ppo_grad_minibatch``. The math is
 the Pallas kernel's (``fused_ppo_grad.py:68-165``):
@@ -100,6 +104,23 @@ def tile_offset(r: int, c: int, n_col_groups: int) -> int:
             + ((c & 7) << 1))
 
 
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 kernel's split of a float32 operand into two TF32 values
+    (``tf32::split`` in ``csrc/mma_tf32.cuh``): ``hi`` is ``x`` rounded to
+    10 fraction bits, to nearest with ties away from zero (as
+    ``cvt.rna.tf32.f32``; the kernel adds half an ulp to the bits), and
+    ``lo`` is ``x - hi`` (exact in float32) rounded the same way, so
+    ``x - hi - lo`` is at most ``2**-22 * |x|``. The
+    kernel takes a product ``a b`` as ``hi_a hi_b + hi_a lo_b + lo_a hi_b``
+    summed in float32. A mirror for the tests, used by nothing on the main
+    path."""
+    def rna(v):
+        bits = v.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 def _bf(x: torch.Tensor, bf16: bool) -> torch.Tensor:
     return x.to(torch.bfloat16).float() if bf16 else x
 
@@ -124,6 +145,53 @@ def policy_logp(flat, layout: GradLayout, obs, act, *, bf16: bool = False):
     """Log-prob of ``act`` as the plain version computes it (tests use it
     to make rows whose ratio is exactly 1)."""
     return _actor_forward(layout.views(flat), obs, act, layout.A, bf16)[-1]
+
+
+# The card checks of the f32 kernel draw their rows at least this far from
+# every ReLU kink (:func:`redraw_near_kinks`), in at most this many draws.
+KINK_MARGIN = 2e-5
+_KINK_DRAWS = 10
+
+
+def relu_margin(flat, layout: GradLayout, obs) -> torch.Tensor:
+    """Per row of ``obs``, the smallest ``|pre-activation|`` of any hidden
+    unit of any tower (actor and K critics), in float64. Where it is within
+    rounding of 0, two float32 computations of the gradient (the kernel and
+    the plain version, or either and exact arithmetic) can take different
+    sides of the ReLU, and the row's whole gradient through that unit
+    differs: at 32,768 rows a random draw is likely to hold such a row. For
+    the card checks (the tests and ``chip_smoke.py``), used by nothing on
+    the main path."""
+    p = layout.views(flat.double())
+    x = obs.double()
+    towers = [tuple(p[f"actor.trunk.layers.{i}.{n}"]
+                    for i in (0, 1) for n in ("weight", "bias"))]
+    towers += [(p["critics.w.0"][k], p["critics.b.0"][k], p["critics.w.1"][k],
+                p["critics.b.1"][k]) for k in range(layout.K)]
+    margin = torch.full((x.shape[0],), math.inf, dtype=torch.float64,
+                        device=x.device)
+    for W1, b1, W2, b2 in towers:
+        z1 = x @ W1.T + b1
+        z2 = torch.relu(z1) @ W2.T + b2
+        margin = torch.minimum(margin, torch.minimum(z1.abs().amin(1),
+                                                     z2.abs().amin(1)))
+    return margin
+
+
+def redraw_near_kinks(flat, layout: GradLayout, obs, draw):
+    """``obs`` with each row whose :func:`relu_margin` is below
+    :data:`KINK_MARGIN` replaced by a row of ``draw(n)`` (``n`` new rows),
+    until none is left. The pre-activations spread about 0.2 at the port's
+    init, so a few percent of rows are drawn again. For the card checks,
+    used by nothing on the main path."""
+    obs = obs.clone()
+    for _ in range(_KINK_DRAWS):
+        near = relu_margin(flat, layout, obs) < KINK_MARGIN
+        if not near.any():
+            return obs
+        obs[near] = draw(int(near.sum())).to(obs)
+    raise RuntimeError(f"rows still within {KINK_MARGIN} of a ReLU kink "
+                       f"after {_KINK_DRAWS} draws")
 
 
 def ppo_grad_plain(flat, layout: GradLayout, obs, act, logp_old, adv, ret,

@@ -32,7 +32,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("gae.cu", "fused_ppo_grad.cu", "fused_ppo_grad_f32.cu")
-HEADERS = ("wgmma.cuh", "ppo_grad_common.cuh")
+HEADERS = ("wgmma.cuh", "ppo_grad_common.cuh", "mma_tf32.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

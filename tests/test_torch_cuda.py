@@ -43,13 +43,14 @@ def test_gae_kernel_matches_plain(cuda):
 def test_fused_grad_kernel_matches_plain(cuda, bf16):
     from fsrl_torch.algos.common import normalize_adv
     from fsrl_torch.algos.ppo_lag import PPOLag
-    from fsrl_torch.ops.fused_ppo_grad import (policy_logp, ppo_grad_plain,
-                                               ppo_grad_rows)
+    from fsrl_torch.ops.fused_ppo_grad import policy_logp, ppo_grad_rows
     B, D, A, K = 1000, 9, 2, 2     # a ragged last chunk of rows
     algo = PPOLag(D, A, device=cuda)
     state = algo.init(seed=0)
     g = torch.Generator(device=cuda).manual_seed(1)
     obs = torch.randn(B, D, device=cuda, generator=g)
+    if not bf16:
+        obs = _off_kinks(state.flat, algo.grad_layout, obs, g)
     act = torch.randn(B, A, device=cuda, generator=g).clamp(-0.99, 0.99)
     logp = policy_logp(state.flat, algo.grad_layout, obs, act, bf16=bf16)
     logp_old = torch.where(torch.arange(B, device=cuda) % 2 == 0, logp,
@@ -62,20 +63,68 @@ def test_fused_grad_kernel_matches_plain(cuda, bf16):
     args = (state.flat, algo.grad_layout, obs, act, logp_old, adv, ret, lam,
             resc)
     gk, ak = ppo_grad_rows(*args, eps_clip=0.2, vf_coef=0.25, bf16=bf16)
-    gp, ap = ppo_grad_plain(*args, eps_clip=0.2, vf_coef=0.25, bf16=bf16)
-    # f32: summation order only; bf16: an operand may round to the
-    # neighbouring bf16 value when its f32 sum came out in another order
-    tol = 1e-2 if bf16 else 1e-4
-    for name, x in algo.grad_layout.views(gk).items():
-        ref = algo.grad_layout.views(gp)[name]
+    _assert_close_to_plain(args, gk, ak, bf16)
+
+
+def _off_kinks(flat, layout, obs, g):
+    """``obs`` with the rows near a ReLU kink drawn again: there two float32
+    computations may take different sides of the ReLU (``relu_margin``)."""
+    from fsrl_torch.ops.fused_ppo_grad import redraw_near_kinks
+    return redraw_near_kinks(flat, layout, obs, lambda n: torch.randn(
+        n, obs.shape[1], device=obs.device, generator=g))
+
+
+def _plain64(args, kw):
+    """The plain version in float64 on the same float32 inputs."""
+    from fsrl_torch.ops.fused_ppo_grad import ppo_grad_plain
+    return ppo_grad_plain(*(x.double() if torch.is_tensor(x) else x
+                            for x in args), **kw)
+
+
+def _assert_close_to_plain(args, gk, ak, bf16):
+    """The kernel's gradient ``gk`` and aux row ``ak`` against the plain
+    version on ``args``. f32 (three TF32 products for each product): 1e-5
+    of each gradient tensor's largest entry, as the plain version is held to
+    JAX's Pallas kernel on the CPU; one TF32 product (~5e-4) fails it. The
+    f32 aux entries are sums over the rows (sum(logp_old - logp),
+    sum(ratio * cadv)) that carry each row's float32 rounding, so at 32,768
+    rows the plain f32 version is itself over 1e-5 from the float64
+    evaluation and cannot be the yardstick at rtol 1e-5: each entry must be
+    no farther from the float64 evaluation than the plain f32 version,
+    within rtol 1e-5 plus 1e-8 a row (:func:`_assert_aux_no_farther`).
+    bf16: an operand may round
+    to the neighbouring bf16 value when its f32 sum came out in another
+    order, so 1e-2."""
+    from fsrl_torch.ops.fused_ppo_grad import ppo_grad_plain
+    kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=bf16)
+    gp, ap = ppo_grad_plain(*args, **kw)
+    layout = args[1]
+    tol = 1e-2 if bf16 else 1e-5
+    for name, x in layout.views(gk).items():
+        ref = layout.views(gp)[name]
         assert float((x - ref).abs().max()) <= tol * float(
             ref.abs().max()) + 1e-7, name
-    torch.testing.assert_close(ak, ap, rtol=tol, atol=1e-5)
+    if bf16:
+        torch.testing.assert_close(ak, ap, rtol=tol, atol=1e-5)
+    else:
+        _assert_aux_no_farther(ak, ap, _plain64(args, kw)[1], len(args[2]))
 
 
-def _grad_case(cuda, B, D, A, K, bf16, seed=1):
+def _assert_aux_no_farther(ak, ap, a64, B):
+    """Each f32 aux entry of the kernel no farther from the float64
+    evaluation than the plain f32 version's, plus rtol 1e-5 and 1e-8 for
+    each of the B rows. An entry is a sum over the rows that the update
+    divides by B, and each row's float32 rounding of its ratio (~1e-7) adds
+    up to ~sqrt(B) 1e-7 where the sum cancels: the atol is 1e-8 on the mean
+    that the update reads."""
+    bound = (ap.double() - a64).abs() + 1e-5 * a64.abs() + 1e-8 * B
+    assert ((ak.double() - a64).abs() <= bound).all(), (ak, ap, a64)
+
+
+def _grad_case(cuda, B, D, A, K, bf16, seed=1, off_kinks=True):
     """Arguments of the fused grad kernel at one shape, half the rows with
-    ratio == 1 exactly in the plain version."""
+    ratio == 1 exactly in the plain version (f32 with ``off_kinks``: no row
+    on a ReLU kink)."""
     from fsrl_torch.algos.common import normalize_adv
     from fsrl_torch.algos.ppo_lag import PPOLag
     from fsrl_torch.ops.fused_ppo_grad import policy_logp
@@ -84,6 +133,8 @@ def _grad_case(cuda, B, D, A, K, bf16, seed=1):
     state = algo.init(seed=seed)
     g = torch.Generator(device=cuda).manual_seed(seed)
     obs = torch.randn(B, D, device=cuda, generator=g)
+    if not bf16 and off_kinks:
+        obs = _off_kinks(state.flat, algo.grad_layout, obs, g)
     act = (0.5 * torch.randn(B, A, device=cuda, generator=g)).clamp(-0.99,
                                                                     0.99)
     logp = policy_logp(state.flat, algo.grad_layout, obs, act, bf16=bf16)
@@ -118,29 +169,63 @@ def test_gae_kernel_equals_plain_bit_for_bit(cuda, T, N, K):
     assert torch.equal(a, a2) and torch.equal(r, r2)
 
 
-# the bf16 (tensor-core) kernel at the edges of its envelope
-@pytest.mark.parametrize("B,D,A,K", [
+# the edges of the kernels' envelope, and the main path's shape
+ENVELOPE_EDGES = [
     (1000, 9, 2, 2), (100, 9, 2, 2), (4096, 9, 2, 1), (4096, 9, 2, 6),
-    (4096, 12, 4, 2), (4096, 1, 2, 2), (1000, 5, 3, 3), (32768, 9, 2, 2)])
-def test_fused_grad_kernel_at_envelope_edges(cuda, B, D, A, K):
-    from fsrl_torch.ops.fused_ppo_grad import ppo_grad_plain, ppo_grad_rows
-    args = _grad_case(cuda, B, D, A, K, bf16=True)
-    layout = args[1]
-    kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=True)
-    before = kernels.LAUNCHES["fused_ppo_grad"]
+    (4096, 12, 4, 2), (4096, 1, 2, 2), (1000, 5, 3, 3), (32768, 9, 2, 2)]
+
+
+def _check_at_shape(cuda, B, D, A, K, bf16):
+    from fsrl_torch.ops.fused_ppo_grad import ppo_grad_rows
+    args = _grad_case(cuda, B, D, A, K, bf16=bf16)
+    kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=bf16)
+    name = "fused_ppo_grad" if bf16 else "fused_ppo_grad_f32"
+    before = kernels.LAUNCHES[name]
     gk, ak = ppo_grad_rows(*args, **kw)
     g2, a2 = ppo_grad_rows(*args, **kw)
-    assert kernels.LAUNCHES["fused_ppo_grad"] == before + 2
-    gp, ap = ppo_grad_plain(*args, **kw)
-    # an operand may round to the neighbouring bf16 value when its f32 sum
-    # came out in another order: 1e-2 of each tensor's largest entry
-    for name, x in layout.views(gk).items():
-        ref = layout.views(gp)[name]
-        assert float((x - ref).abs().max()) <= 1e-2 * float(
-            ref.abs().max()) + 1e-7, name
-    torch.testing.assert_close(ak, ap, rtol=1e-2, atol=1e-5)
+    assert kernels.LAUNCHES[name] == before + 2
+    _assert_close_to_plain(args, gk, ak, bf16)
     # no atomics, fixed summation orders: a launch reproduces bit for bit
     assert torch.equal(gk, g2) and torch.equal(ak, a2)
+
+
+@pytest.mark.parametrize("B,D,A,K", ENVELOPE_EDGES)
+def test_fused_grad_kernel_at_envelope_edges(cuda, B, D, A, K):
+    """The bf16 (wgmma) kernel."""
+    _check_at_shape(cuda, B, D, A, K, bf16=True)
+
+
+@pytest.mark.parametrize("B,D,A,K", ENVELOPE_EDGES)
+def test_fused_grad_f32_kernel_at_envelope_edges(cuda, B, D, A, K):
+    """The f32 kernel (three TF32 products for each product)."""
+    _check_at_shape(cuda, B, D, A, K, bf16=False)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_fused_grad_f32_kernel_on_natural_rows(cuda, seed):
+    """The f32 kernel on the main path's shape with its rows as drawn, ReLU
+    kinks included: there a row can take the other side of a ReLU in any
+    float32 computation, and its whole gradient through the unit moves
+    (~1e-3 of a tensor's largest entry at 32,768 rows), so the kernel is
+    measured against the float64 evaluation of the plain version. Each
+    gradient tensor must be no farther from it than the plain f32 version
+    plus 1e-5 of its largest entry, and each aux entry within the bound of
+    :func:`_assert_aux_no_farther`."""
+    from fsrl_torch.ops.fused_ppo_grad import ppo_grad_plain, ppo_grad_rows
+    args = _grad_case(cuda, 32768, 9, 2, 2, bf16=False, seed=seed,
+                      off_kinks=False)
+    layout = args[1]
+    kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=False)
+    gk, ak = ppo_grad_rows(*args, **kw)
+    gp, ap = ppo_grad_plain(*args, **kw)
+    g64, a64 = _plain64(args, kw)
+    for (name, x), p, ref in zip(layout.views(gk).items(),
+                                 layout.views(gp).values(),
+                                 layout.views(g64).values()):
+        scale = float(ref.abs().max())
+        assert float((x - ref).abs().max()) <= float(
+            (p - ref).abs().max()) + 1e-5 * scale, name
+    _assert_aux_no_farther(ak, ap, a64, 32768)
 
 
 def test_fused_grad_f32_two_launches_identical(cuda):
@@ -234,39 +319,45 @@ def _one_update(cls, dev, **kw):
                            else torch.float32, device=dev)
         for k, v in rows.items()})
     extra = {}
-    if cls.name == "focops":
+    if cls.name in ("ppo_lag", "focops"):
         perms = draw_tile_perms(TileLayout.of(T * N, 2), 2,
                                 torch.Generator().manual_seed(2), "cpu",
-                                roll_per_epoch=True)
+                                roll_per_epoch=cls.name == "focops")
         extra["perms"] = tuple(p.to(dev) for p in perms)
-    before = kernels.LAUNCHES["gae"]
+    before = dict(kernels.LAUNCHES)
     state, m = algo.update(state, tr, torch.tensor([7.0], device=dev),
                            torch.tensor(3, dtype=torch.int32, device=dev),
                            None, **extra)
-    launched = kernels.LAUNCHES["gae"] - before
+    launched = {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()
+                if v != before.get(k, 0)}
     m = {k: float(v) for k, v in m.items()}
     if cls.name == "trpo_lag":       # the index is not among its metrics
         m["loss/backtracks"] = float(algo.last_backtracks[-1])
     return algo, state.flat.cpu(), m, launched
 
 
-@pytest.mark.parametrize("name", ["focops", "trpo_lag", "cpo"])
+@pytest.mark.parametrize("name", ["ppo_lag", "focops", "trpo_lag", "cpo"])
 def test_update_on_the_card_matches_the_cpu(cuda, name):
-    """One update of each trust-region / FOCOPS algorithm on the card (GAE
-    through kernel K1) against the same update on the CPU."""
+    """One update of each on-policy algorithm on the card (GAE through
+    kernel K1; PPO-Lag's 2 x 2 grad steps through the f32 K2 kernel)
+    against the same update on the CPU."""
     from fsrl_torch.algos.common import split_flat
     from fsrl_torch.algos.cpo import CPO
     from fsrl_torch.algos.focops import FOCOPS
+    from fsrl_torch.algos.ppo_lag import PPOLag
     from fsrl_torch.algos.trpo_lag import TRPOLag
-    cls, kw = {"focops": (FOCOPS, dict(repeat=2, n_minibatches=2)),
+    mb = dict(repeat=2, n_minibatches=2)
+    cls, kw = {"ppo_lag": (PPOLag, mb), "focops": (FOCOPS, mb),
                "trpo_lag": (TRPOLag, dict(target_kl=0.01)),
                "cpo": (CPO, dict())}[name]
     algo, fc, mc, n_cpu = _one_update(cls, "cpu", **kw)
     _, fg, mg, n_gpu = _one_update(cls, cuda, **kw)
-    assert (n_cpu, n_gpu) == (0, 1)
+    assert n_cpu == {}
+    assert n_gpu == ({"gae": 1, "fused_ppo_grad_f32": 4} if name == "ppo_lag"
+                     else {"gae": 1})
     start = algo.init(seed=1)
     model = start.params
-    if name == "focops":
+    if name in ("ppo_lag", "focops"):
         # Adam on gradients ~1e-7 apart: 1e-5 after 4 steps of lr 3e-4
         assert float((fc - fg).abs().max()) < 1e-5
     else:

@@ -1,7 +1,8 @@
 """Kernel K2's plain version (the hand-derived PPO-Lag minibatch gradient)
 against the JAX package's Pallas kernel in interpret mode, in f32 and in
 bf16 compute and at the edges of the kernel's envelope, on bridged weights,
-with tie rows (ratio == 1 exactly, as on every epoch's first grad step)."""
+with tie rows (ratio == 1 exactly, as on every epoch's first grad step);
+and the f32 kernel's error model (three TF32 products for each product)."""
 
 import functools
 
@@ -11,15 +12,18 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import n, state_dict, t
+from torch.overrides import TorchFunctionMode
 
 from fsrl_tpu.algos.ppo_lag import PPOLag as JPPOLag
 from fsrl_tpu.ops.fused_ppo_grad import ppo_grad_minibatch as j_grad
 from fsrl_torch.algos.common import OnPolicyBatch, normalize_adv
 from fsrl_torch.algos.ppo_lag import PPOLag
 from fsrl_torch.ops import kernels
-from fsrl_torch.ops.fused_ppo_grad import (GradLayout, _launch,
-                                           ppo_grad_minibatch, ppo_grad_rows,
-                                           tile_offset)
+from fsrl_torch.ops.fused_ppo_grad import (KINK_MARGIN, GradLayout, _launch,
+                                           policy_logp, ppo_grad_minibatch,
+                                           ppo_grad_plain, ppo_grad_rows,
+                                           redraw_near_kinks, relu_margin,
+                                           tf32_split, tile_offset)
 from fsrl_torch.utils.params import to_jax_params
 
 torch.set_num_threads(1)
@@ -221,3 +225,79 @@ def test_tile_offset_is_a_bijection_of_core_matrices(n_col_groups):
     assert core.max() - core.min() == 126               # 128 bytes a core
     assert off[8, 0] - off[0, 0] == 128 * n_col_groups  # next row group
     assert off[0, 8] - off[0, 0] == 128                 # next column group
+
+
+def test_tf32_split():
+    """The f32 kernel's operand split: both parts are TF32 values (the 13
+    low bits zero), hi is x rounded to nearest with ties away from zero,
+    and x - hi - lo is within 2^-22 |x|."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=4096) * np.exp(4 * rng.normal(size=4096))
+    x = torch.as_tensor(x.astype(np.float32))
+    hi, lo = tf32_split(x)
+    for part in (hi, lo):
+        assert (part.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((x - hi).abs() <= 2.0 ** -11 * x.abs()).all()
+    assert ((x - hi - lo).abs() <= 2.0 ** -22 * x.abs()).all()
+    # 1 + 2^-11 lies halfway between the TF32 values 1 and 1 + 2^-10
+    tie = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11),
+                        1 + 2 ** -11 - 2 ** -23])
+    assert tf32_split(tie)[0].tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0]
+
+
+class _TF32Products(TorchFunctionMode):
+    """Every matrix product as the f32 kernel forms it from the operands'
+    TF32 parts: hi_a hi_b + hi_a lo_b + lo_a hi_b (``terms=3``), or
+    hi_a hi_b alone (``terms=1``, one TF32 product)."""
+
+    def __init__(self, terms: int):
+        super().__init__()
+        self.terms = terms
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", None) == "matmul":
+            (ah, al), (bh, bl) = tf32_split(args[0]), tf32_split(args[1])
+            return ah @ bh if self.terms == 1 else ah @ bl + al @ bh + ah @ bh
+        return func(*args, **(kwargs or {}))
+
+
+def test_three_tf32_products_hold_float32_accuracy():
+    """The f32 kernel's error model on the plain version's operands (B 256,
+    D 9, A 2, K 2): with every matrix product taken as three TF32 products
+    the gradient stays within 2e-6 of each tensor's largest entry of the
+    float32 plain version (the card's tolerance is 1e-5), where one TF32
+    product is off by more than 1e-5. The heads, which the kernel keeps on
+    the FP32 pipes, are split here too. The rows lie clear of the ReLU
+    kinks, where any two float32 computations may differ."""
+    B, D_, A_, K = 256, 9, 2, 2
+    talgo = PPOLag(D_, A_, device="cpu")
+    layout = talgo.grad_layout
+    assert layout.K == K
+    flat = talgo.init(seed=0).flat
+    rng = np.random.default_rng(7)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32))
+    obs = redraw_near_kinks(flat, layout, f32(rng.normal(size=(B, D_))),
+                            lambda n_: f32(rng.normal(size=(n_, D_))))
+    assert float(relu_margin(flat, layout, obs).min()) >= KINK_MARGIN
+    act = f32(np.clip(0.5 * rng.normal(size=(B, A_)), -0.99, 0.99))
+    logp = policy_logp(flat, layout, obs, act)
+    logp_old = torch.where(torch.arange(B) % 2 == 0, logp,
+                           logp + f32(0.1 * rng.normal(size=B)))
+    args = (flat, layout, obs, act, logp_old,
+            normalize_adv(f32(rng.normal(size=(B, K)))),
+            f32(rng.normal(size=(B, K))), torch.tensor([1.5]),
+            torch.tensor(0.4))
+    kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=False)
+    ref, ref_aux = ppo_grad_plain(*args, **kw)
+
+    def worst(terms):
+        with _TF32Products(terms):
+            g, aux = ppo_grad_plain(*args, **kw)
+        return max(float((layout.views(g)[k] - r).abs().max() / r.abs().max())
+                   for k, r in layout.views(ref).items()), aux
+
+    err3, aux3 = worst(3)
+    err1, _ = worst(1)
+    assert err3 <= 2e-6, err3
+    assert err1 > 1e-5, err1
+    torch.testing.assert_close(aux3, ref_aux, rtol=1e-5, atol=1e-6)
