@@ -25,9 +25,18 @@ Phases, each of which must pass:
    SafetyAntRun-v0, at the same width, in f32 and in bf16: 3 iterations
    plus the test, then 3 timed iterations with collect and update apart,
    and for f32 the split of one trust-region update;
+   then the navigation path: PPO-Lag on SafetyPointGoal1-v0 (observation
+   21, K2's widened envelope) at the same width, repeat 4 x 8, in f32 and
+   bf16: one iteration with its launches counted (exactly 1 K1 and 32 K2
+   of the matching form, 0 of the other; 0 K2 would be the autograd
+   fallback), then 3 iterations with collect and update timed; and
+   recurrent PPO-Lag (GRU 128, critics (128, 128)) on SafetyPointGoal1-v0
+   at 4096 envs x 64 steps: one iteration counted (1 K1, no K2), 3 timed;
 2. update parity: one small f32 update of each of the four algorithms on
    the card against the same update on the CPU (plain versions; PPO-Lag's
-   4 grad steps through the f32 K2 kernel, counted); then a
+   4 grad steps through the f32 K2 kernel, counted), and one f32 PPO-Lag
+   update on rows of SafetyPointGoal1-v0 (D 21, through the wide f32
+   kernel); then a
    checkpoint of the FOCOPS state trained on the card is loaded into a fresh
    agent, compared tensor by tensor, and trained one more iteration;
 3. K1: the GAE kernel against its plain version, bit for bit, at
@@ -48,7 +57,12 @@ Phases, each of which must pass:
    split into a cost per chunk and a fixed cost; then both at the
    envelope's edges (1000 and 100 rows, K = 1, K = 6, D = 12 with A = 4,
    D = 1); two launches on the same inputs must give identical outputs; the
-   reduce launch and an empty kernel are timed on their own;
+   reduce launch and an empty kernel are timed on their own; both forms at
+   the widened envelope (D 13, 16, 17, 21, 32, 54, 64 with A 2, K 2; the
+   corner D 64, A 4, K 6; ragged rows at D 21 and D 54), the f32 kernel on
+   natural rows at D 21 and D 54 against float64, both timed at D 21 and
+   D 54, and the autograd step PPO-Lag took outside the old envelope timed
+   once at D 21;
 5. off-policy: DDPG-Lagrangian, SAC-Lagrangian and CVPO through the agent
    API at the JAX package's off-policy benchmark shape
    (SafetyBallCircle-v0, 32 envs x 100 steps, 0.2 grad steps per env step,
@@ -145,12 +159,27 @@ def _timed(fn):
     return out, 1e3 * (time.time() - t)
 
 
+# what a block may use of an H100 SM's shared memory (opt-in maximum)
+SMEM_LIMIT = 232448
+
+
 def phase_build():
     from fsrl_torch.ops import kernels
     t0 = time.time()
     so = kernels.build(verbose=True)
-    kernels.library()
+    lib = kernels.library()
     print(f"[build] {so.name} in {time.time() - t0:.1f} s", flush=True)
+    # K2's dynamic shared memory at the main path's shape, the navigation
+    # widths and the envelope's corners
+    for D, A, K in ((9, 2, 2), (12, 4, 6), (16, 4, 6), (21, 2, 2),
+                    (54, 2, 2), (64, 4, 6)):
+        b, f = (lib.fsrl_ppo_grad_smem_bytes(D, A, K, bf16)
+                for bf16 in (1, 0))
+        print(f"[build] K2 shared memory at D {D}, A {A}, K {K}: bf16 {b} "
+              f"bytes, f32 {f} bytes (limit {SMEM_LIMIT})", flush=True)
+        if max(b, f) > SMEM_LIMIT:
+            fail(f"K2 needs more shared memory than a block has at "
+                 f"{(D, A, K)}")
 
 
 def phase_train():
@@ -211,11 +240,14 @@ def _timed_iterations(agent, n: int = 3):
     for _ in range(n):
         res, c_ms = _timed(lambda: tr.rollout(
             tr.state.params, tr.env_state, tr.stats.reset_aggregates(),
-            tr.generator))
+            tr.generator, hidden=tr.hidden))
+        # a recurrent update takes the carry at the segment's start
+        carry = (res.init_hidden,) if tr.recurrent else ()
         (tr.state, m), u_ms = _timed(lambda: agent.algo.update(
-            tr.state, res.transitions, res.stats.mean_cost,
+            tr.state, res.transitions, *carry, res.stats.mean_cost,
             res.stats.n_episodes, tr.generator))
-        tr.env_state, tr.stats = res.env_state, res.stats
+        tr.env_state, tr.stats, tr.hidden = (res.env_state, res.stats,
+                                             res.hidden)
         collect.append(c_ms)
         update.append(u_ms)
         steps.append((res, m, getattr(agent.algo, "last_backtracks", None)))
@@ -263,6 +295,108 @@ def phase_train_ppo_f32():
             math.isfinite(float(v)) for _, m, _ in steps for v in m.values()):
         fail(f"ppo_lag f32: the timed iterations launched {timed}")
     return launches["fused_ppo_grad_f32"]
+
+
+# the navigation path: observation 21, inside K2's widened envelope only
+NAV_TASK = "SafetyPointGoal1-v0"
+
+
+def phase_train_nav():
+    """PPO-Lag on the navigation task at full width (repeat 4 x 8), f32 and
+    bf16: one iteration plus the test with the launch counters zeroed
+    before and read after (exactly 1 K1 and 32 K2 of the matching form;
+    0 K2 would be the autograd fallback), then 3 iterations with collect
+    and update timed apart. Returns the launch counts by path."""
+    import torch
+    from fsrl_torch.agent import PPOLagAgent
+    from fsrl_torch.ops import kernels
+
+    N, T = N_ENVS, T_STEPS
+    counts = {}
+    for dtype in (None, torch.bfloat16):
+        form, other = (("fused_ppo_grad", "fused_ppo_grad_f32") if dtype
+                       else ("fused_ppo_grad_f32", "fused_ppo_grad"))
+        tag = f"train ppo_lag nav {'bf16' if dtype else 'f32'}"
+        agent = PPOLagAgent(NAV_TASK, cost_limit=25.0, repeat=4,
+                            n_minibatches=8, compute_dtype=dtype)
+        layout = agent.algo.grad_layout
+        if not agent.algo.use_grad_kernel or layout.D != 21:
+            fail(f"[{tag}] {layout} is not on the grad kernel's path")
+        kernels.reset_launch_counts()
+        info, ms = _timed(lambda: agent.learn(
+            epochs=1, step_per_epoch=N * T, n_envs=N, steps_per_collect=T,
+            episode_per_test=2))
+        launches = dict(kernels.LAUNCHES)
+        metrics = agent.trainer.last_metrics
+        print(f"[{tag}] {NAV_TASK} (D {layout.D}): learn(1 iteration + "
+              f"test) {ms / 1e3:.2f} s; launches {launches}; info {info}",
+              flush=True)
+        if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"[{tag}] non-finite or missing losses: {metrics}")
+        if (launches.get("gae", 0), launches.get(form, 0),
+                launches.get(other, 0)) != (1, 32, 0):
+            fail(f"[{tag}] expected 1 launch of K1 and 32 of {form} (none "
+                 f"of {other}), got {launches}")
+        counts[tag] = launches
+        kernels.reset_launch_counts()
+        collect, update, steps = _timed_iterations(agent)
+        timed = dict(kernels.LAUNCHES)
+        c_ms, u_ms = statistics.median(collect), statistics.median(update)
+        print(f"[{tag}] iteration {c_ms + u_ms:.2f} ms = collect "
+              f"{c_ms:.2f} + update {u_ms:.2f} (medians of 3; collects "
+              f"{[round(c, 2) for c in collect]}, updates "
+              f"{[round(u, 2) for u in update]}), "
+              f"{N * T / ((c_ms + u_ms) / 1e3):.0f} env-steps/s; launches "
+              f"in the 3 iterations {timed}", flush=True)
+        if timed.get(form, 0) != 96 or not all(
+                math.isfinite(float(v)) for _, m, _ in steps
+                for v in m.values()):
+            fail(f"[{tag}] the timed iterations launched {timed}")
+    return counts
+
+
+def phase_train_rnn():
+    """Recurrent PPO-Lag (GRU 128, critics (128, 128)) on the navigation
+    task at 4096 envs x 64 steps: one iteration plus the (recurrent) test
+    with the launch counters read around it (1 K1, no K2: the GRU's BPTT
+    is autograd), then 3 iterations with collect and update timed apart.
+    Returns the launch counts."""
+    from fsrl_torch.agent import RecurrentPPOLagAgent
+    from fsrl_torch.ops import kernels
+
+    N, T = N_ENVS, T_STEPS
+    tag = "train ppo_lag_rnn"
+    agent = RecurrentPPOLagAgent(NAV_TASK, cost_limit=25.0, hidden_size=128,
+                                 critic_hidden_sizes=(128, 128))
+    kernels.reset_launch_counts()
+    info, ms = _timed(lambda: agent.learn(
+        epochs=1, step_per_epoch=N * T, n_envs=N, steps_per_collect=T,
+        episode_per_test=2))
+    launches = dict(kernels.LAUNCHES)
+    metrics = agent.trainer.last_metrics
+    print(f"[{tag}] {NAV_TASK}, {N} envs x {T} steps: learn(1 iteration + "
+          f"test) {ms / 1e3:.2f} s; launches {launches}; info {info}",
+          flush=True)
+    print(f"[{tag}] last metrics {metrics}", flush=True)
+    if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"[{tag}] non-finite or missing losses: {metrics}")
+    if launches.get("gae", 0) != 1 or launches.get("fused_ppo_grad", 0) \
+            or launches.get("fused_ppo_grad_f32", 0):
+        fail(f"[{tag}] expected 1 launch of K1 and none of K2, got "
+             f"{launches}")
+    kernels.reset_launch_counts()
+    collect, update, steps = _timed_iterations(agent)
+    timed = dict(kernels.LAUNCHES)
+    c_ms, u_ms = statistics.median(collect), statistics.median(update)
+    print(f"[{tag}] iteration {c_ms + u_ms:.2f} ms = collect {c_ms:.2f} + "
+          f"update {u_ms:.2f} (medians of 3; updates "
+          f"{[round(u, 2) for u in update]}), "
+          f"{N * T / ((c_ms + u_ms) / 1e3):.0f} env-steps/s; launches in "
+          f"the 3 iterations {timed}", flush=True)
+    if timed.get("gae", 0) != 3 or not all(
+            math.isfinite(float(v)) for _, m, _ in steps for v in m.values()):
+        fail(f"[{tag}] the timed iterations launched {timed}")
+    return launches
 
 
 def phase_breakdown(tr, tag="breakdown"):
@@ -672,6 +806,50 @@ def phase_update_parity():
                  "update")
 
 
+def phase_update_parity_nav():
+    """One f32 PPO-Lag update on rows of the navigation task (observation
+    21: the wide f32 kernel) on the card against the same update on the
+    CPU, as ``phase_update_parity`` at D 9: 4 grad steps through the f32
+    K2 kernel, weights within 1e-5, losses within 1e-5 relative."""
+    import numpy as np
+    import torch
+    from fsrl_torch.algos.ppo_lag import PPOLag
+    from fsrl_torch.envs import make
+    from fsrl_torch.ops import kernels
+
+    env = make(NAV_TASK)
+    T, N = 32, 64
+    g = torch.Generator().manual_seed(0)
+    state = env.reset_vec(N, g, stagger=True)
+    cols = {k: [] for k in ("obs", "act", "obs_next", "reward", "cost",
+                            "terminated", "truncated")}
+    for _ in range(T):
+        act = 2 * torch.rand(N, env.action_size, generator=g) - 1
+        obs = state.obs
+        state, ts = env.step_autoreset(state, act, g)
+        for k, v in (("obs", obs), ("act", act), ("obs_next", ts.obs),
+                     ("reward", ts.reward), ("cost", ts.cost),
+                     ("terminated", ts.terminated),
+                     ("truncated", ts.truncated)):
+            cols[k].append(v.numpy())
+    rows = {k: np.stack(v) for k, v in cols.items()}
+    rows["logp"] = np.random.default_rng(0).normal(size=(T, N)) - 2.0
+    kw = dict(repeat=2, n_minibatches=2)
+    _, _, _, fc, mc = _update_on("cpu", PPOLag, rows, **kw)
+    before = kernels.LAUNCHES["fused_ppo_grad_f32"]
+    _, _, _, fg, mg = _update_on("cuda", PPOLag, rows, **kw)
+    n_f32 = kernels.LAUNCHES["fused_ppo_grad_f32"] - before
+    param_err = float((fc - fg).abs().max())
+    loss_err = max(abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])) for k in mc)
+    tag = "update parity ppo_lag nav"
+    print(f"[{tag}] {NAV_TASK} rows (D {rows['obs'].shape[-1]}), costs "
+          f"{rows['cost'].sum():.0f}: max |param cpu - cuda| "
+          f"{param_err:.3e} (tol 1e-5); max loss rel err {loss_err:.3e} "
+          f"(tol 1e-5); f32 K2 launches {n_f32}", flush=True)
+    if n_f32 != 4 or param_err > 1e-5 or loss_err > 1e-5:
+        fail(f"[{tag}] the CUDA update disagrees with the CPU update")
+
+
 def _gae_case(T: int, N: int, K: int):
     """K1 against its plain version at one shape: max abs error (must be
     0) and the inputs, for timing."""
@@ -878,7 +1056,8 @@ def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def phase_k2_f32_natural_rows(seeds=(0, 1, 2), B: int = 32768, K: int = 2):
+def phase_k2_f32_natural_rows(seeds=(0, 1, 2), B: int = 32768, K: int = 2,
+                              D: int = 9):
     """The f32 kernel on the main path's rows as they are drawn, ReLU kinks
     included. A pre-activation within rounding of 0 lets two float32
     computations take different sides of the ReLU, and that row's whole
@@ -894,7 +1073,7 @@ def phase_k2_f32_natural_rows(seeds=(0, 1, 2), B: int = 32768, K: int = 2):
                                                relu_margin)
     kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=False)
     for seed in seeds:
-        args = _k2_inputs(K, False, B, off_kinks=False, seed=seed)
+        args = _k2_inputs(K, False, B, D, off_kinks=False, seed=seed)
         flat, layout, obs = args[:3]
         gk, ak = ppo_grad_rows(*args, **kw)
         gp, ap = ppo_grad_plain(*args, **kw)
@@ -903,7 +1082,7 @@ def phase_k2_f32_natural_rows(seeds=(0, 1, 2), B: int = 32768, K: int = 2):
         name = max(ek, key=lambda n: ek[n] - ep[n])
         excess = _aux_excess(ak, ap, a64, B)
         near = int((relu_margin(flat, layout, obs) < 1e-6).sum())
-        tag = f"K2 B={B} K={K} f32 natural rows seed {seed}"
+        tag = f"K2 B={B} D={D} K={K} f32 natural rows seed {seed}"
         print(f"[{tag}] vs float64, kernel / plain f32: worst tensor "
               f"{max(ek.values()):.3e} / {max(ep.values()):.3e}, nearest "
               f"the bound {name} {ek[name]:.3e} / {ep[name]:.3e} (tol: plain "
@@ -935,13 +1114,43 @@ def phase_k2_scaling(full_ms: float, bf16: bool, B: int = 32768, K: int = 2):
 
 
 def phase_k2_edges():
-    """Both K2 kernels at the edges of their envelope: errors only."""
+    """Both K2 kernels at the edges of their envelope: errors only. The
+    widened envelope: x and W1 in 1 to 4 16-deep steps (D 13 to 64), the
+    f32 kernel's wide form from D 13, the corner D 64, A 4, K 6."""
     for bf16 in (True, False):
         for kw in (dict(K=2, B=1000), dict(K=2, B=100), dict(K=1, B=4096),
                    dict(K=6, B=4096), dict(K=2, B=4096, D=12, A=4),
                    dict(K=2, B=4096, D=1), dict(K=3, B=1000, D=5, A=3),
-                   dict(K=2, B=4096, D=8, A=1)):
+                   dict(K=2, B=4096, D=8, A=1),
+                   *(dict(K=2, B=4096, D=D) for D in (13, 16, 17, 21, 32,
+                                                     54, 64)),
+                   dict(K=6, B=4096, D=64, A=4), dict(K=2, B=1000, D=21),
+                   dict(K=3, B=100, D=54, A=3)):
             _k2_case(bf16=bf16, timed=False, **kw)
+
+
+def phase_autograd_nav(B: int = 32768, D: int = 21):
+    """The autograd step PPO-Lag took outside K2's old envelope (D > 12),
+    timed once at the navigation width: host-clock ms a call, the device
+    drained before and after, median of 5 after 2 warm-up calls."""
+    import torch
+    from fsrl_torch.algos.common import OnPolicyBatch
+    from fsrl_torch.algos.ppo_lag import PPOLag
+
+    args = _k2_inputs(2, False, B, D)
+    algo = PPOLag(D, 2, cost_limit=[10.0], device="cuda")
+    state = algo.init(seed=3)
+    obs, act, logp_old, adv, ret, lam, resc = args[2:]
+    mb = OnPolicyBatch(obs, act, logp_old, adv, ret, torch.zeros_like(ret))
+    times = []
+    for i in range(7):
+        _, ms = _timed(lambda: algo._autograd_step(state, mb, lam, resc))
+        if i >= 2:
+            times.append(ms)
+    ms = statistics.median(times)
+    print(f"[autograd step nav] B={B} D={D} A=2 K=2 f32: {ms:.3f} ms a "
+          f"grad step (host clock, median of 5)", flush=True)
+    return ms
 
 
 # the JAX package's off-policy benchmark shape (bench.py:184-186,
@@ -1285,7 +1494,11 @@ def main() -> int:
     k2_f32_launches = phase_train_ppo_f32()
     gae_by_path, f32_agents = phase_new_paths()
     mark("on-policy paths")
+    nav_counts = phase_train_nav()
+    rnn_counts = phase_train_rnn()
+    mark("navigation paths")
     phase_update_parity()
+    phase_update_parity_nav()
     mark("update parity")
     phase_checkpoint(
         f32_agents["focops"], lambda: FOCOPSAgent(
@@ -1301,8 +1514,16 @@ def main() -> int:
     _k2_case(3, True)
     k2_f32 = _k2_case(2, False)
     phase_k2_scaling(k2_f32["ms"], bf16=False)
+    # the readings of the kernels before the envelope was widened
+    print(f"[K2 D 9] bf16 {k2['ms']:.4f} ms (before: 0.0687), f32 "
+          f"{k2_f32['ms']:.4f} ms (before: 0.3184)", flush=True)
+    wide = {(D, bf16): _k2_case(2, bf16, D=D) for D in (21, 54)
+            for bf16 in (True, False)}
     phase_k2_f32_natural_rows()
+    for D in (21, 54):
+        phase_k2_f32_natural_rows(seeds=(0,), D=D)
     phase_k2_edges()
+    autograd_ms = phase_autograd_nav()
     mark("kernels")
     phase_breakdown(ppo_trainer)
     for name, agent in f32_agents.items():
@@ -1311,21 +1532,37 @@ def main() -> int:
     phase_offpolicy_breakdown(sac_agent)
     mark("sac_lag breakdown")
 
+    nav_f32, nav_bf16 = (nav_counts[f"train ppo_lag nav {t}"]
+                         for t in ("f32", "bf16"))
+    wide_ms = lambda bf16: {f"D{D}": {k: wide[D, bf16][k] for k in
+                                      ("ms", "bound_ms", "plain_ms")}
+                            for D in (21, 54)}
     kernels = [
         dict(name="gae", route="cuda", source="fsrl_torch/csrc/gae.cu",
              replaces="fsrl_tpu/ops/pallas_gae.py:27",
              launches=launches.get("gae", 0), library_ms=None,
-             launches_by_path=dict(ppo_lag_bf16=launches.get("gae", 0),
-                                   **gae_by_path), **k1),
+             launches_by_path=dict(
+                 ppo_lag_bf16=launches.get("gae", 0), **gae_by_path,
+                 ppo_lag_nav_f32=nav_f32.get("gae", 0),
+                 ppo_lag_nav_bf16=nav_bf16.get("gae", 0),
+                 ppo_lag_rnn=rnn_counts.get("gae", 0)), **k1),
         dict(name="fused_ppo_grad", route="cuda",
              source="fsrl_torch/csrc/fused_ppo_grad.cu",
              replaces="fsrl_tpu/ops/fused_ppo_grad.py:68",
              launches=launches.get("fused_ppo_grad", 0), library_ms=None,
-             **k2),
+             launches_by_path=dict(
+                 ppo_lag_bf16=launches.get("fused_ppo_grad", 0),
+                 ppo_lag_nav_bf16=nav_bf16.get("fused_ppo_grad", 0)),
+             by_width=wide_ms(True), **k2),
         dict(name="fused_ppo_grad_f32", route="cuda",
              source="fsrl_torch/csrc/fused_ppo_grad_f32.cu",
              replaces="fsrl_tpu/ops/fused_ppo_grad.py:68",
-             launches=k2_f32_launches, library_ms=None, **k2_f32),
+             launches=k2_f32_launches, library_ms=None,
+             launches_by_path=dict(
+                 ppo_lag_f32=k2_f32_launches,
+                 ppo_lag_nav_f32=nav_f32.get("fused_ppo_grad_f32", 0)),
+             by_width=wide_ms(False), autograd_step_ms_d21=autograd_ms,
+             **k2_f32),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -2,7 +2,9 @@
 
 from fsrl_torch.agent.agents import (BaseAgent, CPOAgent, CVPOAgent,
                                      DDPGLagAgent, FOCOPSAgent, PPOLagAgent,
-                                     SACLagAgent, TRPOLagAgent)
+                                     RecurrentPPOLagAgent, SACLagAgent,
+                                     TRPOLagAgent)
 
 __all__ = ["BaseAgent", "CPOAgent", "CVPOAgent", "DDPGLagAgent",
-           "FOCOPSAgent", "PPOLagAgent", "SACLagAgent", "TRPOLagAgent"]
+           "FOCOPSAgent", "PPOLagAgent", "RecurrentPPOLagAgent", "SACLagAgent",
+           "TRPOLagAgent"]

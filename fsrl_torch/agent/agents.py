@@ -1,5 +1,5 @@
-"""Agent layer (port of ``BaseAgentTPU`` and the four feedforward on-policy
-and three off-policy agents of ``fsrl_tpu/agent/agents.py``): the algorithm
+"""Agent layer (port of ``BaseAgentTPU`` and the five on-policy and three
+off-policy agents of ``fsrl_tpu/agent/agents.py``): the algorithm
 with its default recipe, the trainer that fits it (on-policy or
 off-policy), ``stop_fn = reward > threshold and cost < limit``, and an
 episode-exact ``evaluate``.
@@ -21,6 +21,7 @@ from fsrl_torch.algos.cvpo import CVPO
 from fsrl_torch.algos.ddpg_lag import DDPGLag
 from fsrl_torch.algos.focops import FOCOPS
 from fsrl_torch.algos.ppo_lag import PPOLag
+from fsrl_torch.algos.ppo_lag_rnn import RecurrentPPOLag
 from fsrl_torch.algos.sac_lag import SACLag
 from fsrl_torch.algos.trpo_lag import TRPOLag
 from fsrl_torch.data.collector import evaluate
@@ -99,7 +100,8 @@ class BaseAgent:
         st = state if state is not None else self.state
         g = torch.Generator(device=self.device).manual_seed(seed)
         out = evaluate(self.env, self.algo.act_fn_eval, st.params, g,
-                       n_episodes)
+                       n_episodes,
+                       init_hidden=getattr(self.algo, "init_hidden", None))
         return (float(out["reward"]), float(out["length"]),
                 float(out["cost"]))
 
@@ -110,6 +112,14 @@ class PPOLagAgent(BaseAgent):
 
     name = "PPOLagAgent"
     algo_cls = PPOLag
+
+
+class RecurrentPPOLagAgent(BaseAgent):
+    """GRU-actor PPO-Lagrangian trained with truncated BPTT. Defaults: GRU
+    128, critics (128, 128), joint Adam lr 5e-4, PID (0.05, 0.0005, 0.1)."""
+
+    name = "RecurrentPPOLagAgent"
+    algo_cls = RecurrentPPOLag
 
 
 class TRPOLagAgent(BaseAgent):

@@ -18,6 +18,7 @@ from torch.func import functional_call
 
 from fsrl_torch.nets.mlp import ActorCritic, GaussianActor, VCriticEnsemble
 from fsrl_torch.ops.gae_kernel import gae_advantages_fused
+from fsrl_torch.ops.lagrange import pid_controller_step, rescaling_factor
 from fsrl_torch.types import Transition
 from fsrl_torch.utils.params import flatten_parameters_, unflatten
 
@@ -120,6 +121,43 @@ def process_rollout(critic_apply: Callable[[Tensor], Tensor], tr: Transition,
                           logp_old=flat(tr.logp), adv=flat(adv),
                           ret=flat(ret), value_old=flat(values))
     return (batch, new_rms) if ret_rms is not None else batch
+
+
+def lagrangian_step(hp: dict, state, ep_cost_mean: Tensor,
+                    n_episodes: Tensor, limit: Tensor):
+    """The collect's PID multiplier step (the Lagrangian algorithms'
+    ``update`` head): ``(lag, cost_in, multiplier, rescale)``. ``cost_in``
+    is the cost measurement the state keeps (the filtered one, or without
+    the Lagrangian the last collect's that finished episodes); the rescale
+    is ``1 / (sum lambda + 1)`` where ``hp["rescaling"]``, 1 without the
+    Lagrangian."""
+    if hp["use_lagrangian"]:
+        kp, ki, kd = hp["pid"]
+        lag = pid_controller_step(
+            state.lag, ep_cost_mean, n_episodes, limit, kp, ki, kd,
+            filtered=hp["pid_filter"], horizon=40.0)
+        return (lag, lag.cost_ema, lag.multiplier,
+                rescaling_factor(lag.multiplier, hp["rescaling"]))
+    cost_in = torch.where(n_episodes > 0, ep_cost_mean, state.last_ep_cost)
+    return (state.lag, cost_in, state.lag.multiplier,
+            torch.ones((), device=ep_cost_mean.device))
+
+
+def ppo_metrics(auxes: list[dict], resc: Tensor, lam_mult: Tensor,
+                stopped: Tensor) -> dict[str, Tensor]:
+    """The PPO-Lag metric dict, JAX's names: each grad step's losses
+    averaged over the update, the rescale, each multiplier and the early
+    stop flag."""
+    metrics = {
+        ("loss/" + k if not k.startswith("loss") else
+         k.replace("_", "/", 1)): torch.stack([a[k] for a in auxes]).mean()
+        for k in auxes[0]}
+    metrics["loss/rescaling"] = resc
+    for i in range(lam_mult.shape[0]):
+        metrics[f"loss/lagrangian{'' if i == 0 else '_' + str(i)}"] = \
+            lam_mult[i]
+    metrics["update/early_stopped"] = stopped.float()
+    return metrics
 
 
 def normalize_adv(adv: Tensor, eps: float = 1e-8) -> Tensor:

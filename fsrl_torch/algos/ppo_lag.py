@@ -31,14 +31,14 @@ import torch
 from torch.func import functional_call
 
 from fsrl_torch.algos.common import (ActorCriticAlgo, AdamState,
-                                     OnPolicyBatch, Schedule, make_optimizer,
-                                     normalize_adv, process_rollout,
+                                     OnPolicyBatch, Schedule, lagrangian_step,
+                                     make_optimizer, normalize_adv,
+                                     ppo_metrics, process_rollout,
                                      select_state)
 from fsrl_torch.device import resolve_device
 from fsrl_torch.nets.mlp import ActorCritic
 from fsrl_torch.ops.fused_ppo_grad import GradLayout, ppo_grad_minibatch
-from fsrl_torch.ops.lagrange import (PIDLagrangianState, pid_controller_step,
-                                     rescaling_factor)
+from fsrl_torch.ops.lagrange import PIDLagrangianState
 from fsrl_torch.ops.running_stats import RunningMeanStd
 from fsrl_torch.types import (TileLayout, Transition, draw_tile_perms,
                               is_epoch_end, minibatch_row_index)
@@ -197,15 +197,8 @@ class PPOLag(ActorCriticAlgo):
         hp = self.hp
         dev = self.device
         limit = self.cost_limit if cost_limit is None else cost_limit
-        if hp["use_lagrangian"]:
-            kp, ki, kd = hp["pid"]
-            lag = pid_controller_step(
-                state.lag, ep_cost_mean, n_episodes, limit, kp, ki, kd,
-                filtered=hp["pid_filter"], horizon=40.0)
-        else:
-            lag = state.lag
-        cost_in = lag.cost_ema if hp["use_lagrangian"] else torch.where(
-            n_episodes > 0, ep_cost_mean, state.last_ep_cost)
+        lag, cost_in, lam_mult, resc = lagrangian_step(
+            hp, state, ep_cost_mean, n_episodes, limit)
 
         critic = state.params.critics
         if hp["rew_norm"]:
@@ -217,10 +210,6 @@ class PPOLag(ActorCriticAlgo):
                                     hp["gae_lambda"],
                                     episode_len=hp["episode_len"])
             ret_rms = state.ret_rms
-
-        lam_mult = lag.multiplier
-        resc = (rescaling_factor(lam_mult, hp["rescaling"])
-                if hp["use_lagrangian"] else torch.ones((), device=dev))
 
         n_mb, repeat = hp["n_minibatches"], hp["repeat"]
         layout = TileLayout.of(batch.obs.shape[0], n_mb)
@@ -259,15 +248,7 @@ class PPOLag(ActorCriticAlgo):
             aux["loss_total"] = loss
             auxes.append(aux)
 
-        metrics = {
-            ("loss/" + k if not k.startswith("loss") else
-             k.replace("_", "/", 1)): torch.stack([a[k] for a in auxes]).mean()
-            for k in auxes[0]}
-        metrics["loss/rescaling"] = resc
-        for i in range(self.num_costs):
-            metrics[f"loss/lagrangian{'' if i == 0 else '_' + str(i)}"] = \
-                lam_mult[i]
-        metrics["update/early_stopped"] = stopped.float()
+        metrics = ppo_metrics(auxes, resc, lam_mult, stopped)
 
         new_state = PPOLagState(
             params=state.params, flat=flat, opt_state=opt, lag=lag,

@@ -26,15 +26,15 @@ from dataclasses import dataclass
 import torch
 
 from fsrl_torch.algos.common import (ActorCriticAlgo, AdamState, Schedule,
-                                     apply_flat, critic_steps, make_optimizer,
+                                     apply_flat, critic_steps,
+                                     lagrangian_step, make_optimizer,
                                      normalize_adv, process_rollout,
                                      split_flat)
 from fsrl_torch.device import resolve_device
 from fsrl_torch.nets.mlp import ActorCritic
 from fsrl_torch.ops.cg import (backtrack_fractions, conjugate_gradient,
                                make_fvp)
-from fsrl_torch.ops.lagrange import (PIDLagrangianState, pid_controller_step,
-                                     rescaling_factor)
+from fsrl_torch.ops.lagrange import PIDLagrangianState
 from fsrl_torch.types import Transition
 
 Tensor = torch.Tensor
@@ -188,21 +188,10 @@ class TRPOLag(ActorCriticAlgo):
         ``self.last_backtracks`` (a device tensor), not in the metrics,
         whose keys are JAX's."""
         hp = self.hp
-        dev = self.device
         model = state.params
         limit = self.cost_limit if cost_limit is None else cost_limit
-        if hp["use_lagrangian"]:
-            kp, ki, kd = hp["pid"]
-            lag = pid_controller_step(
-                state.lag, ep_cost_mean, n_episodes, limit, kp, ki, kd,
-                filtered=hp["pid_filter"], horizon=40.0)
-        else:
-            lag = state.lag
-        cost_in = lag.cost_ema if hp["use_lagrangian"] else torch.where(
-            n_episodes > 0, ep_cost_mean, state.last_ep_cost)
-        lam_mult = lag.multiplier
-        resc = (rescaling_factor(lam_mult, hp["rescaling"])
-                if hp["use_lagrangian"] else torch.ones((), device=dev))
+        lag, cost_in, lam_mult, resc = lagrangian_step(
+            hp, state, ep_cost_mean, n_episodes, limit)
 
         batch = process_rollout(model.critics, tr, hp["gamma"],
                                 hp["gae_lambda"],

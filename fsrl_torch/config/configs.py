@@ -274,6 +274,31 @@ def bullet_10m(cfg):
     return preset(cfg, 10_000_000, 10.0)
 
 
+def mujoco_base(cfg):
+    """MuJoCo / navigation base preset: 5M steps, 20,000 a epoch, cost
+    limit 25."""
+    cfg.step_per_epoch = 20000
+    return preset(cfg, 5_000_000, 25.0)
+
+
+def mujoco_2m(cfg):
+    """MuJoCo 2M-step preset."""
+    cfg.step_per_epoch = 20000
+    return preset(cfg, 2_000_000, 25.0)
+
+
+def mujoco_10m(cfg):
+    """MuJoCo 10M-step preset."""
+    cfg.step_per_epoch = 20000
+    return preset(cfg, 10_000_000, 25.0)
+
+
+def mujoco_20m(cfg):
+    """MuJoCo 20M-step preset."""
+    cfg.step_per_epoch = 20000
+    return preset(cfg, 20_000_000, 25.0)
+
+
 # Per-task presets for the tasks the port registers. ``None`` is the
 # algorithm's default budget (2M steps).
 TASK_TO_PRESET = {
@@ -286,10 +311,25 @@ TASK_TO_PRESET = {
     "SafetyAntRun-v0": None,
     "SafetyDroneCircle-v0": bullet_5m,
     "SafetyAntCircle-v0": bullet_10m,
+    # the navigation suite (Safety-Gymnasium's tasks)
+    **{f"Safety{robot}Circle{lvl}-v0": mujoco_2m
+       for robot in ("Point", "Car") for lvl in (1, 2)},
+    **{f"Safety{robot}{task}{lvl}-v0": mujoco_base
+       for robot in ("Point", "Car") for task in ("Goal", "Button", "Push")
+       for lvl in (1, 2)},
+}
+
+# Reference navigation task ids (with a "Gymnasium" infix) -> the port's.
+TASK_ALIASES = {
+    f"Safety{robot}{task}{lvl}Gymnasium-v0": f"Safety{robot}{task}{lvl}-v0"
+    for robot in ("Point", "Car")
+    for task in ("Circle", "Goal", "Button", "Push") for lvl in (1, 2)
 }
 
 
 def apply_task_preset(cfg):
-    """Apply the task's registered budget preset to ``cfg`` in place."""
+    """Apply the task's registered budget preset to ``cfg`` in place,
+    translating a reference task id (``*Gymnasium-v0``) first."""
+    cfg.task = TASK_ALIASES.get(cfg.task, cfg.task)
     fn = TASK_TO_PRESET.get(cfg.task)
     return fn(cfg) if fn else cfg

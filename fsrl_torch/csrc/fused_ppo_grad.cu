@@ -23,18 +23,25 @@
 // * All five products of a chunk run on the tensor cores with `wgmma`
 //   (m64n128k16, and m64n16k16 for dW1), each warpgroup owning 64 of the M
 //   rows:
-//     P0  h1  = relu(x W1^T + b1)       M rows,  N out, K = D padded to 16
+//     P0  h1  = relu(x W1^T + b1)       M rows,  N out, K = D padded to 16 KD
 //     P1  h2  = relu(h1 W2^T + b2)      M rows,  N out, K in
 //     P2  dW2 += g_h2^T h1              M out,   N in,  K rows
 //     P3  g_h1 = (g_h2 W2) * (h1 > 0)   M rows,  N in,  K out
-//     P4  dW1 += g_h1^T x               M out,   N = D padded to 16, K rows
+//     P4  dW1 += g_h1^T x               M out,   N = D padded to 16 KD, K rows
+//   KD = ceil(D / 16) 16-deep steps (P0) or 16-wide slices (P4); the kernel
+//   is a template on KD, and KD = 1 (D <= 16) is the design below as it
+//   was written for D <= 12.
 //   Operands are bf16 tiles in shared memory in wgmma's unswizzled
 //   core-matrix layout (wgmma.cuh). One stored copy of W2 serves P1 and P3,
 //   one of h1 P1 and P2, one of g_h2 P2 and P3, one of x P0 and P4, through
 //   the descriptors' transpose bits. h1, g_h2 and g_h1 are written into
 //   that layout by the threads that hold the accumulator fragments.
-// * dW2 (64 registers a thread) and dW1 (8) accumulate in the wgmma
-//   accumulators across the block's chunks and leave registers once.
+// * dW2 (64 registers a thread) and, for KD = 1, dW1 (8) accumulate in the
+//   wgmma accumulators across the block's chunks and leave registers once.
+//   For KD > 1 each chunk's dW1 is taken one 16-wide slice at a time in
+//   8 fresh registers and added into the block's partial (L2), each thread
+//   alone reading and writing its entries, so no registers are held for it
+//   between chunks.
 // * Epilogues work on the fragments: bias, ReLU and the bf16 rounding. h2
 //   stays in registers until g_h2 replaces it, so it never reaches shared
 //   memory and is its own ReLU mask; the h1 > 0 mask is read back from the
@@ -47,6 +54,11 @@
 //   summed over the warps at the end.
 // * The chunk's rows (obs, act, logp_old, adv / ret) are fetched one chunk
 //   ahead with cp.async into a two-slot ring; weights are loaded once.
+//   Shared memory is the limit on D: the ring costs 1 KB a column of x, so
+//   for KD > 1 x is not in the ring. The next chunk's x is fetched as f32
+//   into the g_h1 tile, which is free from the chunk's start until P3's
+//   epilogue, and converted there into the second of two bf16 x tiles
+//   (double-buffered, 4 KB per KD each): 221 KB at D 64, A 4, K 6.
 // * No accumulation across blocks: each block writes its partial to scratch
 //   and `ppo_grad_reduce` sums the G partials in a fixed order. No float
 //   atomics and fixed shuffle orders, so runs reproduce bit for bit.
@@ -64,19 +76,25 @@ namespace ppo {
 namespace {
 
 constexpr int NCG = H / 8;        // column groups of a 128-wide tile
-constexpr int XCG = 2;            // column groups of the x / W1 tiles
 constexpr int TILE = R * H * 2;   // bytes of a 128x128 bf16 tile
-constexpr int XTILE = R * 16 * 2; // bytes of a 128x16 bf16 tile
+constexpr int XTILE = R * 16 * 2; // bytes of a 128x16 bf16 tile (one KD)
 constexpr int NW = NT / 32;       // warps per block
 constexpr int NSUM = 2 * AMAX + 3 + MMAX;   // per-thread sums of a block
 
-__host__ __device__ int slot_floats(int D, int A, int K) {
-  return R * (D + A + 1 + 2 * K);
+// 16-deep steps of x and W1 for an observation width D.
+__host__ __device__ constexpr int kd_of(int D) { return (D + 15) / 16; }
+
+// A ring slot: x (KD = 1 only), act, logp_old, adv, ret.
+__host__ __device__ int slot_floats(int KD, int D, int A, int K) {
+  return R * ((KD == 1 ? D : 0) + A + 1 + 2 * K);
 }
+// The tiles (W2, h1, g_h2, g_h1; x, once for KD = 1 and twice above; W1),
+// then the floats.
 __host__ __device__ size_t smem_bytes(int D, int A, int K) {
-  return 4 * TILE + 2 * XTILE +
+  const int KD = kd_of(D);
+  return 4 * TILE + (KD == 1 ? 2 : 3) * KD * XTILE +
          sizeof(float) * (2 * H + AMAX * H + AMAX + NW * AMAX * H +
-                          2 * NW * H + 2 * slot_floats(D, A, K) + NT);
+                          2 * NW * H + 2 * slot_floats(KD, D, A, K) + NT);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -96,8 +114,10 @@ __device__ __forceinline__ void add_column_sums(float (&v)[32], int lane,
   for (int i = 0; i < 4; ++i) acc[column_of<32>(lane, i)] += v[i];
 }
 
+template <int KD>
 __global__ void __launch_bounds__(NT, 1)
 ppo_grad_bf16_kernel(const Args p) {
+  constexpr int XCG = 2 * KD;    // column groups of the x / W1 tiles
   extern __shared__ __align__(128) unsigned char smem[];
   const int B = p.B, D = p.D, A = p.A, K = p.K;
   const Layout L{D, A, K};
@@ -110,14 +130,16 @@ ppo_grad_bf16_kernel(const Args p) {
   const int wgid = tid >> 7, q = lane & 3;
   const int m0 = 64 * wgid;                          // the warpgroup's M rows
   const int row_lo = m0 + 16 * (warp & 3) + (lane >> 2);  // and row_lo + 8
+  const int XD = KD == 1 ? D : 0;       // x's floats in a ring row
 
   unsigned char* W2t = smem;            // [out][in]
   unsigned char* h1t = W2t + TILE;      // [row][in]
   unsigned char* g2t = h1t + TILE;      // [row][out]  g_h2
   unsigned char* g1t = g2t + TILE;      // [row][in]   g_h1
-  unsigned char* xt = g1t + TILE;       // [row][16]   x, columns >= D zero
-  unsigned char* W1t = xt + XTILE;      // [out][16]
-  float* b1s = reinterpret_cast<float*>(W1t + XTILE);
+  unsigned char* xt = g1t + TILE;       // [row][16 KD] x, columns >= D zero
+                                        // (two of them for KD > 1)
+  unsigned char* W1t = xt + (KD == 1 ? 1 : 2) * KD * XTILE;   // [out][16 KD]
+  float* b1s = reinterpret_cast<float*>(W1t + KD * XTILE);
   float* b2s = b1s + H;
   float* whs = b2s + H;                 // [O][H] head weight
   float* bhs = whs + AMAX * H;
@@ -125,7 +147,7 @@ ppo_grad_bf16_kernel(const Args p) {
   float* pb2 = pWh + NW * AMAX * H;     // [NW][H]
   float* pb1 = pb2 + NW * H;            // [NW][H]
   float* ring = pb1 + NW * H;           // [2][slot]
-  const int slot = slot_floats(D, A, K);
+  const int slot = slot_floats(KD, D, A, K);
   float* red = ring + 2 * slot;         // [NT]
   const uint32_t aW2 = wg::smem_addr(W2t), ah1 = wg::smem_addr(h1t),
                  ag2 = wg::smem_addr(g2t), ag1 = wg::smem_addr(g1t),
@@ -146,8 +168,13 @@ ppo_grad_bf16_kernel(const Args p) {
     const size_t r0 = (size_t)c * R;
     const int nr = min(R, B - (int)r0);
     const bool vec = p.aligned16;
-    cp::rows(dst, p.obs + r0 * D, nr * D, R * D, vec);
-    dst += R * D;
+    if constexpr (KD == 1) {
+      cp::rows(dst, p.obs + r0 * D, nr * D, R * D, vec);
+      dst += R * D;
+    } else {   // x as f32 into the g_h1 tile (R * D <= R * H floats)
+      cp::rows(reinterpret_cast<float*>(g1t), p.obs + r0 * D, nr * D, R * D,
+               vec);
+    }
     if (actor) {
       cp::rows(dst, p.act + r0 * A, nr * A, R * A, vec);
       cp::rows(dst + R * A, p.logp_old + r0, nr, R, vec);
@@ -159,6 +186,21 @@ ppo_grad_bf16_kernel(const Args p) {
   };
   fetch(g, 0);
 
+  // KD > 1: a chunk's x, staged as f32 in the g_h1 tile, as a bf16 tile
+  auto convert_x = [&](unsigned char* dst) {
+    const float* xs = reinterpret_cast<const float*>(g1t);
+    for (int u = tid; u < R * XCG; u += NT) {
+      const int r = u / XCG, d0 = 8 * (u % XCG);
+      float x[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        x[i] = d0 + i < D ? xs[r * D + d0 + i] : 0.f;
+      *reinterpret_cast<uint4*>(dst + wg::tile_off(r, d0, XCG)) =
+          make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                     pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+    }
+  };
+
   // Weights, once: W2 and W1 as bf16 tiles (16-byte units of 8 inputs).
   // (unrolled, so that all of a thread's loads are in flight together)
 #pragma unroll
@@ -169,7 +211,7 @@ ppo_grad_bf16_kernel(const Args p) {
         make_uint4(pack_bf16(w[0], w[1]), pack_bf16(w[2], w[3]),
                    pack_bf16(w[4], w[5]), pack_bf16(w[6], w[7]));
   }
-  {
+  if constexpr (KD == 1) {
     const int j = 8 * (tid >> 4) + (tid & 7), d0 = 8 * ((tid >> 3) & 1);
     float w[8];
 #pragma unroll
@@ -178,6 +220,17 @@ ppo_grad_bf16_kernel(const Args p) {
     *reinterpret_cast<uint4*>(W1t + wg::tile_off(j, d0, XCG)) =
         make_uint4(pack_bf16(w[0], w[1]), pack_bf16(w[2], w[3]),
                    pack_bf16(w[4], w[5]), pack_bf16(w[6], w[7]));
+  } else {
+    for (int u = tid; u < H * XCG; u += NT) {
+      const int j = u / XCG, d0 = 8 * (u % XCG);
+      float w[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        w[i] = d0 + i < D ? gW1[j * D + d0 + i] : 0.f;
+      *reinterpret_cast<uint4*>(W1t + wg::tile_off(j, d0, XCG)) =
+          make_uint4(pack_bf16(w[0], w[1]), pack_bf16(w[2], w[3]),
+                     pack_bf16(w[4], w[5]), pack_bf16(w[6], w[7]));
+    }
   }
   for (int i = tid; i < H; i += NT) {
     b1s[i] = gb1[i];
@@ -216,22 +269,36 @@ ppo_grad_bf16_kernel(const Args p) {
 #pragma unroll
   for (int m = 0; m < MMAX; ++m) a_c[m] = 0.f;
 
+  if constexpr (KD > 1) {   // the first chunk's x
+    cp::wait<0>();
+    __syncthreads();
+    convert_x(xt);
+  }
+  // KD > 1: the block's partial, where each chunk's dW1 is summed
+  float* pW1 = p.part + ((size_t)g * (K + 1) + tower) * L.tower_size(0) +
+               L.local_off(tower, 0);
   wg::fence_async_smem();
   int it = 0;
   for (int c = g; c < n_chunks; c += G, ++it) {
     const int nr = min(R, B - c * R);
     const float* rows = ring + (it & 1) * slot;
-    if (c + G < n_chunks) {
-      fetch(c + G, (it + 1) & 1);
-      cp::wait<1>();
+    // the chunk's x tile
+    const uint32_t axc = KD == 1 ? ax : ax + (it & 1) * KD * XTILE;
+    if constexpr (KD == 1) {
+      if (c + G < n_chunks) {
+        fetch(c + G, (it + 1) & 1);
+        cp::wait<1>();
+      } else {
+        cp::wait<0>();
+      }
     } else {
       cp::wait<0>();
     }
     // the chunk's rows have landed, and every warp has left the last chunk
     __syncthreads();
 
-    // x as a bf16 tile; each warpgroup converts the rows it multiplies
-    {
+    if constexpr (KD == 1) {
+      // x as a bf16 tile; each warpgroup converts the rows it multiplies
       const int r = 8 * (tid >> 4) + (tid & 7), d0 = 8 * ((tid >> 3) & 1);
       float x[8];
 #pragma unroll
@@ -240,14 +307,20 @@ ppo_grad_bf16_kernel(const Args p) {
       *reinterpret_cast<uint4*>(xt + wg::tile_off(r, d0, XCG)) =
           make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
                      pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+      wg::fence_async_smem();
+      wg::warpgroup_sync(wgid);
+    } else {
+      // the next chunk's rows, and its x into the g_h1 tile (free: every
+      // warpgroup has finished the last chunk's P4)
+      if (c + G < n_chunks) fetch(c + G, (it + 1) & 1);
     }
-    wg::fence_async_smem();
-    wg::warpgroup_sync(wgid);
 
     // P0: h1 = relu(x W1^T + b1), rounded to bf16 into its tile
     wg::arrive();
-    wg::mma_m64n128k16<0, 0>(acc, wg::desc_kmajor(ax, XCG, m0, 0),
-                             wg::desc_kmajor(aW1, XCG, 0, 0), 0);
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks)
+      wg::mma_m64n128k16<0, 0>(acc, wg::desc_kmajor(axc, XCG, m0, 16 * ks),
+                               wg::desc_kmajor(aW1, XCG, 0, 16 * ks), ks > 0);
     wg::commit();
     wg::wait_all();
     wg::fence_regs(acc);
@@ -326,9 +399,9 @@ ppo_grad_bf16_kernel(const Args p) {
       }
       if (actor) {
         // a dead row is zero-filled, so its loss is finite; it is masked
-        const float* adv_row = rows + R * (D + A + 1) + r * K;
+        const float* adv_row = rows + R * (XD + A + 1) + r * K;
         const ActorRow o =
-            actor_row(hr, rows + R * D + r * A, rows[R * (D + A) + r],
+            actor_row(hr, rows + R * XD + r * A, rows[R * (XD + A) + r],
                       adv_row, sig, lsig_sum, lamv, resc, p);
 #pragma unroll
         for (int a = 0; a < AMAX; ++a) g_out[a] = live ? o.g_mu[a] : 0.f;
@@ -346,7 +419,7 @@ ppo_grad_bf16_kernel(const Args p) {
         }
       } else {
         const float diff =
-            hr[0] - rows[R * (D + A + 1 + K) + r * K + (tower - 1)];
+            hr[0] - rows[R * (XD + A + 1 + K) + r * K + (tower - 1)];
         const float gv = p.gv_scale * diff;
         g_out[0] = live ? round_bf16(gv) : 0.f;
         if (mine) {
@@ -419,6 +492,15 @@ ppo_grad_bf16_kernel(const Args p) {
     for (int i = 0; i < 32; ++i)
       v[i] = acc[4 * (i >> 1) + (i & 1)] + acc[4 * (i >> 1) + 2 + (i & 1)];
     add_column_sums(v, lane, pb2 + warp * H);
+    if constexpr (KD > 1) {
+      // the next chunk's x into the other x tile, before P3's epilogue
+      // writes g_h1 over it
+      if (c + G < n_chunks) {
+        cp::wait<0>();
+        __syncthreads();
+        convert_x(xt + ((it + 1) & 1) * KD * XTILE);
+      }
+    }
     wg::fence_async_smem();
     __syncthreads();   // P2 reads every row of g_h2 and h1
 
@@ -463,15 +545,48 @@ ppo_grad_bf16_kernel(const Args p) {
     wg::fence_async_smem();
     __syncthreads();   // P4 reads every row of g_h1 and x
 
-    // P4: dW1 += g_h1^T x (stays in registers)
-    wg::arrive();
+    if constexpr (KD == 1) {
+      // P4: dW1 += g_h1^T x (stays in registers)
+      wg::arrive();
 #pragma unroll
-    for (int ks = 0; ks < R / 16; ++ks)
-      wg::mma_m64n16k16<1, 1>(dW1, wg::desc_mnmajor(ag1, NCG, 16 * ks, m0),
-                              wg::desc_mnmajor(ax, XCG, 16 * ks, 0), 1);
-    wg::commit();
-    wg::wait_all();
-    wg::fence_regs(dW1);
+      for (int ks = 0; ks < R / 16; ++ks)
+        wg::mma_m64n16k16<1, 1>(dW1, wg::desc_mnmajor(ag1, NCG, 16 * ks, m0),
+                                wg::desc_mnmajor(ax, XCG, 16 * ks, 0), 1);
+      wg::commit();
+      wg::wait_all();
+      wg::fence_regs(dW1);
+    } else {
+      // P4: the chunk's g_h1^T x, one 16-wide slice of x at a time into a
+      // fresh accumulator, added into the block's partial: element 4 jb +
+      // 2 h + e is output row_lo + 8 h, input 16 kd + 8 jb + 2 q + e
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        float d1[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) d1[i] = 0.f;
+        wg::arrive();
+#pragma unroll
+        for (int ks = 0; ks < R / 16; ++ks)
+          wg::mma_m64n16k16<1, 1>(
+              d1, wg::desc_mnmajor(ag1, NCG, 16 * ks, m0),
+              wg::desc_mnmajor(axc, XCG, 16 * ks, 16 * kd), ks > 0);
+        wg::commit();
+        wg::wait_all();
+        wg::fence_regs(d1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = row_lo + 8 * h;
+#pragma unroll
+          for (int jb = 0; jb < 2; ++jb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int d = 16 * kd + 8 * jb + 2 * q + e;
+              const float v1 = d1[4 * jb + 2 * h + e];
+              if (d < D) pW1[j * D + d] = it > 0 ? pW1[j * D + d] + v1 : v1;
+            }
+        }
+      }
+    }
   }
   __syncthreads();
 
@@ -481,7 +596,6 @@ ppo_grad_bf16_kernel(const Args p) {
   float* out = p.part + ((size_t)g * T + tower) * Pmax;
   {
     float* oW2 = out + L.local_off(tower, 2);
-    float* oW1 = out + L.local_off(tower, 0);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int j = row_lo + 8 * h;
@@ -489,13 +603,16 @@ ppo_grad_bf16_kernel(const Args p) {
       for (int jb = 0; jb < 16; ++jb)
         *reinterpret_cast<float2*>(oW2 + j * H + 8 * jb + 2 * q) =
             make_float2(dW2[4 * jb + 2 * h], dW2[4 * jb + 2 * h + 1]);
+      if constexpr (KD == 1) {   // (KD > 1: summed there chunk by chunk)
+        float* oW1 = out + L.local_off(tower, 0);
 #pragma unroll
-      for (int jb = 0; jb < 2; ++jb)
+        for (int jb = 0; jb < 2; ++jb)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int d = 8 * jb + 2 * q + e;
-          if (d < D) oW1[j * D + d] = dW1[4 * jb + 2 * h + e];
-        }
+          for (int e = 0; e < 2; ++e) {
+            const int d = 8 * jb + 2 * q + e;
+            if (d < D) oW1[j * D + d] = dW1[4 * jb + 2 * h + e];
+          }
+      }
     }
   }
   // per-warp partials, summed over the warps in order
@@ -629,6 +746,15 @@ cudaError_t launch_reduce(const float* part, const float* part_aux,
 
 __global__ void empty_kernel() {}
 
+template <int KD>
+cudaError_t launch_bf16(const Args& a, int G, cudaStream_t s) {
+  const size_t smem = smem_bytes(a.D, a.A, a.K);
+  cudaFuncSetAttribute(ppo_grad_bf16_kernel<KD>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  ppo_grad_bf16_kernel<KD><<<dim3(G, a.K + 1), NT, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 // Blocks per tower: at most the SMs shared among the towers, and no more
 // than keeps the longest walk at ceil(chunks / that).
 int grid_g(int B, int K) {
@@ -656,6 +782,11 @@ extern "C" long fsrl_ppo_grad_scratch_floats(int B, int D, int Hd, int A,
 
 // Blocks per tower that a batch of B rows is spread over.
 extern "C" int fsrl_ppo_grad_blocks(int B, int K) { return grid_g(B, K); }
+
+// Dynamic shared memory of a block of the bf16 or f32 kernel at (D, A, K).
+extern "C" long fsrl_ppo_grad_smem_bytes(int D, int A, int K, int bf16) {
+  return (long)(bf16 ? smem_bytes(D, A, K) : smem_bytes_f32(D, A, K));
+}
 
 // Byte offset of element (r, c) of a bf16 operand tile with ncg column
 // groups, as the kernel's threads compute it.
@@ -693,11 +824,12 @@ extern "C" int fsrl_ppo_grad(const float* params, const float* obs,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (bf16) {
-    const size_t smem = smem_bytes(D, A, K);
-    cudaFuncSetAttribute(ppo_grad_bf16_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    ppo_grad_bf16_kernel<<<dim3(G, T), NT, smem, s>>>(a);
-    err = cudaGetLastError();
+    switch (kd_of(D)) {
+      case 1: err = launch_bf16<1>(a, G, s); break;
+      case 2: err = launch_bf16<2>(a, G, s); break;
+      case 3: err = launch_bf16<3>(a, G, s); break;
+      default: err = launch_bf16<4>(a, G, s); break;
+    }
   } else {
     err = launch_f32(a, G, s);
   }

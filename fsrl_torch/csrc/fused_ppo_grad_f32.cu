@@ -69,6 +69,12 @@
 //   ahead with cp.async into a two-slot ring; weights are loaded once, W1
 //   read from global memory where it stays in L1 (shared memory is full at
 //   the envelope's largest D, A, K).
+// * Wide observations (D > DMAX_F32_NARROW = 12, the template's WIDE): the
+//   tiles leave no room for x in the ring (1 KB a column and slot), so x is
+//   read from global memory (L2) where P0, P4 and the float64 retakes use
+//   it, as W1 is; and dW1 (up to 9 tiles of P4) is taken per chunk in the
+//   registers of acc, free in P4, and added into the block's partial as
+//   dW2 is. D <= 12 keeps the design above unchanged.
 // * Per-block partials and the fixed-order reduce launch, no float atomics:
 //   runs reproduce bit for bit. The ragged last chunk is zero-filled and
 //   masked.
@@ -121,13 +127,15 @@ __host__ __device__ constexpr int sw(int r, int c) {
   return r * H + (c ^ (((r ^ (r >> 1)) & 3) << 3));
 }
 
-__host__ __device__ int slot_floats(int D, int A, int K) {
-  return R * (D + A + 1 + K);
+// A ring slot: x (up to DMAX_F32_NARROW only), act, logp_old, adv / ret.
+__host__ __device__ int slot_floats(bool wide, int D, int A, int K) {
+  return R * ((wide ? 0 : D) + A + 1 + K);
 }
 __host__ __device__ size_t smem_bytes(int D, int A, int K) {
+  const bool wide = D > DMAX_F32_NARROW;
   return sizeof(float) * (2 * H * WS + TILE + 2 * H + AMAX * H + AMAX +
-                          2 * slot_floats(D, A, K) + NCST + NW * NSUM +
-                          2 * NW);
+                          2 * slot_floats(wide, D, A, K) + NCST +
+                          NW * NSUM + 2 * NW);
 }
 
 __device__ __forceinline__ void zero(float (&v)[64]) {
@@ -169,6 +177,7 @@ __device__ __forceinline__ float kink_scale(const float* m) {
   return KINK * sqrtf(v);
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(NT, 1)
 ppo_grad_f32_kernel(const Args p) {
   extern __shared__ __align__(16) float sm[];
@@ -185,6 +194,7 @@ ppo_grad_f32_kernel(const Args p) {
   const int row_lo = m0 + lr;                // and row_lo + 8
   const int nd = (D + 7) / 8;                // depth steps of P0
   const int n4 = D / 8 + 1;                  // P4's tiles: x, a 1s column
+  const int XD = WIDE ? 0 : D;               // x's floats in a ring row
 
   float* W2s = sm;                  // [out][WS] (in)
   float* h1s = W2s + H * WS;        // [row][WS] (in)  h1, later g_h1
@@ -194,7 +204,7 @@ ppo_grad_f32_kernel(const Args p) {
   float* whs = b2s + H;             // [O][H] head weight
   float* bhs = whs + AMAX * H;
   float* ring = bhs + AMAX;         // [2][slot]: obs, act, logp_old, adv/ret
-  const int slot = slot_floats(D, A, K);
+  const int slot = slot_floats(WIDE, D, A, K);
   float* cst = ring + 2 * slot;     // [NCST] the loss's constants
   float* wsum = cst + NCST;         // [NW][NSUM] the warps' row sums
   float* nrm = wsum + NW * NSUM;    // [2][NW] largest squared row norms of
@@ -215,13 +225,13 @@ ppo_grad_f32_kernel(const Args p) {
     const size_t r0 = (size_t)c * R;
     const int nr = min(R, B - (int)r0);
     const bool vec = p.aligned16;
-    cp::rows(dst, p.obs + r0 * D, nr * D, R * D, vec);
+    if constexpr (!WIDE) cp::rows(dst, p.obs + r0 * D, nr * D, R * D, vec);
     if (actor) {
-      cp::rows(dst + R * D, p.act + r0 * A, nr * A, R * A, vec);
-      cp::rows(dst + R * (D + A), p.logp_old + r0, nr, R, vec);
+      cp::rows(dst + R * XD, p.act + r0 * A, nr * A, R * A, vec);
+      cp::rows(dst + R * (XD + A), p.logp_old + r0, nr, R, vec);
     }
-    cp::rows(dst + R * (D + A + 1), (actor ? p.adv : p.ret) + r0 * K, nr * K,
-             R * K, vec);
+    cp::rows(dst + R * (XD + A + 1), (actor ? p.adv : p.ret) + r0 * K,
+             nr * K, R * K, vec);
     cp::commit();
   };
   fetch(g, 0);
@@ -240,6 +250,9 @@ ppo_grad_f32_kernel(const Args p) {
     for (int j = warp; j < H; j += NW) {
       float s1 = lane < D ? gW1[j * D + lane] : 0.f, s2 = 0.f;
       s1 *= s1;
+      if constexpr (WIDE)
+        for (int k = lane + 32; k < D; k += 32)
+          s1 = fmaf(gW1[j * D + k], gW1[j * D + k], s1);
       for (int k = lane; k < H; k += 32) s2 = fmaf(gW2[j * H + k],
                                                    gW2[j * H + k], s2);
 #pragma unroll
@@ -296,7 +309,13 @@ ppo_grad_f32_kernel(const Args p) {
   for (int c = g; c < n_chunks; c += G, ++it) {
     const int nr = min(R, B - c * R);
     const float* rows = ring + (it & 1) * slot;
-    const float* xs = rows;           // [R][D]
+    // [R][D]: the chunk's x in the ring, or (WIDE) in global memory, where
+    // a dead row (r >= nr) must not be read
+    const float* xs = WIDE ? p.obs + (size_t)c * R * D : rows;
+    auto xv = [&](int r, int d) {
+      return WIDE && r >= nr ? 0.f : (WIDE ? __ldg(xs + r * D + d)
+                                           : xs[r * D + d]);
+    };
     cp::wait<0>();
     // the chunk's rows have landed, and every warp has left the last chunk
     // (so the other slot and every tile are free)
@@ -309,11 +328,19 @@ ppo_grad_f32_kernel(const Args p) {
     zero(acc);
     for (int kk = 0; kk < nd; ++kk) {
       const int d = 8 * kk + 2 * q;
-      const float* x0 = xs + row_lo * D;
-      const float* x1 = xs + (row_lo + 8) * D;
-      const tf32::FragA a = tf32::frag_a(
-          d < D ? x0[d] : 0.f, d < D ? x1[d] : 0.f,
-          d + 1 < D ? x0[d + 1] : 0.f, d + 1 < D ? x1[d + 1] : 0.f);
+      tf32::FragA a;
+      if constexpr (WIDE) {
+        a = tf32::frag_a(d < D ? xv(row_lo, d) : 0.f,
+                         d < D ? xv(row_lo + 8, d) : 0.f,
+                         d + 1 < D ? xv(row_lo, d + 1) : 0.f,
+                         d + 1 < D ? xv(row_lo + 8, d + 1) : 0.f);
+      } else {
+        const float* x0 = xs + row_lo * D;
+        const float* x1 = xs + (row_lo + 8) * D;
+        a = tf32::frag_a(
+            d < D ? x0[d] : 0.f, d < D ? x1[d] : 0.f,
+            d + 1 < D ? x0[d + 1] : 0.f, d + 1 < D ? x1[d + 1] : 0.f);
+      }
 #pragma unroll
       for (int jb = 0; jb < 16; ++jb) {
         const float* w = gW1 + (8 * jb + lr) * D;
@@ -336,7 +363,8 @@ ppo_grad_f32_kernel(const Args p) {
       for (int h = 0; h < 2; ++h) {
         const float* x = xs + (row_lo + 8 * h) * D;
         float n = 0.f;
-        for (int d = 0; d < D; ++d) n = fmaf(x[d], x[d], n);
+        if (!WIDE || row_lo + 8 * h < nr)   // (a dead row's tau is 0)
+          for (int d = 0; d < D; ++d) n = fmaf(x[d], x[d], n);
         tau[h] = s1 * sqrtf(n);
       }
       uint64_t near = 0;
@@ -377,6 +405,8 @@ ppo_grad_f32_kernel(const Args p) {
         hsq[h] += __shfl_xor_sync(0xffffffffu, hsq[h], 1);
         hsq[h] += __shfl_xor_sync(0xffffffffu, hsq[h], 2);
         tau2[h] = s2 * sqrtf(hsq[h]);
+        // WIDE: a dead row's x is not read, so it is never taken again
+        if (WIDE && row_lo + 8 * h >= nr) tau2[h] = 0.f;
       }
     }
     __syncwarp();   // P1 reads the warp's own rows of h1
@@ -473,7 +503,7 @@ ppo_grad_f32_kernel(const Args p) {
         hr[a] = h ? hd[1][a] : hd[0][a];
         g_out[a] = 0.f;
       }
-      const float* tail = rows + R * (D + A + 1) + r * K;   // adv / ret
+      const float* tail = rows + R * (XD + A + 1) + r * K;  // adv / ret
       // the row's terms of the block's sums: head bias and log-sigma
       // gradients, kl, min surrogate, diff^2, ratio * cadv
       float vals[NSUM];
@@ -482,7 +512,7 @@ ppo_grad_f32_kernel(const Args p) {
       if (actor) {
         // a dead row is zero-filled, so its loss is finite; it is masked
         const ActorRow o = actor_row(
-            hr, rows + R * D + r * A, rows[R * (D + A) + r], tail, sig,
+            hr, rows + R * XD + r * A, rows[R * (XD + A) + r], tail, sig,
             cst[AMAX + MMAX], lamv, cst[AMAX + MMAX + 1], p);
 #pragma unroll
         for (int a = 0; a < AMAX; ++a) g_out[a] = live ? o.g_mu[a] : 0.f;
@@ -668,29 +698,69 @@ ppo_grad_f32_kernel(const Args p) {
     }
     __syncthreads();   // P4 reads every row of g_h1
 
-    // P4: dW1 += g_h1^T [x 1] on the warp's 16 outputs, as dW2; column D
-    // (ones) gives db1
-    float d1[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) d1[i] = 0.f;
+    if constexpr (WIDE) {
+      // P4: the chunk's g_h1^T [x 1] on the warp's 16 outputs into acc
+      // (tile nt at acc[4 nt]), added into the block's partial; column D
+      // (ones) gives db1
+      zero(acc);
 #pragma unroll 1
-    for (int ks = 0; ks < R / 8; ++ks) {
-      const int r = 8 * ks + q;
-      const float* g1 = h1s + r * WS + row_lo;
-      const tf32::FragA a =
-          tf32::frag_a(g1[0], g1[8], g1[4 * WS], g1[4 * WS + 8]);
+      for (int ks = 0; ks < R / 8; ++ks) {
+        const int r = 8 * ks + q;
+        const float* g1 = h1s + r * WS + row_lo;
+        const tf32::FragA a =
+            tf32::frag_a(g1[0], g1[8], g1[4 * WS], g1[4 * WS + 8]);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-        if (nt < n4) {
-          const int d = 8 * nt + lr;
-          const float one = d == D ? 1.f : 0.f;
-          tf32::mma3(d1 + 4 * nt, a,
-                     tf32::frag_b(d < D ? xs[r * D + d] : one,
-                                  d < D ? xs[(r + 4) * D + d] : one));
-        }
+        for (int nt = 0; nt < (DMAX + 8) / 8; ++nt)
+          if (nt < n4) {
+            const int d = 8 * nt + lr;
+            const float one = d == D ? 1.f : 0.f;
+            tf32::mma3(acc + 4 * nt, a,
+                       tf32::frag_b(d < D ? xv(r, d) : one,
+                                    d < D ? xv(r + 4, d) : one));
+          }
+      }
+      float* pW1 = out + L.local_off(tower, 0);
+      float* pb1 = out + L.local_off(tower, 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = row_lo + 8 * h;
+#pragma unroll
+        for (int nt = 0; nt < (DMAX + 8) / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = 8 * nt + 2 * q + e;
+            if (nt < n4 && d <= D) {
+              float* o = d < D ? pW1 + j * D + d : pb1 + j;
+              const float v1 = acc[4 * nt + 2 * h + e];
+              *o = it > 0 ? *o + v1 : v1;
+            }
+          }
+      }
+    } else {
+      // P4: dW1 += g_h1^T [x 1] on the warp's 16 outputs, as dW2; column D
+      // (ones) gives db1
+      float d1[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d1[i] = 0.f;
+#pragma unroll 1
+      for (int ks = 0; ks < R / 8; ++ks) {
+        const int r = 8 * ks + q;
+        const float* g1 = h1s + r * WS + row_lo;
+        const tf32::FragA a =
+            tf32::frag_a(g1[0], g1[8], g1[4 * WS], g1[4 * WS + 8]);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          if (nt < n4) {
+            const int d = 8 * nt + lr;
+            const float one = d == D ? 1.f : 0.f;
+            tf32::mma3(d1 + 4 * nt, a,
+                       tf32::frag_b(d < D ? xs[r * D + d] : one,
+                                    d < D ? xs[(r + 4) * D + d] : one));
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dW1[i] += d1[i];
     }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dW1[i] += d1[i];
   }
   __syncthreads();   // the tiles are free from here on
 
@@ -700,14 +770,17 @@ ppo_grad_f32_kernel(const Args p) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int j = row_lo + 8 * h;
+      if constexpr (!WIDE) {   // (WIDE: summed there chunk by chunk)
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+        for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int d = 8 * nt + 2 * q + e;
-          if (d < D) oW1[j * D + d] = dW1[4 * nt + 2 * h + e];
-          if (d == D) out[L.local_off(tower, 1) + j] = dW1[4 * nt + 2 * h + e];
-        }
+          for (int e = 0; e < 2; ++e) {
+            const int d = 8 * nt + 2 * q + e;
+            if (d < D) oW1[j * D + d] = dW1[4 * nt + 2 * h + e];
+            if (d == D)
+              out[L.local_off(tower, 1) + j] = dW1[4 * nt + 2 * h + e];
+          }
+      }
       if (q == 0) out[L.local_off(tower, 3) + j] = db2[h];
     }
   }
@@ -745,14 +818,22 @@ ppo_grad_f32_kernel(const Args p) {
   }
 }
 
+template <bool WIDE>
+cudaError_t launch(const Args& a, int G, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.D, a.A, a.K);
+  cudaFuncSetAttribute(ppo_grad_f32_kernel<WIDE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  ppo_grad_f32_kernel<WIDE><<<dim3(G, a.K + 1), NT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 cudaError_t launch_f32(const Args& a, int G, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.D, a.A, a.K);
-  cudaFuncSetAttribute(ppo_grad_f32_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  ppo_grad_f32_kernel<<<dim3(G, a.K + 1), NT, smem, stream>>>(a);
-  return cudaGetLastError();
+  return a.D > DMAX_F32_NARROW ? launch<true>(a, G, stream)
+                               : launch<false>(a, G, stream);
 }
+
+size_t smem_bytes_f32(int D, int A, int K) { return smem_bytes(D, A, K); }
 
 }  // namespace ppo

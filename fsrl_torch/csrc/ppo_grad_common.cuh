@@ -14,7 +14,9 @@ namespace ppo {
 constexpr int H = 128;      // hidden width (both layers)
 constexpr int R = 128;      // rows per chunk
 constexpr int NT = 256;     // threads per block
-constexpr int DMAX = 12;    // largest observation width that fits
+constexpr int DMAX = 64;    // largest observation width (both kernels)
+constexpr int DMAX_F32_NARROW = 12;   // the f32 kernel stages x in shared
+                                      // memory up to this width
 constexpr int AMAX = 4;     // largest action width
 constexpr int MMAX = 5;     // largest number of constraints
 constexpr int AUXW = 8;     // aux partial width per tower
@@ -202,7 +204,9 @@ __device__ __forceinline__ int column_of(int lane, int i) {
   return 8 * (idx >> 1) + 2 * (lane & 3) + (idx & 1);
 }
 
-// The f32 kernel's launcher (fused_ppo_grad_f32.cu).
+// The f32 kernel's launcher and its dynamic shared memory
+// (fused_ppo_grad_f32.cu).
 cudaError_t launch_f32(const Args& a, int G, cudaStream_t stream);
+size_t smem_bytes_f32(int D, int A, int K);
 
 }  // namespace ppo

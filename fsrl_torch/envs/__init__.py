@@ -2,6 +2,6 @@
 
 from fsrl_torch.envs.base import (EnvState, SafeEnv, make, register,
                                   registered_tasks)
-from fsrl_torch.envs import ant, ball, car, drone  # noqa: F401  (registers)
+from fsrl_torch.envs import ant, ball, car, drone, navigation  # noqa: F401,E501
 
 __all__ = ["EnvState", "SafeEnv", "make", "register", "registered_tasks"]

@@ -2,7 +2,8 @@
 
 The JAX envs are written for one instance and ``vmap``-ed; here every hook
 works on a batch ``(N, ...)`` directly. The JAX env carries a PRNG key per
-instance in its state; the port draws reset randomness from a
+instance in its state and splits it in every step; the port draws reset
+randomness, and the randomness of a step (a goal resampled on reach), from a
 ``torch.Generator`` the caller passes, on the generator's device.
 
 Termination follows Gymnasium: ``terminated`` (no bootstrap) vs
@@ -44,6 +45,8 @@ class SafeEnv:
     # policies emit [-1, 1]; the collector rescales to these bounds
     action_low: float = -1.0
     action_high: float = 1.0
+    # whether a step draws randomness (_draw_step / _resample)
+    draws_in_step: bool = False
 
     # --- public API ---
     def reset(self, n_envs: int, generator: torch.Generator) -> EnvState:
@@ -52,9 +55,19 @@ class SafeEnv:
         return EnvState(sim=sim, obs=self._obs(sim),
                         t=torch.zeros(n_envs, dtype=torch.int32, device=dev))
 
-    def step(self, state: EnvState, action: Tensor) -> tuple[EnvState, Timestep]:
+    def step(self, state: EnvState, action: Tensor,
+             generator: torch.Generator | None = None,
+             draws: dict | None = None) -> tuple[EnvState, Timestep]:
+        """One step of every env. An env that draws in a step
+        (``draws_in_step``) takes its draws from ``generator``, or from
+        ``draws`` where given (the parity tests pass JAX's); the others
+        ignore both."""
         action = torch.clamp(action, self.action_low, self.action_high)
         sim = self._step_sim(state.sim, action)
+        if self.draws_in_step:
+            if draws is None:
+                draws = self._draw_step(action.shape[0], generator)
+            sim = self._resample(sim, draws)
         obs = self._obs(sim)
         reward, cost = self._reward_cost(state.sim, sim, action)
         t = state.t + 1
@@ -80,7 +93,8 @@ class SafeEnv:
 
     def step_autoreset(self, state: EnvState, action: Tensor,
                        generator: torch.Generator | None = None,
-                       fresh: EnvState | None = None
+                       fresh: EnvState | None = None,
+                       draws: dict | None = None
                        ) -> tuple[EnvState, Timestep]:
         """Step with per-env auto-reset on done. The Timestep holds the true
         final-step signals (``obs`` is the final observation, for
@@ -88,8 +102,9 @@ class SafeEnv:
 
         A fresh state is drawn for every env and selected where done, so the
         step has no data-dependent shape and no host sync. ``fresh`` injects
-        the reset states (the parity tests pass JAX's)."""
-        new_state, ts = self.step(state, action)
+        the reset states and ``draws`` the step's draws (the parity tests
+        pass JAX's)."""
+        new_state, ts = self.step(state, action, generator, draws)
         if fresh is None:
             fresh = self.reset(action.shape[0], generator)
         done = ts.done
@@ -105,6 +120,15 @@ class SafeEnv:
         raise NotImplementedError
 
     def _step_sim(self, sim: dict, action: Tensor) -> dict:
+        raise NotImplementedError
+
+    def _draw_step(self, n_envs: int, generator: torch.Generator) -> dict:
+        """The draws of one step (``draws_in_step`` envs)."""
+        raise NotImplementedError
+
+    def _resample(self, sim: dict, draws: dict) -> dict:
+        """The stepped sim with the step's draws applied (a goal resampled
+        where reached)."""
         raise NotImplementedError
 
     def _obs(self, sim: dict) -> Tensor:

@@ -14,6 +14,10 @@ to bf16, each layer is a bf16 matmul followed by a bf16 bias add, and the
 trunk output is cast back to float32. The actor's mean head runs in float32
 on that output. Parameters stay float32.
 
+The recurrent PPO-Lag actor (``nets/mlp.py:279-307``): a GRU cell with
+flax's gates (no bias on the r and z gates' recurrent products) and a
+Gaussian head; its critics stay the feedforward ensemble.
+
 The off-policy nets (``nets/mlp.py:100-104,126-139,176-221``): the SAC / CVPO
 actor's state-conditioned log-sigma head, clipped to
 [``SIGMA_MIN``, ``SIGMA_MAX``]; the deterministic DDPG actor; and the
@@ -302,6 +306,97 @@ class ActorCritic(nn.Module):
         contiguous."""
         return ([f"actor.{k}" for k in self.actor_names()]
                 + [f"critics.{k}" for k in self.critic_names()])
+
+
+class GRUCell(nn.Module):
+    """flax's ``nn.GRUCell`` (input denses ``ir``, ``iz``, ``in`` with
+    biases, recurrent denses ``hr``, ``hz`` without and ``hn`` with):
+
+        r = sigmoid(x W_ir + b_ir + h W_hr)
+        z = sigmoid(x W_iz + b_iz + h W_hz)
+        n = tanh(x W_in + b_in + r * (h W_hn + b_hn))
+        h' = (1 - z) * n + z * h
+
+    The weights are stacked in ``torch.nn.GRUCell``'s gate order (r, z, n):
+    ``weight_ih`` (3H, D), ``bias_ih`` (3H), ``weight_hh`` (3H, H). Where a
+    ``torch.nn.GRUCell`` has ``bias_hh`` for all three gates this cell has
+    only the n gate's (``bias_hn``), so the r and z ones stay 0 under
+    training, as in flax. Init as flax's: LeCun-normal input weights,
+    orthogonal recurrent ones per gate, zero biases."""
+
+    def __init__(self, in_dim: int, hidden_size: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        H = hidden_size
+        self.hidden_size = H
+        # flax's lecun_normal: a normal truncated to +-2 std, std corrected
+        # for the truncation
+        std = (1.0 / in_dim) ** 0.5 / 0.87962566103423978
+        w_ih = torch.empty(3 * H, in_dim)
+        nn.init.trunc_normal_(w_ih, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        w_hh = torch.empty(3 * H, H)
+        for i in range(3):
+            nn.init.orthogonal_(w_hh[i * H:(i + 1) * H], generator=generator)
+        self.weight_ih = nn.Parameter(w_ih)
+        self.weight_hh = nn.Parameter(w_hh)
+        self.bias_ih = nn.Parameter(torch.zeros(3 * H))
+        self.bias_hn = nn.Parameter(torch.zeros(H))
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        return gru_step(x, h, self.weight_ih, self.weight_hh, self.bias_ih,
+                        self.bias_hn)
+
+
+def gru_step(x, h, weight_ih, weight_hh, bias_ih, bias_hn):
+    """One step of :class:`GRUCell` on explicit weights (the recurrent
+    update's unroll reads them as views of its flat vector)."""
+    H = h.shape[-1]
+    gi = x @ weight_ih.T + bias_ih
+    gh = h @ weight_hh.T
+    r = torch.sigmoid(gi[..., :H] + gh[..., :H])
+    z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
+    n = torch.tanh(gi[..., 2 * H:] + r * (gh[..., 2 * H:] + bias_hn))
+    return (1.0 - z) * n + z * h
+
+
+class RecurrentGaussianActor(nn.Module):
+    """GRU-backed Gaussian policy: ``forward(obs, carry)`` returns the
+    action distribution and the next carry. Mean head scaled by 0.01 at
+    init, ``max_action * tanh`` mean, free log-sigma at -0.5."""
+
+    def __init__(self, obs_dim: int, act_dim: int, hidden_size: int = 128,
+                 max_action: float = 1.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.cell = GRUCell(obs_dim, hidden_size, generator)
+        self.mu = Dense(hidden_size, act_dim, 0.01, generator)
+        self.log_sigma = nn.Parameter(torch.full((act_dim,), -0.5))
+        self.max_action = max_action
+        self.hidden_size = hidden_size
+
+    def forward(self, obs: torch.Tensor, carry: torch.Tensor):
+        h = self.cell(obs, carry)
+        mu = self.max_action * torch.tanh(self.mu(h))
+        return DiagGaussian(mean=mu, std=torch.exp(self.log_sigma).expand(
+            mu.shape)), h
+
+
+class RecurrentActorCritic(nn.Module):
+    """The recurrent PPO-Lag parameter set: a GRU actor and the feedforward
+    V-critic ensemble, behind one flat vector (actor first)."""
+
+    def __init__(self, actor: RecurrentGaussianActor,
+                 critics: VCriticEnsemble):
+        super().__init__()
+        self.actor, self.critics = actor, critics
+
+    def actor_names(self) -> list[str]:
+        return ["cell.weight_ih", "cell.weight_hh", "cell.bias_ih",
+                "cell.bias_hn", "mu.weight", "mu.bias", "log_sigma"]
+
+    critic_names = ActorCritic.critic_names
+    flat_names = ActorCritic.flat_names
 
 
 def fused_pi_v_apply(actor: GaussianActor, critics: VCriticEnsemble,

@@ -44,7 +44,7 @@ from fsrl_torch.ops import kernels
 LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 AUX_WIDTH = 8
 KERNEL_H = 128       # the kernels' tiling is written for width 128
-KERNEL_D_MAX = 12    # x and W1 are padded to one 16-deep tensor-core step
+KERNEL_D_MAX = 64    # x and W1 are padded to ceil(D / 16) 16-deep steps
 KERNEL_A_MAX = 4
 KERNEL_M_MAX = 5     # the aux row holds 3 + M sums in 8 slots
 

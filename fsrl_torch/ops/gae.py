@@ -1,5 +1,6 @@
 """GAE over joint (reward, cost, ...) value channels (port of
-``fsrl_tpu/ops/gae.py::gae_advantages``). The plain version of kernel K1:
+``fsrl_tpu/ops/gae.py::gae_advantages`` and ``discounted_returns``). The
+plain version of kernel K1:
 
     delta_t = m_t + gamma * v'_t - v_t          (v' already value-masked)
     adv_t   = delta_t + (1 - end_t) * gamma * lam * adv_{t+1}
@@ -25,3 +26,17 @@ def gae_advantages(metrics: torch.Tensor, values: torch.Tensor,
         gae = delta[t] + disc[t] * gae
         adv[t] = gae
     return adv, adv + values
+
+
+def discounted_returns(metrics: torch.Tensor, end_flag: torch.Tensor,
+                       bootstrap: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Discounted return-to-go (GAE's lam = 1 shortcut): ``metrics`` (T, N,
+    K), ``end_flag`` (T, N), ``bootstrap`` (N, K) the masked value after the
+    last step. Returns (T, N, K)."""
+    cont = (1.0 - end_flag.to(metrics.dtype))[..., None]
+    out = torch.empty_like(metrics)
+    ret = bootstrap
+    for t in range(metrics.shape[0] - 1, -1, -1):
+        ret = metrics[t] + gamma * cont[t] * ret
+        out[t] = ret
+    return out

@@ -104,6 +104,8 @@ def library() -> ctypes.CDLL:
     lib.fsrl_ppo_grad_reduce_only.argtypes = [P, P, P, I, I, I, I, P]
     lib.fsrl_ppo_grad_reduce_only.restype = I
     lib.fsrl_ppo_grad_blocks.argtypes = [I, I]
+    lib.fsrl_ppo_grad_smem_bytes.argtypes = [I, I, I, I]
+    lib.fsrl_ppo_grad_smem_bytes.restype = ctypes.c_long
     lib.fsrl_ppo_grad_tile_offset.argtypes = [I, I, I]
     lib.fsrl_gae_strip.argtypes = []
     lib.fsrl_gae_time_tile.argtypes = []

@@ -1,5 +1,6 @@
 """Welford running mean / variance (port of
-``fsrl_tpu/ops/running_stats.py``), Chan's parallel merge of a batch."""
+``fsrl_tpu/ops/running_stats.py``), Chan's parallel merge of a batch, and
+normalizing by the statistics."""
 
 from __future__ import annotations
 
@@ -32,3 +33,12 @@ class RunningMeanStd:
         m2 = (self.var * self.count + b_var * b_count
               + delta ** 2 * self.count * b_count / tot)
         return RunningMeanStd(mean=new_mean, var=m2 / tot, count=tot)
+
+    def normalize(self, x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+        return (x - self.mean) / torch.sqrt(self.var + eps)
+
+    def scale(self, x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+        return x / torch.sqrt(self.var + eps)
+
+    def unscale(self, x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+        return x * torch.sqrt(self.var + eps)

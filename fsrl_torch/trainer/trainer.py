@@ -15,8 +15,12 @@ counters.
 ``OffpolicyTrainer`` keeps a ring replay buffer on the device and runs
 ``round(update_per_step * T * N)`` sampled grad steps per collect.
 
-Not ported yet: the device mesh, ``fuse_iters``, ``rollout_unroll`` and the
-recurrent branch.
+A recurrent algorithm (one with ``init_hidden``, e.g.
+:class:`fsrl_torch.algos.ppo_lag_rnn.RecurrentPPOLag`) keeps its hidden
+state across collects, and its update gets the carry at the segment's
+start.
+
+Not ported yet: the device mesh, ``fuse_iters`` and ``rollout_unroll``.
 """
 
 from __future__ import annotations
@@ -102,6 +106,8 @@ class BaseTrainer:
         self.best_rew, self.best_cost = -np.inf, np.inf
         self.has_best = False
         self.start_time = time.time()
+        # host seconds spent in the epochs' train iterations
+        self.collect_time = 0.0
         self.last_metrics: dict = {}
 
     def _run_iter(self) -> dict:
@@ -109,7 +115,8 @@ class BaseTrainer:
 
     def test_step(self) -> tuple[float, float, float]:
         out = evaluate(self.env, self.algo.act_fn_eval, self.state.params,
-                       self.generator, self.episode_per_test)
+                       self.generator, self.episode_per_test,
+                       init_hidden=getattr(self.algo, "init_hidden", None))
         host = {k: float(v) for k, v in out.items()
                 if k in ("reward", "cost", "length")}
         self.logger.store(tab="test", **host)
@@ -133,12 +140,14 @@ class BaseTrainer:
         if self.epoch >= self.epochs:
             raise StopIteration
         self.epoch += 1
+        t0 = time.time()
         steps_this_epoch = 0
         steps_per_iter = self.T * self.n_envs
         while steps_this_epoch < self.step_per_epoch:
             self._run_iter()
             steps_this_epoch += steps_per_iter
             self.env_step += steps_per_iter
+        self.collect_time += time.time() - t0
 
         rew, cost, length = self.test_step()
         if perf_is_better(rew, cost, self.best_rew, self.best_cost,
@@ -194,19 +203,30 @@ class BaseTrainer:
 
 class OnpolicyTrainer(BaseTrainer):
     """Collect a segment, step the PID multiplier, update the policy on the
-    whole segment: the on-policy schedule, feedforward policies only."""
+    whole segment: the on-policy schedule. A recurrent algorithm's hidden
+    state carries across the collects."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
+        init_hidden = getattr(self.algo, "init_hidden", None)
+        self.recurrent = init_hidden is not None
         self.rollout = make_rollout_fn(self.env, self.algo.act_fn, self.T,
-                                       self.device)
+                                       self.device, init_hidden=init_hidden)
+        self.hidden = init_hidden(self.n_envs) if self.recurrent else None
 
     def _run_iter(self) -> dict:
         res = self.rollout(self.state.params, self.env_state,
-                           self.stats.reset_aggregates(), self.generator)
-        self.state, metrics = self.algo.update(
-            self.state, res.transitions, res.stats.mean_cost,
-            res.stats.n_episodes, self.generator)
+                           self.stats.reset_aggregates(), self.generator,
+                           hidden=self.hidden)
+        if self.recurrent:
+            self.state, metrics = self.algo.update(
+                self.state, res.transitions, res.init_hidden,
+                res.stats.mean_cost, res.stats.n_episodes, self.generator)
+            self.hidden = res.hidden
+        else:
+            self.state, metrics = self.algo.update(
+                self.state, res.transitions, res.stats.mean_cost,
+                res.stats.n_episodes, self.generator)
         self.env_state, self.stats = res.env_state, res.stats
         self._log_train(self.stats, metrics)
         return metrics

@@ -1,8 +1,9 @@
 """Metric logging (port of ``fsrl_tpu/utils/logger.py``): a running-average
 registry with tab-prefixed keys (``train/``, ``test/``, ``loss/``,
 ``update/``), an epoch-end ``write`` (tabular print, a ``progress.txt`` TSV
-and the subclass's stream, then reset), a yaml snapshot of the config next
-to the checkpoints, the step counters for resume, the no-op
+and the subclass's stream, then reset) and the streaming
+``write_without_reset``, checkpoint hooks, a yaml snapshot of the config
+next to the checkpoints, the step counters for resume, the no-op
 :class:`DummyLogger`, and the Tensorboard and wandb sinks."""
 
 from __future__ import annotations
@@ -11,21 +12,49 @@ import atexit
 import dataclasses
 import os
 import os.path as osp
-from typing import Any, Iterable, Optional
+import math
+from typing import Any, Callable, Iterable, Optional
 
 
 class RunningAverage:
-    """Running mean."""
+    """Mergeable Welford running mean and variance."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
-        self.n, self.mean = 0, 0.0
+        self.n, self.mean, self.M2 = 0, 0.0, 0.0
 
     def add(self, x: float):
         self.n += 1
-        self.mean += (x - self.mean) / self.n
+        d = x - self.mean
+        self.mean += d / self.n
+        self.M2 += d * (x - self.mean)
+
+    @property
+    def std(self) -> float:
+        """Population standard deviation; 0 below two samples."""
+        return math.sqrt(self.M2 / self.n) if self.n > 1 else 0.0
+
+    def __add__(self, other: "RunningAverage") -> "RunningAverage":
+        """The merge of two averages (Chan's parallel update)."""
+        out = RunningAverage()
+        n = self.n + other.n
+        if n:
+            delta = other.mean - self.mean
+            out.n = n
+            out.mean = self.mean + delta * other.n / n
+            out.M2 = self.M2 + other.M2 + delta ** 2 * self.n * other.n / n
+        return out
+
+
+def colorize(string: str, color: str = "green", bold: bool = False) -> str:
+    """``string`` in ANSI colour (gray, red, green, yellow, blue, magenta,
+    cyan, white; green for any other name)."""
+    colors = dict(gray=30, red=31, green=32, yellow=33, blue=34, magenta=35,
+                  cyan=36, white=37)
+    attr = [str(colors.get(color, 32))] + (["1"] if bold else [])
+    return f"\x1b[{';'.join(attr)}m{string}\x1b[0m"
 
 
 class BaseLogger:
@@ -44,11 +73,18 @@ class BaseLogger:
             atexit.register(self.output_file.close)
         self.first_row = True
         self.stats: dict[str, RunningAverage] = {}
+        self.checkpoint_fn: Optional[Callable[[Optional[str]], Any]] = None
 
     def store(self, tab: Optional[str] = None, **kwargs) -> None:
         for k, v in kwargs.items():
             key = f"{tab}/{k}" if tab else k
             self.stats.setdefault(key, RunningAverage()).add(float(v))
+
+    def get_mean(self, key: str) -> float:
+        """The running mean under ``key`` (tab included); 0 if nothing was
+        stored."""
+        ra = self.stats.get(key)
+        return ra.mean if ra and ra.n else 0.0
 
     def stats_mean(self) -> dict[str, float]:
         return {k: v.mean for k, v in self.stats.items() if v.n}
@@ -74,8 +110,25 @@ class BaseLogger:
             self.display_tabular(row, display_keys)
         self.reset()
 
+    def write_without_reset(self, step: int) -> None:
+        """Stream the running means at ``step`` and keep them."""
+        self._stream(self.stats_mean(), step)
+
     def _stream(self, row: dict[str, float], step: int) -> None:
         """Hook of the Tensorboard and wandb subclasses."""
+
+    def print(self, msg: str, color: str = "green") -> None:
+        """``msg`` in bold colour."""
+        print(colorize(msg, color, bold=True))
+
+    def setup_checkpoint_fn(self,
+                            fn: Callable[[Optional[str]], Any]) -> None:
+        """Register ``fn(suffix)``, which ``save_checkpoint`` calls."""
+        self.checkpoint_fn = fn
+
+    def save_checkpoint(self, suffix: Optional[str] = None) -> None:
+        if self.checkpoint_fn:
+            self.checkpoint_fn(suffix)
 
     def save_config(self, config: Any, verbose: bool = False) -> None:
         """Write ``config`` (a dict or a config dataclass) as
@@ -85,7 +138,7 @@ class BaseLogger:
             with open(osp.join(self.log_dir, "config.yaml"), "w") as f:
                 yaml.safe_dump(_plain(config), f, default_flow_style=False)
         if verbose:
-            print(f"config: {config}")
+            self.print(f"config: {config}")
 
     def restore_data(self) -> tuple[int, int, int]:
         """``(epoch, env_step, gradient_step)`` for resume; zeros where the
@@ -115,6 +168,15 @@ class DummyLogger(BaseLogger):
         pass
 
     def write(self, step, display=True, display_keys=None):
+        pass
+
+    def write_without_reset(self, step):
+        pass
+
+    def display_tabular(self, row, display_keys=None):
+        pass
+
+    def print(self, msg, color="green"):
         pass
 
 

@@ -17,6 +17,12 @@ This is the one place where layouts are converted:
 * the SAC / CVPO actor has a second head ``Dense_1`` (log-sigma,
   ``actor.sigma``) instead of ``log_sigma``; the DDPG actor has only
   ``Dense_0``.
+* the recurrent actor's ``GRUCell_0`` has six denses, ``i{r,z,n}`` on the
+  input with biases and ``h{r,z,n}`` on the carry, of which only ``hn`` has
+  one: their kernels ``(in, H)`` are stacked in the gate order (r, z, n)
+  into ``actor.cell.weight_ih`` (3H, in) and ``weight_hh`` (3H, H), the
+  input biases into ``bias_ih`` (3H), and ``hn``'s bias is
+  ``actor.cell.bias_hn``.
 
 Either half of a tree may be missing (a target critic, an old actor): the
 state dict then holds the other half only.
@@ -43,7 +49,16 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
     t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
     if "actor" in tree:
         ap = tree["actor"]["params"]
-        trunk = ap["MLP_0"]
+        trunk = ap.get("MLP_0", {})
+        if "GRUCell_0" in ap:
+            cell = ap["GRUCell_0"]
+            out["actor.cell.weight_ih"] = torch.cat(
+                [t(cell[f"i{g}"]["kernel"]).T for g in "rzn"]).contiguous()
+            out["actor.cell.weight_hh"] = torch.cat(
+                [t(cell[f"h{g}"]["kernel"]).T for g in "rzn"]).contiguous()
+            out["actor.cell.bias_ih"] = torch.cat(
+                [t(cell[f"i{g}"]["bias"]) for g in "rzn"])
+            out["actor.cell.bias_hn"] = t(cell["hn"]["bias"])
         for i in range(len(trunk)):
             d = trunk[f"Dense_{i}"]
             out[f"actor.trunk.layers.{i}.weight"] = t(d["kernel"]).T.contiguous()

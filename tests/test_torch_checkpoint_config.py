@@ -195,9 +195,17 @@ def test_task_presets():
     assert cfg3.cost_limit == 10.0
     assert apply_task_preset(TRPOLagCfg(task="SafetyDroneCircle-v0")
                              ).epochs == 500
-    # every task the port registers has a preset row, and no other
+    # every task the port registers has a preset row, and no other: the
+    # 9 Run / Circle / Drone / Ant tasks and the 16 navigation tasks
     assert set(TASK_TO_PRESET) == set(registered_tasks())
-    assert len(registered_tasks()) == 9
+    assert len(registered_tasks()) == 25
+    # the navigation rows, and a reference task id resolved first
+    cfg4 = apply_task_preset(PPOLagCfg(task="SafetyPointGoal1Gymnasium-v0"))
+    assert cfg4.task == "SafetyPointGoal1-v0"
+    assert (cfg4.epochs * cfg4.step_per_epoch, cfg4.cost_limit) == \
+        (5_000_000, 25.0)
+    cfg5 = apply_task_preset(PPOLagCfg(task="SafetyCarCircle2-v0"))
+    assert cfg5.epochs * cfg5.step_per_epoch == 2_000_000
 
 
 def test_trainer_checkpoints_and_resume(tmp_path):

@@ -111,7 +111,9 @@ def test_cpu_tensors_take_the_plain_version():
 def test_kernel_envelope():
     assert GradLayout(D=9, H=128, A=2, K=2).kernel_fits()
     assert not GradLayout(D=9, H=64, A=2, K=2).kernel_fits()
-    assert not GradLayout(D=40, H=128, A=2, K=2).kernel_fits()
+    # both kernel forms take every navigation task's observation (D <= 64)
+    assert GradLayout(D=64, H=128, A=4, K=6).kernel_fits()
+    assert not GradLayout(D=65, H=128, A=2, K=2).kernel_fits()
     assert PPOLag(9, 2, device="cpu").use_grad_kernel
     assert not PPOLag(9, 2, dual_clip=3.0, device="cpu").use_grad_kernel
     assert not PPOLag(9, 2, value_clip=True, device="cpu").use_grad_kernel
@@ -179,11 +181,13 @@ def test_plain_grad_matches_pallas_interpret_bf16(K):
 
 
 # the envelope's edges: most value channels, widest observation and action,
-# narrowest observation, and row counts that are no multiple of 128 (the
+# narrowest observation, the navigation tasks' widths, and row counts that are no multiple of 128 (the
 # Pallas wrapper then takes the batch as one chunk)
 EDGES = {"K6": (9, 2, 6, 256), "D12_A4": (12, 4, 2, 256),
          "D1": (1, 2, 2, 256), "rows200": (9, 2, 2, 200),
-         "rows72_K3_A3": (5, 3, 3, 72)}
+         "rows72_K3_A3": (5, 3, 3, 72),
+         # the navigation tasks' widths: Goal (21) and Button (54)
+         "D21": (21, 2, 2, 256), "D54": (54, 2, 2, 200)}
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
