@@ -6,7 +6,10 @@
 Phases, each of which must pass:
 
 0. build: compile the CUDA kernels from ``fsrl_torch/csrc`` with ``nvcc``
-   for ``sm_90a`` (ptxas' register report is printed);
+   for ``sm_90a``; K2's shared memory at the paths' shapes and corners, and
+   its largest over the whole envelope (D <= 64, A <= 8, K <= 6; fails above
+   a block's 232,448 bytes); ptxas' registers and spills of every K2
+   instance (fails if an instance that a training path launches spills);
 1. train: first one critic loss and gradient in the ensemble's form (a
    plain matmul chain per tower) against one matmul batched over the towers,
    at the whole batch and at one minibatch; then PPO-Lagrangian through the
@@ -32,6 +35,18 @@ Phases, each of which must pass:
    fallback), then 3 iterations with collect and update timed; and
    recurrent PPO-Lag (GRU 128, critics (128, 128)) on SafetyPointGoal1-v0
    at 4096 envs x 64 steps: one iteration counted (1 K1, no K2), 3 timed;
+   then the host path at the JAX package's velocity protocol over a numpy
+   stand-in for HalfCheetah (the card's machine has no gymnasium or
+   mujoco): PPO-Lag through ``HostOnpolicyTrainer`` (10 envs x 2000 steps,
+   repeat 4 x 78 minibatches of 256 rows, D 17, A 6) in f32 and bf16, one
+   epoch counted (exactly 1 K1 and 312 K2 of the matching form), 3
+   iterations timed with the collect split into env, policy and transfer;
+   SAC-Lag through ``HostOffpolicyTrainer`` (4 envs x 100 steps, 80 grad
+   steps a collect), one epoch counted (no kernel), 3 timed; the same on
+   the real SafetyHalfCheetahVelocity-v1, and a raw-MuJoCo PointGoal1
+   epoch, where gymnasium and mujoco import (else one line says so); the
+   trajectory buffer's C++ grid filter built and held to its numpy
+   version's cell coverage;
 2. update parity: one small f32 update of each of the four algorithms on
    the card against the same update on the CPU (plain versions; PPO-Lag's
    4 grad steps through the f32 K2 kernel, counted), and one f32 PPO-Lag
@@ -62,7 +77,9 @@ Phases, each of which must pass:
    corner D 64, A 4, K 6; ragged rows at D 21 and D 54), the f32 kernel on
    natural rows at D 21 and D 54 against float64, both timed at D 21 and
    D 54, and the autograd step PPO-Lag took outside the old envelope timed
-   once at D 21;
+   once at D 21; the instances for 5 to 8 actions at D 9, 17 and 64 with
+   K 6, at 256 rows and at ragged row counts, and both forms timed at the
+   host path's D 17, A 6 at 256 and 32,768 rows;
 5. off-policy: DDPG-Lagrangian, SAC-Lagrangian and CVPO through the agent
    API at the JAX package's off-policy benchmark shape
    (SafetyBallCircle-v0, 32 envs x 100 steps, 0.2 grad steps per env step,
@@ -163,23 +180,84 @@ def _timed(fn):
 SMEM_LIMIT = 232448
 
 
+def ptxas_report(log: str) -> dict:
+    """ptxas' registers and spill bytes of each K2 instance in a build's
+    output: ``{(form, KD or WIDE, AM): (registers, spill stores, spill
+    loads)}``, form "bf16" (template <KD, AM>) or "f32" (<WIDE, AM>)."""
+    import re
+    out, name, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            k = (re.search(r"ppo_grad_bf16_kernelILi(\d+)ELi(\d+)E", name)
+                 or re.search(r"ppo_grad_f32_kernelILb(\d)ELi(\d+)E", name))
+            if k:
+                form = "bf16" if "bf16" in name else "f32"
+                out[form, int(k.group(1)), int(k.group(2))] = (
+                    int(m.group(1)), *spill)
+            name, spill = None, (0, 0)
+    return out
+
+
+# The K2 instances the training paths launch, (form, KD or WIDE, AM): bf16
+# at D 9 (KD 1) and D 17 / 21 (KD 2), A <= 4 and the host path's A 6; f32
+# narrow and wide at A <= 4, and the wide-action instance
+PATH_INSTANCES = {("bf16", 1, 4), ("bf16", 2, 4), ("bf16", 2, 8),
+                  ("f32", 0, 4), ("f32", 1, 4), ("f32", 1, 8)}
+
+
 def phase_build():
+    from fsrl_torch.ops import fused_ppo_grad as fpg
     from fsrl_torch.ops import kernels
     t0 = time.time()
     so = kernels.build(verbose=True)
     lib = kernels.library()
     print(f"[build] {so.name} in {time.time() - t0:.1f} s", flush=True)
-    # K2's dynamic shared memory at the main path's shape, the navigation
-    # widths and the envelope's corners
+    # K2's dynamic shared memory at the main paths' shapes and the
+    # envelope's corners, then its largest over the whole envelope
     for D, A, K in ((9, 2, 2), (12, 4, 6), (16, 4, 6), (21, 2, 2),
-                    (54, 2, 2), (64, 4, 6)):
+                    (54, 2, 2), (64, 4, 6), (17, 6, 2), (9, 8, 6),
+                    (12, 8, 6), (16, 8, 6), (64, 8, 6)):
         b, f = (lib.fsrl_ppo_grad_smem_bytes(D, A, K, bf16)
                 for bf16 in (1, 0))
         print(f"[build] K2 shared memory at D {D}, A {A}, K {K}: bf16 {b} "
               f"bytes, f32 {f} bytes (limit {SMEM_LIMIT})", flush=True)
-        if max(b, f) > SMEM_LIMIT:
-            fail(f"K2 needs more shared memory than a block has at "
-                 f"{(D, A, K)}")
+    most = max((lib.fsrl_ppo_grad_smem_bytes(D, A, K, bf16), bf16, D, A, K)
+               for D in range(1, fpg.KERNEL_D_MAX + 1)
+               for A in range(1, fpg.KERNEL_A_MAX + 1)
+               for K in range(1, fpg.KERNEL_M_MAX + 2) for bf16 in (0, 1))
+    print(f"[build] K2 shared memory, most over the envelope (D <= "
+          f"{fpg.KERNEL_D_MAX}, A <= {fpg.KERNEL_A_MAX}, K <= "
+          f"{fpg.KERNEL_M_MAX + 1}): {most[0]} bytes ({'bf16' if most[1] else 'f32'} "
+          f"at D {most[2]}, A {most[3]}, K {most[4]})", flush=True)
+    if most[0] > SMEM_LIMIT:
+        fail(f"K2 needs more shared memory than a block has at {most[2:]}")
+    # ptxas' registers and spills of each K2 instance
+    report = {}
+    for src in ("fused_ppo_grad.cu", "fused_ppo_grad_f32.cu"):
+        report.update(ptxas_report(kernels.BUILD_LOG.get(src, "")))
+    for key in sorted(report):
+        regs, st, ld = report[key]
+        form, kd, am = key
+        what = f"KD {kd}" if form == "bf16" else ("wide" if kd else "narrow")
+        print(f"[build] K2 {form} {what} A <= {am}: {regs} registers, "
+              f"spill stores {st} bytes, loads {ld} bytes"
+              f"{' (on a training path)' if key in PATH_INSTANCES else ''}",
+              flush=True)
+    if report and not PATH_INSTANCES <= set(report):
+        fail(f"ptxas reported no K2 instance {PATH_INSTANCES - set(report)}")
+    spilled = [k for k in PATH_INSTANCES if k in report and any(report[k][1:])]
+    if spilled:
+        fail(f"K2 instances on a training path spill: {spilled}")
 
 
 def phase_train():
@@ -397,6 +475,286 @@ def phase_train_rnn():
             math.isfinite(float(v)) for _, m, _ in steps for v in m.values()):
         fail(f"[{tag}] the timed iterations launched {timed}")
     return launches
+
+
+# The host path at the JAX package's velocity protocol
+# (benchmarks/run_velocity.py:28-46, 64-110): 10 host envs x 2000 steps a
+# collect, episodes of 1000 steps, PPO-Lag with repeat 4 x (20000 // 256 =
+# 78) minibatches of 256 rows; SAC-Lag on 4 envs x 100 steps, 0.2 grad steps
+# an env step, buffer 100,000.
+HOST_TASK = "SafetyHalfCheetahVelocity-v1"
+HOST_ENVS, HOST_T, HOST_EP = 10, 2000, 1000
+HOST_OFF_ENVS, HOST_OFF_T = 4, 100
+
+
+class StandInCheetah:
+    """A numpy stand-in for HalfCheetah-v5 under Safety-Gymnasium's velocity
+    cost, for a machine without gymnasium and mujoco: HalfCheetah's widths
+    (observation 17, action 6 in [-1, 1]), truncation at 1000 steps and the
+    cost 1[|x velocity| > 3.2096]. The dynamics are a damped linear system
+    driven by the action, with its own seeded noise; observation 8 is the x
+    velocity, as in HalfCheetah's, and the reward is that velocity minus
+    0.1 |a|^2 (HalfCheetah's forward reward and control cost)."""
+
+    LIMIT = 3.2096
+
+    def __init__(self, seed: int = 0):
+        import numpy as np
+        from types import SimpleNamespace
+        self.np = np
+        g = np.random.default_rng(1000 + seed)
+        self.A = 0.9 * np.eye(17) + 0.01 * g.normal(size=(17, 17))
+        self.B = 0.5 * g.normal(size=(17, 6))
+        self.rng = np.random.default_rng(seed)
+        self.observation_space = SimpleNamespace(shape=(17,))
+        self.action_space = SimpleNamespace(
+            shape=(6,), low=-np.ones(6, np.float32),
+            high=np.ones(6, np.float32))
+        self.spec = SimpleNamespace(max_episode_steps=HOST_EP)
+        self.s, self.t = np.zeros(17), 0
+
+    def reset(self, seed=None, options=None):
+        if seed is not None:
+            self.rng = self.np.random.default_rng(seed)
+        self.s = 0.1 * self.rng.normal(size=17)
+        self.t = 0
+        return self.s.copy(), {}
+
+    def step(self, action):
+        np = self.np
+        a = np.clip(np.asarray(action, np.float64), -1.0, 1.0)
+        self.s = self.A @ self.s + self.B @ a + 0.05 * self.rng.normal(
+            size=17)
+        self.t += 1
+        vx = float(self.s[8])
+        info = {"cost": float(abs(vx) > self.LIMIT), "x_velocity": vx}
+        return (self.s.copy(), vx - 0.1 * float(a @ a), False,
+                self.t >= HOST_EP, info)
+
+    def close(self):
+        pass
+
+
+def _standin_venv(n):
+    from fsrl_torch.envs.host_env import HostVectorEnv
+    return HostVectorEnv([lambda i=i: StandInCheetah(i) for i in range(n)])
+
+
+def _host_iterations(tr, n: int = 3):
+    """``n`` collect + update iterations of a host trainer, each half timed
+    on the host clock (device drained before and after); the collect split
+    into env, policy and transfer. Returns the medians, in ms."""
+    import torch
+    rows = []
+    for _ in range(n):
+        seg, c_ms = _timed(tr.collect_segment)
+        split = dict(tr.collect_split)
+        if not seg[0].obs.is_cuda or not seg[1].is_cuda:
+            fail("the host trainer's segment is not on the card")
+        if hasattr(tr, "update_block"):
+            tr.buf_state = tr.buffer.add_segment(tr.buf_state, seg[0])
+
+            def upd():
+                tr.last_metrics = tr.update_block(seg[1], seg[2])
+        else:
+            def upd():
+                tr.state, tr.last_metrics = tr.algo.update(
+                    tr.state, *seg, tr.generator)
+        _, u_ms = _timed(upd)
+        tr._host_params = None
+        rows.append((c_ms, 1e3 * split["env"], 1e3 * split["act"],
+                     1e3 * split["transfer"], u_ms))
+        if not all(math.isfinite(float(v))
+                   for v in tr.last_metrics.values()):
+            fail(f"non-finite metrics {tr.last_metrics}")
+    med = [statistics.median(c) for c in zip(*rows)]
+    torch.cuda.synchronize()
+    return dict(zip(("collect", "env", "act", "transfer", "update"), med))
+
+
+def phase_train_host(make_venv=_standin_venv, label="stand-in", iters=3):
+    """PPO-Lag through ``HostOnpolicyTrainer`` at the velocity protocol, f32
+    and bf16: one epoch (one collect and update, and the episode-exact
+    test) with the launch counters zeroed before and read after (exactly 1
+    K1 and 312 K2 of the matching form, at D 17, A 6, 256 rows), then
+    ``iters`` iterations timed. Returns the launch counts and timings."""
+    import torch
+    from fsrl_torch.algos.ppo_lag import PPOLag
+    from fsrl_torch.ops import kernels
+    from fsrl_torch.trainer.host_trainer import HostOnpolicyTrainer
+
+    out = {}
+    n_mb = HOST_ENVS * HOST_T // 256
+    for dtype in (None, torch.bfloat16):
+        form, other = (("fused_ppo_grad", "fused_ppo_grad_f32") if dtype
+                       else ("fused_ppo_grad_f32", "fused_ppo_grad"))
+        tag = f"train host ppo_lag {'bf16' if dtype else 'f32'}"
+        venv = make_venv(HOST_ENVS)
+        algo = PPOLag(venv.observation_size, venv.action_size,
+                      cost_limit=25.0, lagrangian_pid=(0.05, 0.0005, 0.1),
+                      repeat=4, n_minibatches=n_mb, episode_len=HOST_EP,
+                      compute_dtype=dtype)
+        layout = algo.grad_layout
+        if not algo.use_grad_kernel or (layout.D, layout.A) != (17, 6):
+            fail(f"[{tag}] {layout} is not on the grad kernel's path")
+        tr = HostOnpolicyTrainer(algo, venv, epochs=1,
+                                 step_per_epoch=HOST_ENVS * HOST_T,
+                                 steps_per_collect=HOST_T,
+                                 episode_per_test=HOST_ENVS, cost_limit=25.0,
+                                 seed=0, verbose=False)
+        kernels.reset_launch_counts()
+        (_, _, info), ms = _timed(lambda: next(tr))
+        launches = dict(kernels.LAUNCHES)
+        print(f"[{tag}] {HOST_TASK} ({label}), {HOST_ENVS} envs x {HOST_T} "
+              f"steps, repeat 4 x {n_mb} minibatches of "
+              f"{HOST_ENVS * HOST_T // n_mb} rows, D {layout.D}, A "
+              f"{layout.A}: epoch (1 collect + update + test of "
+              f"{HOST_ENVS} episodes) {ms / 1e3:.2f} s; launches "
+              f"{launches}; info {info}", flush=True)
+        if not tr.state.flat.is_cuda:
+            fail(f"[{tag}] the update's state is not on the card")
+        if (launches.get("gae", 0), launches.get(form, 0),
+                launches.get(other, 0)) != (1, 4 * n_mb, 0):
+            fail(f"[{tag}] expected 1 launch of K1 and {4 * n_mb} of {form} "
+                 f"(none of {other}), got {launches}")
+        if not all(math.isfinite(float(info[k])) for k in
+                   ("test_reward", "test_cost")):
+            fail(f"[{tag}] non-finite test result {info}")
+        t = _host_iterations(tr, iters)
+        print(f"[{tag}] iteration {t['collect'] + t['update']:.2f} ms = "
+              f"collect {t['collect']:.2f} (env {t['env']:.2f}, policy "
+              f"{t['act']:.2f}, transfer {t['transfer']:.2f}) + update "
+              f"{t['update']:.2f} (medians of {iters}), "
+              f"{HOST_ENVS * HOST_T / ((t['collect'] + t['update']) / 1e3):.0f}"
+              f" env-steps/s", flush=True)
+        venv.close()
+        out[tag] = dict(launches=launches, **t)
+    return out
+
+
+def phase_train_host_sac(make_venv=_standin_venv, label="stand-in",
+                         iters=3):
+    """SAC-Lag through ``HostOffpolicyTrainer`` at the velocity protocol's
+    off-policy shape: one epoch with the counters zeroed before and read
+    after (no kernel on this path; 80 grad steps), then ``iters``
+    iterations timed, and the ms per grad step."""
+    from fsrl_torch.algos.sac_lag import SACLag
+    from fsrl_torch.ops import kernels
+    from fsrl_torch.trainer.host_trainer import HostOffpolicyTrainer
+
+    tag = "train host sac_lag"
+    venv = make_venv(HOST_OFF_ENVS)
+    algo = SACLag(venv.observation_size, venv.action_size, cost_limit=25.0)
+    tr = HostOffpolicyTrainer(algo, venv, epochs=1,
+                              step_per_epoch=HOST_OFF_ENVS * HOST_OFF_T,
+                              steps_per_collect=HOST_OFF_T,
+                              buffer_size=100000, update_per_step=0.2,
+                              episode_per_test=HOST_OFF_ENVS, cost_limit=25.0,
+                              seed=0, verbose=False)
+    kernels.reset_launch_counts()
+    (_, _, info), ms = _timed(lambda: next(tr))
+    launches = dict(kernels.LAUNCHES)
+    n_upd = tr.n_updates
+    print(f"[{tag}] {HOST_TASK} ({label}), {HOST_OFF_ENVS} envs x "
+          f"{HOST_OFF_T} steps, {n_upd} grad steps a collect, batch "
+          f"{algo.hp['batch_size']}, buffer {tr.buffer.C} x {tr.buffer.N}: "
+          f"epoch {ms / 1e3:.2f} s; launches {launches}; info {info}",
+          flush=True)
+    if n_upd != 80 or int(tr.state.gradient_steps) != n_upd:
+        fail(f"[{tag}] {int(tr.state.gradient_steps)} grad steps, "
+             f"n_updates {n_upd}")
+    if sum(launches.values()):
+        fail(f"[{tag}] a PPO kernel launched on an off-policy path")
+    t = _host_iterations(tr, iters)
+    print(f"[{tag}] iteration {t['collect'] + t['update']:.2f} ms = collect "
+          f"{t['collect']:.2f} (env {t['env']:.2f}, policy {t['act']:.2f}, "
+          f"transfer {t['transfer']:.2f}) + update {t['update']:.2f} "
+          f"({t['update'] / n_upd:.3f} ms per grad step; medians of "
+          f"{iters})", flush=True)
+    venv.close()
+    return dict(launches=launches, grad_step_ms=t["update"] / n_upd, **t)
+
+
+def phase_host_real():
+    """The host path on the real tasks where gymnasium and mujoco import:
+    one epoch and one timed iteration of PPO-Lag (f32 and bf16) and SAC-Lag
+    on SafetyHalfCheetahVelocity-v1, and one PointGoal1 (raw MuJoCo) epoch
+    of PPO-Lag. Where they do not, one line says so."""
+    try:
+        import gymnasium  # noqa: F401
+        import mujoco  # noqa: F401
+    except ImportError as e:
+        print(f"[train host real] not run: gymnasium and mujoco do not "
+              f"import here ({e}); the stand-in env took their place",
+              flush=True)
+        return None
+    import torch
+    from fsrl_torch.algos.ppo_lag import PPOLag
+    from fsrl_torch.envs.pointgoal_mj import make_pointgoal_vector_env
+    from fsrl_torch.envs.velocity import make_velocity_vector_env
+    from fsrl_torch.ops import kernels
+    from fsrl_torch.trainer.host_trainer import HostOnpolicyTrainer
+
+    real = lambda n: make_velocity_vector_env(HOST_TASK, n)
+    out = phase_train_host(real, "gymnasium HalfCheetah-v5", iters=1)
+    out["sac_lag"] = phase_train_host_sac(real, "gymnasium HalfCheetah-v5",
+                                          iters=1)
+    venv = make_pointgoal_vector_env(HOST_ENVS)
+    algo = PPOLag(venv.observation_size, venv.action_size, cost_limit=25.0,
+                  repeat=4, n_minibatches=HOST_ENVS * HOST_T // 256,
+                  episode_len=HOST_EP)
+    tr = HostOnpolicyTrainer(algo, venv, epochs=1,
+                             step_per_epoch=HOST_ENVS * HOST_T,
+                             steps_per_collect=HOST_T, episode_per_test=2,
+                             cost_limit=25.0, seed=0, verbose=False)
+    kernels.reset_launch_counts()
+    (_, _, info), ms = _timed(lambda: next(tr))
+    launches = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    print(f"[train host ppo_lag pointgoal_mj] SafetyPointGoal1 (raw MuJoCo, "
+          f"D {algo.obs_dim}), {HOST_ENVS} envs x {HOST_T} steps: epoch "
+          f"{ms / 1e3:.2f} s; launches {launches}; info {info}", flush=True)
+    if (launches.get("gae", 0), launches.get("fused_ppo_grad_f32", 0)) != \
+            (1, 4 * (HOST_ENVS * HOST_T // 256)):
+        fail(f"[train host ppo_lag pointgoal_mj] launches {launches}")
+    venv.close()
+    out["pointgoal_mj"] = launches
+    return out
+
+
+def phase_grid_filter(n_pts: int = 200_000, target: int = 4096):
+    """The trajectory buffer's C++ grid filter, built with the host's
+    compiler, against its plain numpy version on a skewed cloud of 2-D
+    points: the same count, no duplicates, and the same occupied grid
+    cells covered; both timed once on the host clock."""
+    import numpy as np
+    from fsrl_torch.data.traj_buf import TrajectoryBuffer
+    from fsrl_torch.native import build, grid_filter_native
+    t0 = time.time()
+    so = build()
+    build_s = time.time() - t0
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([0.1 * rng.normal(size=(n_pts - n_pts // 100, 2)),
+                          rng.uniform(5, 50, (n_pts // 100, 2))])
+    t0 = time.time()
+    kept = grid_filter_native(pts, target, seed=0)
+    native_ms = 1e3 * (time.time() - t0)
+    t0 = time.time()
+    plain = TrajectoryBuffer.filter_points(pts, target,
+                                           np.random.default_rng(0))
+    plain_ms = 1e3 * (time.time() - t0)
+    g = int(np.ceil(np.sqrt(target)))
+    lo, span = pts.min(0), np.maximum(pts.max(0) - pts.min(0), 1e-12)
+    cells = lambda idx: {tuple(c) for c in np.minimum(
+        (pts[idx] - lo) / span * g, g).astype(int)}
+    covered, every = cells(kept), cells(np.arange(n_pts))
+    print(f"[grid filter] {so.name} built in {build_s:.1f} s; {n_pts} points "
+          f"to {target}: native {native_ms:.1f} ms, numpy {plain_ms:.1f} ms "
+          f"(host clock); cells covered native {len(covered)}, numpy "
+          f"{len(cells(plain))}, occupied {len(every)}", flush=True)
+    if not (len(kept) == len(set(kept)) == len(plain) == target
+            and covered == cells(plain) == every):
+        fail("the native grid filter disagrees with its numpy version")
 
 
 def phase_breakdown(tr, tag="breakdown"):
@@ -1116,8 +1474,19 @@ def phase_k2_scaling(full_ms: float, bf16: bool, B: int = 32768, K: int = 2):
 def phase_k2_edges():
     """Both K2 kernels at the edges of their envelope: errors only. The
     widened envelope: x and W1 in 1 to 4 16-deep steps (D 13 to 64), the
-    f32 kernel's wide form from D 13, the corner D 64, A 4, K 6."""
+    f32 kernel's wide form from D 13, the corner D 64, A 4, K 6; the
+    instances for 5 to 8 actions at D 9, 17 and 64 with the most value
+    channels (K 6), at the host path's minibatch (256 rows), and at
+    ragged row counts."""
+    wide_a = [*(dict(K=6, B=4096, D=D, A=A) for D in (9, 17, 64)
+                for A in (6, 8)),
+              *(dict(K=2, B=256, D=D, A=A) for D in (9, 17, 64)
+                for A in (6, 8)),
+              dict(K=3, B=1000, D=17, A=6), dict(K=2, B=100, D=64, A=8),
+              dict(K=4, B=640, D=33, A=7), dict(K=2, B=200, D=9, A=5)]
     for bf16 in (True, False):
+        for kw in wide_a:
+            _k2_case(bf16=bf16, timed=False, **kw)
         for kw in (dict(K=2, B=1000), dict(K=2, B=100), dict(K=1, B=4096),
                    dict(K=6, B=4096), dict(K=2, B=4096, D=12, A=4),
                    dict(K=2, B=4096, D=1), dict(K=3, B=1000, D=5, A=3),
@@ -1497,6 +1866,11 @@ def main() -> int:
     nav_counts = phase_train_nav()
     rnn_counts = phase_train_rnn()
     mark("navigation paths")
+    host = phase_train_host()
+    host_sac = phase_train_host_sac()
+    phase_host_real()
+    phase_grid_filter()
+    mark("host paths")
     phase_update_parity()
     phase_update_parity_nav()
     mark("update parity")
@@ -1514,9 +1888,14 @@ def main() -> int:
     _k2_case(3, True)
     k2_f32 = _k2_case(2, False)
     phase_k2_scaling(k2_f32["ms"], bf16=False)
-    # the readings of the kernels before the envelope was widened
-    print(f"[K2 D 9] bf16 {k2['ms']:.4f} ms (before: 0.0687), f32 "
-          f"{k2_f32['ms']:.4f} ms (before: 0.3184)", flush=True)
+    # the main path's instances, unchanged by the wider action envelope
+    # (their readings before it, on the same card model and power limit)
+    print(f"[K2 D 9] bf16 {k2['ms']:.4f} ms (before: 0.0679), f32 "
+          f"{k2_f32['ms']:.4f} ms (before: 0.3142)", flush=True)
+    # the host path's shape (D 17, A 6) at its 256-row minibatch and at
+    # the main path's 32,768 rows
+    host_k2 = {(B, bf16): _k2_case(2, bf16, B=B, D=17, A=6)
+               for B in (256, 32768) for bf16 in (True, False)}
     wide = {(D, bf16): _k2_case(2, bf16, D=D) for D in (21, 54)
             for bf16 in (True, False)}
     phase_k2_f32_natural_rows()
@@ -1534,6 +1913,11 @@ def main() -> int:
 
     nav_f32, nav_bf16 = (nav_counts[f"train ppo_lag nav {t}"]
                          for t in ("f32", "bf16"))
+    host_f32, host_bf16 = (host[f"train host ppo_lag {t}"]["launches"]
+                           for t in ("f32", "bf16"))
+    host_ms = lambda bf16: {f"B{B}_D17_A6": {k: host_k2[B, bf16][k] for k in
+                                             ("ms", "bound_ms", "plain_ms")}
+                            for B in (256, 32768)}
     wide_ms = lambda bf16: {f"D{D}": {k: wide[D, bf16][k] for k in
                                       ("ms", "bound_ms", "plain_ms")}
                             for D in (21, 54)}
@@ -1545,23 +1929,29 @@ def main() -> int:
                  ppo_lag_bf16=launches.get("gae", 0), **gae_by_path,
                  ppo_lag_nav_f32=nav_f32.get("gae", 0),
                  ppo_lag_nav_bf16=nav_bf16.get("gae", 0),
-                 ppo_lag_rnn=rnn_counts.get("gae", 0)), **k1),
+                 ppo_lag_rnn=rnn_counts.get("gae", 0),
+                 host_ppo_lag_f32=host_f32.get("gae", 0),
+                 host_ppo_lag_bf16=host_bf16.get("gae", 0),
+                 host_sac_lag=host_sac["launches"].get("gae", 0)), **k1),
         dict(name="fused_ppo_grad", route="cuda",
              source="fsrl_torch/csrc/fused_ppo_grad.cu",
              replaces="fsrl_tpu/ops/fused_ppo_grad.py:68",
              launches=launches.get("fused_ppo_grad", 0), library_ms=None,
              launches_by_path=dict(
                  ppo_lag_bf16=launches.get("fused_ppo_grad", 0),
-                 ppo_lag_nav_bf16=nav_bf16.get("fused_ppo_grad", 0)),
-             by_width=wide_ms(True), **k2),
+                 ppo_lag_nav_bf16=nav_bf16.get("fused_ppo_grad", 0),
+                 host_ppo_lag_bf16=host_bf16.get("fused_ppo_grad", 0)),
+             by_width=wide_ms(True), host_path=host_ms(True), **k2),
         dict(name="fused_ppo_grad_f32", route="cuda",
              source="fsrl_torch/csrc/fused_ppo_grad_f32.cu",
              replaces="fsrl_tpu/ops/fused_ppo_grad.py:68",
              launches=k2_f32_launches, library_ms=None,
              launches_by_path=dict(
                  ppo_lag_f32=k2_f32_launches,
-                 ppo_lag_nav_f32=nav_f32.get("fused_ppo_grad_f32", 0)),
-             by_width=wide_ms(False), autograd_step_ms_d21=autograd_ms,
+                 ppo_lag_nav_f32=nav_f32.get("fused_ppo_grad_f32", 0),
+                 host_ppo_lag_f32=host_f32.get("fused_ppo_grad_f32", 0)),
+             by_width=wide_ms(False), host_path=host_ms(False),
+             autograd_step_ms_d21=autograd_ms,
              **k2_f32),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

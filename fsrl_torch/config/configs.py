@@ -317,19 +317,31 @@ TASK_TO_PRESET = {
     **{f"Safety{robot}{task}{lvl}-v0": mujoco_base
        for robot in ("Point", "Car") for task in ("Goal", "Button", "Push")
        for lvl in (1, 2)},
+    # Safety-Gymnasium's velocity suite (gymnasium MuJoCo on the host path)
+    "SafetyHalfCheetahVelocity-v1": mujoco_base,
+    "SafetyHopperVelocity-v1": mujoco_base,
+    "SafetySwimmerVelocity-v1": mujoco_base,
+    "SafetyWalker2dVelocity-v1": mujoco_10m,
+    "SafetyAntVelocity-v1": mujoco_10m,
+    "SafetyHumanoidVelocity-v1": mujoco_20m,
 }
 
-# Reference navigation task ids (with a "Gymnasium" infix) -> the port's.
+# Reference task ids (with a "Gymnasium" infix) -> the port's.
 TASK_ALIASES = {
     f"Safety{robot}{task}{lvl}Gymnasium-v0": f"Safety{robot}{task}{lvl}-v0"
     for robot in ("Point", "Car")
     for task in ("Circle", "Goal", "Button", "Push") for lvl in (1, 2)
 }
+TASK_ALIASES.update({
+    f"Safety{b}VelocityGymnasium-v1": f"Safety{b}Velocity-v1"
+    for b in ("HalfCheetah", "Hopper", "Swimmer", "Walker2d", "Ant",
+              "Humanoid")
+})
 
 
 def apply_task_preset(cfg):
     """Apply the task's registered budget preset to ``cfg`` in place,
-    translating a reference task id (``*Gymnasium-v0``) first."""
+    translating a reference task id (``*Gymnasium-v0``, ``-v1``) first."""
     cfg.task = TASK_ALIASES.get(cfg.task, cfg.task)
     fn = TASK_TO_PRESET.get(cfg.task)
     return fn(cfg) if fn else cfg

@@ -79,7 +79,9 @@ constexpr int NCG = H / 8;        // column groups of a 128-wide tile
 constexpr int TILE = R * H * 2;   // bytes of a 128x128 bf16 tile
 constexpr int XTILE = R * 16 * 2; // bytes of a 128x16 bf16 tile (one KD)
 constexpr int NW = NT / 32;       // warps per block
-constexpr int NSUM = 2 * AMAX + 3 + MMAX;   // per-thread sums of a block
+// the sums over a block's rows (head bias and log-sigma gradients, kl, min
+// surrogate, diff^2, ratio * cadv) at AM actions
+__host__ __device__ constexpr int nsum(int AM) { return 2 * AM + 3 + MMAX; }
 
 // 16-deep steps of x and W1 for an observation width D.
 __host__ __device__ constexpr int kd_of(int D) { return (D + 15) / 16; }
@@ -89,12 +91,21 @@ __host__ __device__ int slot_floats(int KD, int D, int A, int K) {
   return R * ((KD == 1 ? D : 0) + A + 1 + 2 * K);
 }
 // The tiles (W2, h1, g_h2, g_h1; x, once for KD = 1 and twice above; W1),
-// then the floats.
-__host__ __device__ size_t smem_bytes(int D, int A, int K) {
+// then the floats. The instance for AM = AMAX_NARROW actions keeps per-warp
+// head-weight partials; the one for AMAX keeps instead the rows' head values
+// and the loss's constants (see the kernel).
+template <int AM>
+__host__ __device__ size_t smem_bytes_am(int D, int A, int K) {
   const int KD = kd_of(D);
+  const int own = AM > AMAX_NARROW ? NW * 16 * AM + AM + MMAX + 1
+                                   : NW * AM * H;
   return 4 * TILE + (KD == 1 ? 2 : 3) * KD * XTILE +
-         sizeof(float) * (2 * H + AMAX * H + AMAX + NW * AMAX * H +
-                          2 * NW * H + 2 * slot_floats(KD, D, A, K) + NT);
+         sizeof(float) * (2 * H + AM * H + AM + own + 2 * NW * H +
+                          2 * slot_floats(KD, D, A, K) + NT);
+}
+__host__ __device__ size_t smem_bytes(int D, int A, int K) {
+  return A > AMAX_NARROW ? smem_bytes_am<AMAX>(D, A, K)
+                         : smem_bytes_am<AMAX_NARROW>(D, A, K);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -114,10 +125,20 @@ __device__ __forceinline__ void add_column_sums(float (&v)[32], int lane,
   for (int i = 0; i < 4; ++i) acc[column_of<32>(lane, i)] += v[i];
 }
 
-template <int KD>
+// AM: the actions the instance takes (A <= AM). AM = AMAX_NARROW is the
+// kernel as it was written for A <= 4. Above it (WIDE_A) a row's per-action
+// values do not fit in the registers beside h2 and dW2, so they go through
+// shared memory: the heads' outputs and gradients ([NW][16 rows][AM]), the
+// loss's constants, and the row sums, added up over the warp in each chunk
+// (actor_row_shared); and the head weight gradient's per-warp column sums
+// are staged in the g_h2 tile (free until g_h2 is written) and folded over
+// the warps, in order, into the block's partial chunk by chunk.
+template <int KD, int AM>
 __global__ void __launch_bounds__(NT, 1)
 ppo_grad_bf16_kernel(const Args p) {
   constexpr int XCG = 2 * KD;    // column groups of the x / W1 tiles
+  constexpr bool WIDE_A = AM > AMAX_NARROW;
+  constexpr int NSUM = nsum(AM);
   extern __shared__ __align__(128) unsigned char smem[];
   const int B = p.B, D = p.D, A = p.A, K = p.K;
   const Layout L{D, A, K};
@@ -142,13 +163,18 @@ ppo_grad_bf16_kernel(const Args p) {
   float* b1s = reinterpret_cast<float*>(W1t + KD * XTILE);
   float* b2s = b1s + H;
   float* whs = b2s + H;                 // [O][H] head weight
-  float* bhs = whs + AMAX * H;
-  float* pWh = bhs + AMAX;              // [NW][AMAX][H] per-warp partials
-  float* pb2 = pWh + NW * AMAX * H;     // [NW][H]
+  float* bhs = whs + AM * H;
+  float* pWh = bhs + AM;                // [NW][AM][H] per-warp partials
+                                        // (WIDE_A: none)
+  float* pb2 = pWh + (WIDE_A ? 0 : NW * AM * H);   // [NW][H]
   float* pb1 = pb2 + NW * H;            // [NW][H]
   float* ring = pb1 + NW * H;           // [2][slot]
   const int slot = slot_floats(KD, D, A, K);
-  float* red = ring + 2 * slot;         // [NT]
+  float* red = ring + 2 * slot;         // [NT] (WIDE_A: [NW][NSUM] row sums)
+  // WIDE_A: the warp's rows' head outputs, then their gradients
+  float* hw = red + NT + 16 * AM * warp;   // [16][AM]
+  float* cst = red + NT + 16 * AM * NW;    // log-sigma [AM], lambda
+                                           // [MMAX], rescale
   const uint32_t aW2 = wg::smem_addr(W2t), ah1 = wg::smem_addr(h1t),
                  ag2 = wg::smem_addr(g2t), ag1 = wg::smem_addr(g1t),
                  ax = wg::smem_addr(xt), aW1 = wg::smem_addr(W1t);
@@ -239,21 +265,32 @@ ppo_grad_bf16_kernel(const Args p) {
   for (int i = tid; i < O * H; i += NT)
     whs[i] = actor ? gWh[i] : round_bf16(gWh[i]);
   if (tid < O) bhs[tid] = gbh[tid];
-  for (int i = tid; i < NW * AMAX * H; i += NT) pWh[i] = 0.f;
+  if constexpr (WIDE_A) {
+    for (int i = tid; i < NW * NSUM; i += NT) red[i] = 0.f;
+    if (tid == 0) {
+      for (int a = 0; a < AM; ++a) cst[a] = (actor && a < A) ? gls[a] : 0.f;
+      for (int m = 0; m < MMAX; ++m) cst[AM + m] = m < M ? p.lam[m] : 0.f;
+      cst[AM + MMAX] = *p.resc;
+    }
+  } else {
+    for (int i = tid; i < NW * AM * H; i += NT) pWh[i] = 0.f;
+  }
   for (int i = tid; i < NW * H; i += NT) {
     pb2[i] = 0.f;
     pb1[i] = 0.f;
   }
 
-  float sig[AMAX], lsig_sum = 0.f, lamv[MMAX];
+  float sig[AM], lsig_sum = 0.f, lamv[MMAX];
+  if constexpr (!WIDE_A) {
 #pragma unroll
-  for (int a = 0; a < AMAX; ++a) {
-    const float ls = (actor && a < A) ? gls[a] : 0.f;
-    sig[a] = expf(ls);
-    lsig_sum += ls;
+    for (int a = 0; a < AM; ++a) {
+      const float ls = (actor && a < A) ? gls[a] : 0.f;
+      sig[a] = expf(ls);
+      lsig_sum += ls;
+    }
+#pragma unroll
+    for (int m = 0; m < MMAX; ++m) lamv[m] = m < M ? p.lam[m] : 0.f;
   }
-#pragma unroll
-  for (int m = 0; m < MMAX; ++m) lamv[m] = m < M ? p.lam[m] : 0.f;
   const float resc = *p.resc;
 
   float dW2[64], dW1[8], acc[64];
@@ -262,10 +299,10 @@ ppo_grad_bf16_kernel(const Args p) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) dW1[i] = 0.f;
   // per-thread sums over the block's rows (lanes 0 and 1 of each quad)
-  float s_bh[AMAX], s_ls[AMAX], a_c[MMAX], a_kl = 0.f, a_mins = 0.f,
-                                           a_vf = 0.f;
+  float s_bh[AM], s_ls[AM], a_c[MMAX], a_kl = 0.f, a_mins = 0.f,
+                                       a_vf = 0.f;
 #pragma unroll
-  for (int a = 0; a < AMAX; ++a) s_bh[a] = s_ls[a] = 0.f;
+  for (int a = 0; a < AM; ++a) s_bh[a] = s_ls[a] = 0.f;
 #pragma unroll
   for (int m = 0; m < MMAX; ++m) a_c[m] = 0.f;
 
@@ -364,90 +401,169 @@ ppo_grad_bf16_kernel(const Args p) {
     }
 
     // heads: a partial dot product per lane, summed over the quad
-    float hd[2][AMAX];
+    float gh[2][AM];   // (WIDE_A: the gradients are in hw)
+    if constexpr (WIDE_A) {
+      // the rows' head outputs into hw, by lane 0 of the quad
 #pragma unroll
-    for (int a = 0; a < AMAX; ++a) {
-      hd[0][a] = hd[1][a] = 0.f;
-      if (a < O) {
-        load_cols(ld, whs + a * H, q);
+      for (int a = 0; a < AM; ++a)
+        if (a < O) {
+          load_cols(ld, whs + a * H, q);
+          float o0 = 0.f, o1 = 0.f;
 #pragma unroll
-        for (int jb = 0; jb < 16; ++jb) {
-          hd[0][a] += acc[4 * jb] * ld[jb].x + acc[4 * jb + 1] * ld[jb].y;
-          hd[1][a] += acc[4 * jb + 2] * ld[jb].x + acc[4 * jb + 3] * ld[jb].y;
+          for (int jb = 0; jb < 16; ++jb) {
+            o0 += acc[4 * jb] * ld[jb].x + acc[4 * jb + 1] * ld[jb].y;
+            o1 += acc[4 * jb + 2] * ld[jb].x + acc[4 * jb + 3] * ld[jb].y;
+          }
+          o0 += __shfl_xor_sync(0xffffffffu, o0, 1);
+          o0 += __shfl_xor_sync(0xffffffffu, o0, 2);
+          o1 += __shfl_xor_sync(0xffffffffu, o1, 1);
+          o1 += __shfl_xor_sync(0xffffffffu, o1, 2);
+          if (q == 0) {
+            hw[(lane >> 2) * AM + a] = o0 + bhs[a];
+            hw[((lane >> 2) + 8) * AM + a] = o1 + bhs[a];
+          }
         }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          hd[h][a] += __shfl_xor_sync(0xffffffffu, hd[h][a], 1);
-          hd[h][a] += __shfl_xor_sync(0xffffffffu, hd[h][a], 2);
-          hd[h][a] += bhs[a];
-        }
-      }
-    }
-
-    // the row's loss and the gradient at the head's output. Every lane
-    // of a quad holds both rows' head outputs; lanes 0 and 1 of the quad
-    // take row_lo and row_lo + 8 (lanes 2 and 3 repeat them, unused).
-    float gh[2][AMAX];
-    {
+      __syncwarp();
+      // the row's loss: lanes 0 and 1 of the quad take row_lo and row_lo +
+      // 8, and write the gradient at the head's output over its output
       const int h = q & 1, r = row_lo + 8 * h;
-      const bool live = r < nr, mine = live && q < 2;
-      float hr[AMAX], g_out[AMAX];
-#pragma unroll
-      for (int a = 0; a < AMAX; ++a) {
-        hr[a] = h ? hd[1][a] : hd[0][a];
-        g_out[a] = 0.f;
-      }
+      const bool live = r < nr, own = q < 2;
+      float* hrow = hw + ((lane >> 2) + 8 * h) * AM;
+      float* wsum = red + warp * NSUM;
+      auto add = [&](int k, float v) { warp_add(wsum + k, v, lane); };
       if (actor) {
         // a dead row is zero-filled, so its loss is finite; it is masked
-        const float* adv_row = rows + R * (XD + A + 1) + r * K;
-        const ActorRow o =
-            actor_row(hr, rows + R * XD + r * A, rows[R * (XD + A) + r],
-                      adv_row, sig, lsig_sum, lamv, resc, p);
+        actor_row_shared<AM, float>(
+            hrow, hrow, own, live, rows + R * XD + r * A,
+            rows[R * (XD + A) + r], rows + R * (XD + A + 1) + r * K, cst,
+            cst + AM, cst[AM + MMAX], p, add);
+      } else {
+        float diff = 0.f, gv = 0.f;
+        if (own) {
+          diff = hrow[0] - rows[R * (XD + A + 1 + K) + r * K + (tower - 1)];
+          gv = p.gv_scale * diff;
+          hrow[0] = live ? round_bf16(gv) : 0.f;
+        }
+        add(0, own && live ? gv : 0.f);
+        add(2 * AM + 2, own && live ? diff * diff : 0.f);
+      }
+      __syncwarp();
+    } else {
+      float hd[2][AM];
 #pragma unroll
-        for (int a = 0; a < AMAX; ++a) g_out[a] = live ? o.g_mu[a] : 0.f;
-        if (mine) {
+      for (int a = 0; a < AM; ++a) {
+        hd[0][a] = hd[1][a] = 0.f;
+        if (a < O) {
+          load_cols(ld, whs + a * H, q);
 #pragma unroll
-          for (int a = 0; a < AMAX; ++a) {
-            s_bh[a] += o.g_mu[a];
-            s_ls[a] += o.g_ls[a];
+          for (int jb = 0; jb < 16; ++jb) {
+            hd[0][a] += acc[4 * jb] * ld[jb].x + acc[4 * jb + 1] * ld[jb].y;
+            hd[1][a] += acc[4 * jb + 2] * ld[jb].x + acc[4 * jb + 3] * ld[jb].y;
           }
 #pragma unroll
-          for (int m = 0; m < MMAX; ++m)
-            if (m < M) a_c[m] += o.ratio * adv_row[1 + m];
-          a_kl += o.kl;
-          a_mins += o.mins;
-        }
-      } else {
-        const float diff =
-            hr[0] - rows[R * (XD + A + 1 + K) + r * K + (tower - 1)];
-        const float gv = p.gv_scale * diff;
-        g_out[0] = live ? round_bf16(gv) : 0.f;
-        if (mine) {
-          a_vf += diff * diff;
-          s_bh[0] += gv;
+          for (int h = 0; h < 2; ++h) {
+            hd[h][a] += __shfl_xor_sync(0xffffffffu, hd[h][a], 1);
+            hd[h][a] += __shfl_xor_sync(0xffffffffu, hd[h][a], 2);
+            hd[h][a] += bhs[a];
+          }
         }
       }
+
+      // the row's loss and the gradient at the head's output. Every lane
+      // of a quad holds both rows' head outputs; lanes 0 and 1 of the quad
+      // take row_lo and row_lo + 8 (lanes 2 and 3 repeat them, unused).
+      {
+        const int h = q & 1, r = row_lo + 8 * h;
+        const bool live = r < nr, mine = live && q < 2;
+        float hr[AM], g_out[AM];
 #pragma unroll
-      for (int a = 0; a < AMAX; ++a) {
-        gh[0][a] = gh[1][a] = 0.f;
-        if (a < O) {
-          gh[0][a] = __shfl_sync(0xffffffffu, g_out[a], lane & ~3);
-          gh[1][a] = __shfl_sync(0xffffffffu, g_out[a], (lane & ~3) + 1);
+        for (int a = 0; a < AM; ++a) {
+          hr[a] = h ? hd[1][a] : hd[0][a];
+          g_out[a] = 0.f;
+        }
+        if (actor) {
+          // a dead row is zero-filled, so its loss is finite; it is masked
+          const float* adv_row = rows + R * (XD + A + 1) + r * K;
+          const ActorRow<AM> o =
+              actor_row(hr, rows + R * XD + r * A, rows[R * (XD + A) + r],
+                        adv_row, sig, lsig_sum, lamv, resc, p);
+#pragma unroll
+          for (int a = 0; a < AM; ++a) g_out[a] = live ? o.g_mu[a] : 0.f;
+          if (mine) {
+#pragma unroll
+            for (int a = 0; a < AM; ++a) {
+              s_bh[a] += o.g_mu[a];
+              s_ls[a] += o.g_ls[a];
+            }
+#pragma unroll
+            for (int m = 0; m < MMAX; ++m)
+              if (m < M) a_c[m] += o.ratio * adv_row[1 + m];
+            a_kl += o.kl;
+            a_mins += o.mins;
+          }
+        } else {
+          const float diff =
+              hr[0] - rows[R * (XD + A + 1 + K) + r * K + (tower - 1)];
+          const float gv = p.gv_scale * diff;
+          g_out[0] = live ? round_bf16(gv) : 0.f;
+          if (mine) {
+            a_vf += diff * diff;
+            s_bh[0] += gv;
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < AM; ++a) {
+          gh[0][a] = gh[1][a] = 0.f;
+          if (a < O) {
+            gh[0][a] = __shfl_sync(0xffffffffu, g_out[a], lane & ~3);
+            gh[1][a] = __shfl_sync(0xffffffffu, g_out[a], (lane & ~3) + 1);
+          }
         }
       }
     }
 
     // head weight gradient: column sums of gh[row][a] * h2[row][col]
     float v[32];
+    if constexpr (WIDE_A) {
+      // each warp's column sums staged in the g_h2 tile (free until g_h2
+      // is written below), folded over the warps in order into the block's
+      // partial: each thread alone reads and writes its entries there, the
+      // first chunk storing and later ones adding
+      float* stg = reinterpret_cast<float*>(g2t);   // [NW][AM][H]
 #pragma unroll
-    for (int a = 0; a < AMAX; ++a)
-      if (a < O) {
+      for (int a = 0; a < AM; ++a)
+        if (a < O) {
+          const float ga = hw[(lane >> 2) * AM + a];
+          const float gb = hw[((lane >> 2) + 8) * AM + a];
 #pragma unroll
-        for (int i = 0; i < 32; ++i)
-          v[i] = gh[0][a] * acc[4 * (i >> 1) + (i & 1)] +
-                 gh[1][a] * acc[4 * (i >> 1) + 2 + (i & 1)];
-        add_column_sums(v, lane, pWh + (warp * AMAX + a) * H);
+          for (int i = 0; i < 32; ++i)
+            v[i] = ga * acc[4 * (i >> 1) + (i & 1)] +
+                   gb * acc[4 * (i >> 1) + 2 + (i & 1)];
+          column_sums(v, lane);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            stg[(warp * AM + a) * H + column_of<32>(lane, i)] = v[i];
+        }
+      __syncthreads();
+      float* oWh = p.part + ((size_t)g * (K + 1) + tower) * L.tower_size(0) +
+                   L.local_off(tower, 4);
+      for (int i = tid; i < O * H; i += NT) {
+        float s = 0.f;
+        for (int w = 0; w < NW; ++w) s += stg[w * AM * H + i];
+        oWh[i] = it > 0 ? oWh[i] + s : s;
       }
+      __syncthreads();   // g_h2 takes the staging's place
+    } else {
+#pragma unroll
+      for (int a = 0; a < AM; ++a)
+        if (a < O) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            v[i] = gh[0][a] * acc[4 * (i >> 1) + (i & 1)] +
+                   gh[1][a] * acc[4 * (i >> 1) + 2 + (i & 1)];
+          add_column_sums(v, lane, pWh + (warp * AM + a) * H);
+        }
+    }
 
     // g_h2 = (gh Wh) * (h2 > 0) in place of h2; its column sums are db2,
     // and it goes to its tile in bf16
@@ -457,19 +573,21 @@ ppo_grad_bf16_kernel(const Args p) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 #pragma unroll
-      for (int a = 0; a < AMAX; ++a)
+      for (int a = 0; a < AM; ++a)
         if (a < O) {
           float2 w[8];
 #pragma unroll
           for (int i = 0; i < 8; ++i)
             w[i] = *reinterpret_cast<const float2*>(whs + a * H +
                                                     8 * (j0 + i) + 2 * q);
+          const float ga = WIDE_A ? hw[(lane >> 2) * AM + a] : gh[0][a];
+          const float gb = WIDE_A ? hw[((lane >> 2) + 8) * AM + a] : gh[1][a];
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
-            s[i][0] += gh[0][a] * w[i].x;
-            s[i][1] += gh[0][a] * w[i].y;
-            s[i][2] += gh[1][a] * w[i].x;
-            s[i][3] += gh[1][a] * w[i].y;
+            s[i][0] += ga * w[i].x;
+            s[i][1] += ga * w[i].y;
+            s[i][2] += gb * w[i].x;
+            s[i][3] += gb * w[i].y;
           }
         }
 #pragma unroll
@@ -623,31 +741,36 @@ ppo_grad_bf16_kernel(const Args p) {
     for (int w = 0; w < NW; ++w) s += src[w * H + j];
     out[L.local_off(tower, tid < H ? 1 : 3) + j] = s;
   }
-  for (int i = tid; i < O * H; i += NT) {
-    const int a = i / H, j = i % H;
-    float s = 0.f;
-    for (int w = 0; w < NW; ++w) s += pWh[(w * AMAX + a) * H + j];
-    out[L.local_off(tower, 4) + i] = s;
+  if constexpr (!WIDE_A) {   // (WIDE_A: summed there chunk by chunk)
+    for (int i = tid; i < O * H; i += NT) {
+      const int a = i / H, j = i % H;
+      float s = 0.f;
+      for (int w = 0; w < NW; ++w) s += pWh[(w * AM + a) * H + j];
+      out[L.local_off(tower, 4) + i] = s;
+    }
   }
   // the per-thread sums: over the warp by shuffles, over the warps in order
+  // (WIDE_A: the warps' sums are in red already)
   {
-    float vals[NSUM];
+    if constexpr (!WIDE_A) {
+      float vals[NSUM];
 #pragma unroll
-    for (int a = 0; a < AMAX; ++a) {
-      vals[a] = s_bh[a];
-      vals[AMAX + a] = s_ls[a];
-    }
-    vals[2 * AMAX] = a_kl;
-    vals[2 * AMAX + 1] = a_mins;
-    vals[2 * AMAX + 2] = a_vf;
+      for (int a = 0; a < AM; ++a) {
+        vals[a] = s_bh[a];
+        vals[AM + a] = s_ls[a];
+      }
+      vals[2 * AM] = a_kl;
+      vals[2 * AM + 1] = a_mins;
+      vals[2 * AM + 2] = a_vf;
 #pragma unroll
-    for (int m = 0; m < MMAX; ++m) vals[2 * AMAX + 3 + m] = a_c[m];
+      for (int m = 0; m < MMAX; ++m) vals[2 * AM + 3 + m] = a_c[m];
 #pragma unroll
-    for (int k = 0; k < NSUM; ++k) {
+      for (int k = 0; k < NSUM; ++k) {
 #pragma unroll
-      for (int s = 16; s > 0; s >>= 1)
-        vals[k] += __shfl_xor_sync(0xffffffffu, vals[k], s);
-      if (lane == 0) red[warp * NSUM + k] = vals[k];
+        for (int s = 16; s > 0; s >>= 1)
+          vals[k] += __shfl_xor_sync(0xffffffffu, vals[k], s);
+        if (lane == 0) red[warp * NSUM + k] = vals[k];
+      }
     }
     __syncthreads();
     if (tid < NSUM) {
@@ -655,16 +778,16 @@ ppo_grad_bf16_kernel(const Args p) {
       for (int w = 0; w < NW; ++w) s += red[w * NSUM + tid];
       float* oaux = p.part_aux + ((size_t)g * T + tower) * AUXW;
       const int k = tid;
-      if (k < AMAX) {
+      if (k < AM) {
         if (k < O) out[L.local_off(tower, 5) + k] = s;
-      } else if (k < 2 * AMAX) {
-        if (actor && k - AMAX < A) out[L.local_off(0, 6) + k - AMAX] = s;
-      } else if (k < 2 * AMAX + 2) {
-        if (actor) oaux[k - 2 * AMAX] = s;
-      } else if (k == 2 * AMAX + 2) {
+      } else if (k < 2 * AM) {
+        if (actor && k - AM < A) out[L.local_off(0, 6) + k - AM] = s;
+      } else if (k < 2 * AM + 2) {
+        if (actor) oaux[k - 2 * AM] = s;
+      } else if (k == 2 * AM + 2) {
         if (!actor) oaux[0] = s;
-      } else if (actor && k - (2 * AMAX + 3) < M) {
-        oaux[2 + k - (2 * AMAX + 3)] = s;
+      } else if (actor && k - (2 * AM + 3) < M) {
+        oaux[2 + k - (2 * AM + 3)] = s;
       }
     }
   }
@@ -746,13 +869,18 @@ cudaError_t launch_reduce(const float* part, const float* part_aux,
 
 __global__ void empty_kernel() {}
 
+template <int KD, int AM>
+cudaError_t launch_bf16_am(const Args& a, int G, cudaStream_t s) {
+  const size_t smem = smem_bytes_am<AM>(a.D, a.A, a.K);
+  cudaFuncSetAttribute(ppo_grad_bf16_kernel<KD, AM>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  ppo_grad_bf16_kernel<KD, AM><<<dim3(G, a.K + 1), NT, smem, s>>>(a);
+  return cudaGetLastError();
+}
 template <int KD>
 cudaError_t launch_bf16(const Args& a, int G, cudaStream_t s) {
-  const size_t smem = smem_bytes(a.D, a.A, a.K);
-  cudaFuncSetAttribute(ppo_grad_bf16_kernel<KD>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  ppo_grad_bf16_kernel<KD><<<dim3(G, a.K + 1), NT, smem, s>>>(a);
-  return cudaGetLastError();
+  return a.A > AMAX_NARROW ? launch_bf16_am<KD, AMAX>(a, G, s)
+                           : launch_bf16_am<KD, AMAX_NARROW>(a, G, s);
 }
 
 // Blocks per tower: at most the SMs shared among the towers, and no more

@@ -105,9 +105,10 @@ namespace {
 constexpr int NW = NT / 32;                 // warps per block
 constexpr int TILE = R * H;                 // floats of a 128 x 128 tile
 constexpr int WS = H + 8;                   // row stride of the W2, h1 tiles
-constexpr int NSUM = 2 * AMAX + 3 + MMAX;   // sums over the block's rows
-constexpr int NCST = AMAX + MMAX + 2;       // sigma, lambda, sum log-sigma,
-                                            // rescale
+// the sums over the block's rows at AM actions
+__host__ __device__ constexpr int nsum(int AM) { return 2 * AM + 3 + MMAX; }
+// the loss's constants: sigma, lambda, sum log-sigma, rescale
+__host__ __device__ constexpr int ncst(int AM) { return AM + MMAX + 2; }
 // A pre-activation nearer 0 than KINK times the norms of its two operand
 // rows (the row of x or h1, the largest row of W1 or W2) is taken again in
 // float64 (z1_exact, z2_exact): the products' error is well inside that
@@ -131,11 +132,19 @@ __host__ __device__ constexpr int sw(int r, int c) {
 __host__ __device__ int slot_floats(bool wide, int D, int A, int K) {
   return R * ((wide ? 0 : D) + A + 1 + K);
 }
+// The instance for AMAX actions (always WIDE) adds the rows' head values
+// ([NW][16][AM], see the kernel).
+template <bool WIDE, int AM>
+__host__ __device__ size_t smem_bytes_am(int D, int A, int K) {
+  return sizeof(float) * (2 * H * WS + TILE + 2 * H + AM * H + AM +
+                          2 * slot_floats(WIDE, D, A, K) + ncst(AM) +
+                          NW * nsum(AM) + 2 * NW +
+                          (AM > AMAX_NARROW ? NW * 16 * AM : 0));
+}
 __host__ __device__ size_t smem_bytes(int D, int A, int K) {
-  const bool wide = D > DMAX_F32_NARROW;
-  return sizeof(float) * (2 * H * WS + TILE + 2 * H + AMAX * H + AMAX +
-                          2 * slot_floats(wide, D, A, K) + NCST +
-                          NW * NSUM + 2 * NW);
+  if (A > AMAX_NARROW) return smem_bytes_am<true, AMAX>(D, A, K);
+  return D > DMAX_F32_NARROW ? smem_bytes_am<true, AMAX_NARROW>(D, A, K)
+                             : smem_bytes_am<false, AMAX_NARROW>(D, A, K);
 }
 
 __device__ __forceinline__ void zero(float (&v)[64]) {
@@ -177,9 +186,20 @@ __device__ __forceinline__ float kink_scale(const float* m) {
   return KINK * sqrtf(v);
 }
 
-template <bool WIDE>
+// AM: the actions the instance takes (A <= AM); AM = AMAX_NARROW is the
+// kernel as it was written for A <= 4. Above it (WIDE_A, with WIDE) the
+// heads' outputs and gradients go through shared memory ([NW][16 rows][AM])
+// and the row sums straight to the warps' sums (actor_row_shared), and the
+// head weight gradient's per-warp column sums are staged in the g_h2 tile
+// (free until g_h2 is written) and folded over the warps, in order, into
+// the block's partial chunk by chunk, so that no per-action array is held
+// in registers.
+template <bool WIDE, int AM>
 __global__ void __launch_bounds__(NT, 1)
 ppo_grad_f32_kernel(const Args p) {
+  constexpr bool WIDE_A = AM > AMAX_NARROW;
+  static_assert(WIDE || !WIDE_A, "the wide action instance reads x from L2");
+  constexpr int NSUM = nsum(AM), NCST = ncst(AM);
   extern __shared__ __align__(16) float sm[];
   const int B = p.B, D = p.D, A = p.A, K = p.K;
   const Layout L{D, A, K};
@@ -202,13 +222,16 @@ ppo_grad_f32_kernel(const Args p) {
   float* b1s = g2s + TILE;
   float* b2s = b1s + H;
   float* whs = b2s + H;             // [O][H] head weight
-  float* bhs = whs + AMAX * H;
-  float* ring = bhs + AMAX;         // [2][slot]: obs, act, logp_old, adv/ret
+  float* bhs = whs + AM * H;
+  float* ring = bhs + AM;           // [2][slot]: obs, act, logp_old, adv/ret
   const int slot = slot_floats(WIDE, D, A, K);
   float* cst = ring + 2 * slot;     // [NCST] the loss's constants
   float* wsum = cst + NCST;         // [NW][NSUM] the warps' row sums
   float* nrm = wsum + NW * NSUM;    // [2][NW] largest squared row norms of
                                     // W1 and W2 over each warp's rows
+  float* hw = nrm + 2 * NW + 16 * AM * warp;   // WIDE_A: [16][AM] the
+                                    // warp's rows' head outputs, then their
+                                    // gradients
 
   const float* gW1 = p.params + L.global_off(tower, 0);
   const float* gb1 = p.params + L.global_off(tower, 1);
@@ -271,19 +294,19 @@ ppo_grad_f32_kernel(const Args p) {
 
   // the loss's constants and the row sums live in shared memory, out of
   // the registers that the products need
-  const float(&sig)[AMAX] = *reinterpret_cast<const float(*)[AMAX]>(cst);
+  const float(&sig)[AM] = *reinterpret_cast<const float(*)[AM]>(cst);
   const float(&lamv)[MMAX] =
-      *reinterpret_cast<const float(*)[MMAX]>(cst + AMAX);
+      *reinterpret_cast<const float(*)[MMAX]>(cst + AM);
   if (tid == 0) {
     float lsig_sum = 0.f;
-    for (int a = 0; a < AMAX; ++a) {
+    for (int a = 0; a < AM; ++a) {
       const float ls = (actor && a < A) ? gls[a] : 0.f;
-      cst[a] = expf(ls);
+      cst[a] = WIDE_A ? ls : expf(ls);   // (WIDE_A: log-sigma)
       lsig_sum += ls;
     }
-    for (int m = 0; m < MMAX; ++m) cst[AMAX + m] = m < M ? p.lam[m] : 0.f;
-    cst[AMAX + MMAX] = lsig_sum;
-    cst[AMAX + MMAX + 1] = *p.resc;
+    for (int m = 0; m < MMAX; ++m) cst[AM + m] = m < M ? p.lam[m] : 0.f;
+    cst[AM + MMAX] = lsig_sum;
+    cst[AM + MMAX + 1] = *p.resc;
   }
   for (int i = tid; i < NW * NSUM; i += NT) wsum[i] = 0.f;
 
@@ -298,12 +321,13 @@ ppo_grad_f32_kernel(const Args p) {
   float dW1[8], db2[2] = {0.f, 0.f}, acc[64];
 #pragma unroll
   for (int i = 0; i < 8; ++i) dW1[i] = 0.f;
-  // the lane's head-weight column sums (columns column_of<32>(lane, i))
-  float cs_wh[AMAX][4];
+  // the lane's head-weight column sums (columns column_of<32>(lane, i);
+  // WIDE_A: none, see the kernel's head)
+  float cs_wh[AM][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int a = 0; a < AMAX; ++a) cs_wh[a][i] = 0.f;
+    for (int a = 0; a < AM; ++a) cs_wh[a][i] = 0.f;
 
   int it = 0;
   for (int c = g; c < n_chunks; c += G, ++it) {
@@ -469,114 +493,195 @@ ppo_grad_f32_kernel(const Args p) {
     }
 
     // heads: a partial dot product per lane, summed over the quad
-    float hd[2][AMAX];
+    float gh[2][AM];   // (WIDE_A: the gradients are in hw)
+    if constexpr (WIDE_A) {
+      // the rows' head outputs into hw, by lane 0 of the quad
 #pragma unroll
-    for (int a = 0; a < AMAX; ++a) {
-      hd[0][a] = hd[1][a] = 0.f;
-      if (a < O) {
-        float2 ld[16];
-        load_cols(ld, whs + a * H, q);
+      for (int a = 0; a < AM; ++a)
+        if (a < O) {
+          float2 ld[16];
+          load_cols(ld, whs + a * H, q);
+          float o0 = 0.f, o1 = 0.f;
 #pragma unroll
-        for (int jb = 0; jb < 16; ++jb) {
-          hd[0][a] += acc[4 * jb] * ld[jb].x + acc[4 * jb + 1] * ld[jb].y;
-          hd[1][a] += acc[4 * jb + 2] * ld[jb].x + acc[4 * jb + 3] * ld[jb].y;
+          for (int jb = 0; jb < 16; ++jb) {
+            o0 += acc[4 * jb] * ld[jb].x + acc[4 * jb + 1] * ld[jb].y;
+            o1 += acc[4 * jb + 2] * ld[jb].x + acc[4 * jb + 3] * ld[jb].y;
+          }
+          o0 += __shfl_xor_sync(0xffffffffu, o0, 1);
+          o0 += __shfl_xor_sync(0xffffffffu, o0, 2);
+          o1 += __shfl_xor_sync(0xffffffffu, o1, 1);
+          o1 += __shfl_xor_sync(0xffffffffu, o1, 2);
+          if (q == 0) {
+            hw[lr * AM + a] = o0 + bhs[a];
+            hw[(lr + 8) * AM + a] = o1 + bhs[a];
+          }
         }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          hd[h][a] += __shfl_xor_sync(0xffffffffu, hd[h][a], 1);
-          hd[h][a] += __shfl_xor_sync(0xffffffffu, hd[h][a], 2);
-          hd[h][a] += bhs[a];
-        }
-      }
-    }
-
-    // the row's loss and the gradient at the head's output. Every lane of
-    // a quad holds both rows' head outputs; lanes 0 and 1 of the quad take
-    // row_lo and row_lo + 8 (lanes 2 and 3 repeat them, unused).
-    float gh[2][AMAX];
-    {
+      __syncwarp();
+      // the row's loss: lanes 0 and 1 of the quad take row_lo and row_lo +
+      // 8, and write the gradient at the head's output over its output
       const int h = q & 1, r = row_lo + 8 * h;
-      const bool live = r < nr, mine = live && q < 2;
-      float hr[AMAX], g_out[AMAX];
-#pragma unroll
-      for (int a = 0; a < AMAX; ++a) {
-        hr[a] = h ? hd[1][a] : hd[0][a];
-        g_out[a] = 0.f;
-      }
+      const bool live = r < nr, own = q < 2;
+      float* hrow = hw + (lr + 8 * h) * AM;
       const float* tail = rows + R * (XD + A + 1) + r * K;  // adv / ret
-      // the row's terms of the block's sums: head bias and log-sigma
-      // gradients, kl, min surrogate, diff^2, ratio * cadv
-      float vals[NSUM];
-#pragma unroll
-      for (int k = 0; k < NSUM; ++k) vals[k] = 0.f;
+      auto add = [&](int k, float v) {
+        warp_add(wsum + warp * NSUM + k, v, lane);
+      };
       if (actor) {
         // a dead row is zero-filled, so its loss is finite; it is masked
-        const ActorRow o = actor_row(
-            hr, rows + R * XD + r * A, rows[R * (XD + A) + r], tail, sig,
-            cst[AMAX + MMAX], lamv, cst[AMAX + MMAX + 1], p);
-#pragma unroll
-        for (int a = 0; a < AMAX; ++a) g_out[a] = live ? o.g_mu[a] : 0.f;
-        if (mine) {
-#pragma unroll
-          for (int a = 0; a < AMAX; ++a) {
-            vals[a] = o.g_mu[a];
-            vals[AMAX + a] = o.g_ls[a];
-          }
-          vals[2 * AMAX] = o.kl;
-          vals[2 * AMAX + 1] = o.mins;
-#pragma unroll
-          for (int m = 0; m < MMAX; ++m)
-            if (m < M) vals[2 * AMAX + 3 + m] = o.ratio * tail[1 + m];
-        }
+        actor_row_shared<AM, double>(hrow, hrow, own, live,
+                                     rows + R * XD + r * A,
+                                     rows[R * (XD + A) + r], tail, cst, lamv,
+                                     cst[AM + MMAX + 1], p, add);
       } else {
-        const float diff = hr[0] - tail[tower - 1];
-        const float gv = p.gv_scale * diff;
-        g_out[0] = live ? gv : 0.f;
-        if (mine) {
-          vals[0] = gv;
-          vals[2 * AMAX + 2] = diff * diff;
+        float diff = 0.f, gv = 0.f;
+        if (own) {
+          diff = hrow[0] - tail[tower - 1];
+          gv = p.gv_scale * diff;
+          hrow[0] = live ? gv : 0.f;
         }
+        add(0, own && live ? gv : 0.f);
+        add(2 * AM + 2, own && live ? diff * diff : 0.f);
       }
-      // summed over the warp's rows by a fixed shuffle tree and added to
-      // the warp's sums (the sums this tower has, a warp-uniform choice)
+      __syncwarp();
+    } else {
+      float hd[2][AM];
 #pragma unroll
-      for (int k = 0; k < NSUM; ++k) {
-        const bool used =
-            actor ? (k < A || (k >= AMAX && k < AMAX + A) || k == 2 * AMAX ||
-                     k == 2 * AMAX + 1 ||
-                     (k >= 2 * AMAX + 3 && k < 2 * AMAX + 3 + M))
-                  : (k == 0 || k == 2 * AMAX + 2);
-        if (used) {
-          float v = vals[k];
-#pragma unroll
-          for (int s = 16; s > 0; s >>= 1)
-            v += __shfl_xor_sync(0xffffffffu, v, s);
-          if (lane == 0) wsum[warp * NSUM + k] += v;
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < AMAX; ++a) {
-        gh[0][a] = gh[1][a] = 0.f;
+      for (int a = 0; a < AM; ++a) {
+        hd[0][a] = hd[1][a] = 0.f;
         if (a < O) {
-          gh[0][a] = __shfl_sync(0xffffffffu, g_out[a], lane & ~3);
-          gh[1][a] = __shfl_sync(0xffffffffu, g_out[a], (lane & ~3) + 1);
+          float2 ld[16];
+          load_cols(ld, whs + a * H, q);
+#pragma unroll
+          for (int jb = 0; jb < 16; ++jb) {
+            hd[0][a] += acc[4 * jb] * ld[jb].x + acc[4 * jb + 1] * ld[jb].y;
+            hd[1][a] += acc[4 * jb + 2] * ld[jb].x + acc[4 * jb + 3] * ld[jb].y;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            hd[h][a] += __shfl_xor_sync(0xffffffffu, hd[h][a], 1);
+            hd[h][a] += __shfl_xor_sync(0xffffffffu, hd[h][a], 2);
+            hd[h][a] += bhs[a];
+          }
         }
       }
+
+      // the row's loss and the gradient at the head's output. Every lane of
+      // a quad holds both rows' head outputs; lanes 0 and 1 of the quad take
+      // row_lo and row_lo + 8 (lanes 2 and 3 repeat them, unused).
+      {
+        const int h = q & 1, r = row_lo + 8 * h;
+        const bool live = r < nr, mine = live && q < 2;
+        float hr[AM], g_out[AM];
+#pragma unroll
+        for (int a = 0; a < AM; ++a) {
+          hr[a] = h ? hd[1][a] : hd[0][a];
+          g_out[a] = 0.f;
+        }
+        const float* tail = rows + R * (XD + A + 1) + r * K;  // adv / ret
+        // the row's terms of the block's sums: head bias and log-sigma
+        // gradients, kl, min surrogate, diff^2, ratio * cadv
+        float vals[NSUM];
+#pragma unroll
+        for (int k = 0; k < NSUM; ++k) vals[k] = 0.f;
+        if (actor) {
+          // a dead row is zero-filled, so its loss is finite; it is masked
+          const ActorRow<AM> o = actor_row(
+              hr, rows + R * XD + r * A, rows[R * (XD + A) + r], tail, sig,
+              cst[AM + MMAX], lamv, cst[AM + MMAX + 1], p);
+#pragma unroll
+          for (int a = 0; a < AM; ++a) g_out[a] = live ? o.g_mu[a] : 0.f;
+          if (mine) {
+#pragma unroll
+            for (int a = 0; a < AM; ++a) {
+              vals[a] = o.g_mu[a];
+              vals[AM + a] = o.g_ls[a];
+            }
+            vals[2 * AM] = o.kl;
+            vals[2 * AM + 1] = o.mins;
+#pragma unroll
+            for (int m = 0; m < MMAX; ++m)
+              if (m < M) vals[2 * AM + 3 + m] = o.ratio * tail[1 + m];
+          }
+        } else {
+          const float diff = hr[0] - tail[tower - 1];
+          const float gv = p.gv_scale * diff;
+          g_out[0] = live ? gv : 0.f;
+          if (mine) {
+            vals[0] = gv;
+            vals[2 * AM + 2] = diff * diff;
+          }
+        }
+        // summed over the warp's rows by a fixed shuffle tree and added to
+        // the warp's sums (the sums this tower has, a warp-uniform choice)
+#pragma unroll
+        for (int k = 0; k < NSUM; ++k) {
+          const bool used =
+              actor ? (k < A || (k >= AM && k < AM + A) || k == 2 * AM ||
+                       k == 2 * AM + 1 ||
+                       (k >= 2 * AM + 3 && k < 2 * AM + 3 + M))
+                    : (k == 0 || k == 2 * AM + 2);
+          if (used) {
+            float v = vals[k];
+#pragma unroll
+            for (int s = 16; s > 0; s >>= 1)
+              v += __shfl_xor_sync(0xffffffffu, v, s);
+            if (lane == 0) wsum[warp * NSUM + k] += v;
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < AM; ++a) {
+          gh[0][a] = gh[1][a] = 0.f;
+          if (a < O) {
+            gh[0][a] = __shfl_sync(0xffffffffu, g_out[a], lane & ~3);
+            gh[1][a] = __shfl_sync(0xffffffffu, g_out[a], (lane & ~3) + 1);
+          }
+        }
+      }
+
     }
 
     // head weight gradient: column sums of gh[row][a] * h2[row][col]
     float v[32];
+    if constexpr (WIDE_A) {
+      // each warp's column sums staged in the g_h2 tile (free until g_h2
+      // is written below), folded over the warps in order into the block's
+      // partial: each thread alone reads and writes its entries there, the
+      // first chunk storing and later ones adding
+      float* stg = g2s;   // [NW][AM][H]
 #pragma unroll
-    for (int a = 0; a < AMAX; ++a)
-      if (a < O) {
+      for (int a = 0; a < AM; ++a)
+        if (a < O) {
+          const float ga = hw[lr * AM + a], gb = hw[(lr + 8) * AM + a];
 #pragma unroll
-        for (int i = 0; i < 32; ++i)
-          v[i] = gh[0][a] * acc[4 * (i >> 1) + (i & 1)] +
-                 gh[1][a] * acc[4 * (i >> 1) + 2 + (i & 1)];
-        column_sums(v, lane);
+          for (int i = 0; i < 32; ++i)
+            v[i] = ga * acc[4 * (i >> 1) + (i & 1)] +
+                   gb * acc[4 * (i >> 1) + 2 + (i & 1)];
+          column_sums(v, lane);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) cs_wh[a][i] += v[i];
+          for (int i = 0; i < 4; ++i)
+            stg[(warp * AM + a) * H + column_of<32>(lane, i)] = v[i];
+        }
+      __syncthreads();
+      float* oWh = out + L.local_off(tower, 4);
+      for (int i = tid; i < O * H; i += NT) {
+        float s = 0.f;
+        for (int w = 0; w < NW; ++w) s += stg[w * AM * H + i];
+        oWh[i] = it > 0 ? oWh[i] + s : s;
       }
+      __syncthreads();   // g_h2 takes the staging's place
+    } else {
+#pragma unroll
+      for (int a = 0; a < AM; ++a)
+        if (a < O) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            v[i] = gh[0][a] * acc[4 * (i >> 1) + (i & 1)] +
+                   gh[1][a] * acc[4 * (i >> 1) + 2 + (i & 1)];
+          column_sums(v, lane);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) cs_wh[a][i] += v[i];
+        }
+    }
 
     // g_h2 = (gh Wh) * (h2 > 0) in place of h2, into its tile
 #pragma unroll
@@ -585,19 +690,21 @@ ppo_grad_f32_kernel(const Args p) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 #pragma unroll
-      for (int a = 0; a < AMAX; ++a)
+      for (int a = 0; a < AM; ++a)
         if (a < O) {
           float2 w[8];
 #pragma unroll
           for (int i = 0; i < 8; ++i)
             w[i] = *reinterpret_cast<const float2*>(whs + a * H +
                                                     8 * (j0 + i) + 2 * q);
+          const float ga = WIDE_A ? hw[lr * AM + a] : gh[0][a];
+          const float gb = WIDE_A ? hw[(lr + 8) * AM + a] : gh[1][a];
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
-            s[i][0] += gh[0][a] * w[i].x;
-            s[i][1] += gh[0][a] * w[i].y;
-            s[i][2] += gh[1][a] * w[i].x;
-            s[i][3] += gh[1][a] * w[i].y;
+            s[i][0] += ga * w[i].x;
+            s[i][1] += ga * w[i].y;
+            s[i][2] += gb * w[i].x;
+            s[i][3] += gb * w[i].y;
           }
         }
 #pragma unroll
@@ -785,18 +892,20 @@ ppo_grad_f32_kernel(const Args p) {
     }
   }
   // the lanes' head-weight column sums, per warp, summed over the warps in
-  // order
-  float* pcol = sm;                      // [NW][AMAX][H]
+  // order (WIDE_A: summed there chunk by chunk)
+  if constexpr (!WIDE_A) {
+    float* pcol = sm;                      // [NW][AM][H]
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int a = 0; a < AMAX; ++a)
-      pcol[(warp * AMAX + a) * H + column_of<32>(lane, i)] = cs_wh[a][i];
-  __syncthreads();
-  for (int i = tid; i < O * H; i += NT) {
-    float s = 0.f;
-    for (int w = 0; w < NW; ++w) s += pcol[w * AMAX * H + i];
-    out[L.local_off(tower, 4) + i] = s;
+      for (int a = 0; a < AM; ++a)
+        pcol[(warp * AM + a) * H + column_of<32>(lane, i)] = cs_wh[a][i];
+    __syncthreads();
+    for (int i = tid; i < O * H; i += NT) {
+      float s = 0.f;
+      for (int w = 0; w < NW; ++w) s += pcol[w * AM * H + i];
+      out[L.local_off(tower, 4) + i] = s;
+    }
   }
   // the row sums, over the warps in order
   if (tid < NSUM) {
@@ -804,34 +913,37 @@ ppo_grad_f32_kernel(const Args p) {
     for (int w = 0; w < NW; ++w) s += wsum[w * NSUM + tid];
     float* oaux = p.part_aux + ((size_t)g * T + tower) * AUXW;
     const int k = tid;
-    if (k < AMAX) {
+    if (k < AM) {
       if (k < O) out[L.local_off(tower, 5) + k] = s;
-    } else if (k < 2 * AMAX) {
-      if (actor && k - AMAX < A) out[L.local_off(0, 6) + k - AMAX] = s;
-    } else if (k < 2 * AMAX + 2) {
-      if (actor) oaux[k - 2 * AMAX] = s;
-    } else if (k == 2 * AMAX + 2) {
+    } else if (k < 2 * AM) {
+      if (actor && k - AM < A) out[L.local_off(0, 6) + k - AM] = s;
+    } else if (k < 2 * AM + 2) {
+      if (actor) oaux[k - 2 * AM] = s;
+    } else if (k == 2 * AM + 2) {
       if (!actor) oaux[0] = s;
-    } else if (actor && k - (2 * AMAX + 3) < M) {
-      oaux[2 + k - (2 * AMAX + 3)] = s;
+    } else if (actor && k - (2 * AM + 3) < M) {
+      oaux[2 + k - (2 * AM + 3)] = s;
     }
   }
 }
 
-template <bool WIDE>
+template <bool WIDE, int AM>
 cudaError_t launch(const Args& a, int G, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.D, a.A, a.K);
-  cudaFuncSetAttribute(ppo_grad_f32_kernel<WIDE>,
+  const size_t smem = smem_bytes_am<WIDE, AM>(a.D, a.A, a.K);
+  cudaFuncSetAttribute(ppo_grad_f32_kernel<WIDE, AM>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  ppo_grad_f32_kernel<WIDE><<<dim3(G, a.K + 1), NT, smem, stream>>>(a);
+  ppo_grad_f32_kernel<WIDE, AM><<<dim3(G, a.K + 1), NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// Above AMAX_NARROW actions the wide form (x read from L2) at any D: the
+// narrow form's x in the ring and the wider head leave no room at D 12.
 cudaError_t launch_f32(const Args& a, int G, cudaStream_t stream) {
-  return a.D > DMAX_F32_NARROW ? launch<true>(a, G, stream)
-                               : launch<false>(a, G, stream);
+  if (a.A > AMAX_NARROW) return launch<true, AMAX>(a, G, stream);
+  return a.D > DMAX_F32_NARROW ? launch<true, AMAX_NARROW>(a, G, stream)
+                               : launch<false, AMAX_NARROW>(a, G, stream);
 }
 
 size_t smem_bytes_f32(int D, int A, int K) { return smem_bytes(D, A, K); }

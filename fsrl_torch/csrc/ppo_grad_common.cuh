@@ -17,7 +17,9 @@ constexpr int NT = 256;     // threads per block
 constexpr int DMAX = 64;    // largest observation width (both kernels)
 constexpr int DMAX_F32_NARROW = 12;   // the f32 kernel stages x in shared
                                       // memory up to this width
-constexpr int AMAX = 4;     // largest action width
+constexpr int AMAX = 8;     // largest action width (both kernels)
+constexpr int AMAX_NARROW = 4;   // up to this action width the kernels keep
+                                 // a row's per-action values in registers
 constexpr int MMAX = 5;     // largest number of constraints
 constexpr int AUXW = 8;     // aux partial width per tower
 
@@ -72,17 +74,19 @@ struct Args {
 // gradient at the mean head's output, per-row d loss / d log-sigma, and the
 // row's aux terms. Tie conventions are JAX's: d min(s1, s2) splits 0.5/0.5
 // where s1 == s2, and the clip passes 0.5 where ratio == 1 +- eps.
+template <int AM>
 struct ActorRow {
-  float g_mu[AMAX], g_ls[AMAX], kl, mins, ratio;
+  float g_mu[AM], g_ls[AM], kl, mins, ratio;
 };
-__device__ __forceinline__ ActorRow actor_row(
-    const float (&s)[AMAX], const float* act_row, float logp_old,
-    const float* adv_row, const float (&sig)[AMAX], float lsig_sum,
+template <int AM>
+__device__ __forceinline__ ActorRow<AM> actor_row(
+    const float (&s)[AM], const float* act_row, float logp_old,
+    const float* adv_row, const float (&sig)[AM], float lsig_sum,
     const float (&lamv)[MMAX], float resc, const Args& a) {
-  ActorRow o;
-  float mu[AMAX], z[AMAX], sq = 0.f;
+  ActorRow<AM> o;
+  float mu[AM], z[AM], sq = 0.f;
 #pragma unroll
-  for (int i = 0; i < AMAX; ++i)
+  for (int i = 0; i < AM; ++i)
     if (i < a.A) {
       mu[i] = tanhf(s[i]);
       z[i] = (act_row[i] - mu[i]) / sig[i];
@@ -107,7 +111,7 @@ __device__ __forceinline__ ActorRow actor_row(
   const float g_ratio = resc * (-dmin + lsum) / (float)a.B;
   const float g_logp = g_ratio * ratio;
 #pragma unroll
-  for (int i = 0; i < AMAX; ++i)
+  for (int i = 0; i < AM; ++i)
     if (i < a.A) {
       o.g_mu[i] = g_logp * (z[i] / sig[i]) * (1.f - mu[i] * mu[i]);
       o.g_ls[i] = g_logp * (z[i] * z[i] - 1.f);
@@ -119,6 +123,98 @@ __device__ __forceinline__ ActorRow actor_row(
   o.mins = fminf(s1, s2);
   o.ratio = ratio;
   return o;
+}
+
+// Adds the sum of v over the warp (a fixed shuffle tree) to *dst, by
+// lane 0. The whole warp calls it.
+__device__ __forceinline__ void warp_add(float* dst, float v, int lane) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (lane == 0) *dst += v;
+}
+
+__device__ __forceinline__ float r_exp(float x) { return expf(x); }
+__device__ __forceinline__ double r_exp(double x) { return exp(x); }
+__device__ __forceinline__ float r_tanh(float x) { return tanhf(x); }
+__device__ __forceinline__ double r_tanh(double x) { return tanh(x); }
+
+// actor_row for the instances above AMAX_NARROW actions, which hold no
+// per-action array in registers: the row's pre-tanh means s[0, A) are read
+// from shared memory twice (for the log-prob, then for the gradient), the
+// gradient at the head's output goes to g_out (shared memory, 0 on a dead
+// row), and each of the row's terms goes straight to add(k, v), a sum over
+// the warp that every lane calls with the same k: k < AM the head bias
+// gradient, AM + i d loss / d log-sigma_i, 2 AM kl, 2 AM + 1 the min
+// surrogate, 2 AM + 3 + m ratio * cadv_m. Only a lane with `own` reads s
+// and writes g_out (one lane a row); the others add zeros. `ls` is the
+// log-sigma vector. The row's arithmetic is in Real: float, as actor_row,
+// or double (the f32 kernel), where the log-prob's float32 rounding (its
+// constant terms are rounded alike in every row, so their errors add up
+// over the rows) would otherwise dominate the aux sums' error.
+template <int AM, class Real, class Add>
+__device__ __forceinline__ void actor_row_shared(
+    const float* s, float* g_out, bool own, bool live, const float* act_row,
+    float logp_old, const float* adv_row, const float* ls, const float* lamv,
+    float resc, const Args& a, Add&& add) {
+  Real lsig_sum = 0;
+#pragma unroll
+  for (int i = 0; i < AM; ++i)
+    if (i < a.A) lsig_sum += (Real)ls[i];
+  Real sq = 0;
+  if (own) {
+#pragma unroll
+    for (int i = 0; i < AM; ++i)
+      if (i < a.A) {
+        const Real mu = r_tanh((Real)s[i]);
+        const Real z = ((Real)act_row[i] - mu) / r_exp((Real)ls[i]);
+        sq += (Real)-0.5 * z * z;
+      }
+  }
+  const Real c = sizeof(Real) == sizeof(float)
+                     ? (Real)a.a_log_sqrt_2pi
+                     : (Real)a.A * (Real)0.91893853320467274178;
+  const Real logp = sq - lsig_sum - c;
+  const Real ratio = r_exp(logp - (Real)logp_old);
+  const Real advr = adv_row[0];
+  const Real lo = a.clip_lo, hi = a.clip_hi;
+  const Real rc = ratio < lo ? lo : (ratio > hi ? hi : ratio);
+  const Real s1 = ratio * advr, s2 = rc * advr;
+  const Real w1 = s1 < s2 ? (Real)1 : (s1 == s2 ? (Real)0.5 : (Real)0);
+  const Real w2 = (Real)1 - w1;
+  const Real inside = (ratio > lo && ratio < hi)
+                          ? (Real)1
+                          : ((ratio == lo || ratio == hi) ? (Real)0.5
+                                                          : (Real)0);
+  const Real dmin = advr * (w1 + w2 * inside);
+  Real lsum = 0;
+#pragma unroll
+  for (int m = 0; m < MMAX; ++m)
+    if (m < a.K - 1) lsum += (Real)adv_row[1 + m] * (Real)lamv[m];
+  const Real g_ratio = (Real)resc * (-dmin + lsum) / (Real)a.B;
+  const Real g_logp = g_ratio * ratio;
+  const bool mine = own && live;
+#pragma unroll
+  for (int i = 0; i < AM; ++i)
+    if (i < a.A) {
+      float gm = 0.f, gl = 0.f;
+      if (own) {
+        const Real sig = r_exp((Real)ls[i]);
+        const Real mu = r_tanh((Real)s[i]);
+        const Real z = ((Real)act_row[i] - mu) / sig;
+        gm = (float)(g_logp * (z / sig) * ((Real)1 - mu * mu));
+        gl = (float)(g_logp * (z * z - (Real)1));
+        g_out[i] = live ? gm : 0.f;
+      }
+      add(i, mine ? gm : 0.f);
+      add(AM + i, mine ? gl : 0.f);
+    }
+  add(2 * AM, mine ? (float)((Real)logp_old - logp) : 0.f);
+  add(2 * AM + 1, mine ? (float)(s1 < s2 ? s1 : s2) : 0.f);
+#pragma unroll
+  for (int m = 0; m < MMAX; ++m)
+    if (m < a.K - 1)
+      add(2 * AM + 3 + m,
+          mine ? (float)(ratio * (Real)adv_row[1 + m]) : 0.f);
 }
 
 // Asynchronous copies of a chunk's rows into shared memory.

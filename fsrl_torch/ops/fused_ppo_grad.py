@@ -45,7 +45,9 @@ LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 AUX_WIDTH = 8
 KERNEL_H = 128       # the kernels' tiling is written for width 128
 KERNEL_D_MAX = 64    # x and W1 are padded to ceil(D / 16) 16-deep steps
-KERNEL_A_MAX = 4
+KERNEL_A_MAX = 8     # the kernels' instances for A <= 4 hold a row's
+                     # per-action values in registers, those for A <= 8 in
+                     # shared memory
 KERNEL_M_MAX = 5     # the aux row holds 3 + M sums in 8 slots
 
 
@@ -88,7 +90,9 @@ class GradLayout:
         return out
 
     def kernel_fits(self) -> bool:
-        """Shapes the CUDA kernel takes."""
+        """Shapes the CUDA kernels take: every (D, A, K) here fits a
+        block's shared memory in both forms (``chip_smoke.py``'s build
+        phase checks the whole set)."""
         return (self.H == KERNEL_H and 1 <= self.D <= KERNEL_D_MAX
                 and 1 <= self.A <= KERNEL_A_MAX
                 and 1 <= self.K <= KERNEL_M_MAX + 1)

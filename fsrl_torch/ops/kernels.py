@@ -37,6 +37,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+# the compiler's output for each source of the last build in this process
+# (ptxas' register and spill report)
+BUILD_LOG: dict[str, str] = {}
 
 
 def reset_launch_counts() -> None:
@@ -74,6 +77,7 @@ def build(verbose: bool = False) -> Path:
         failed = []
         for s, p in procs:
             out, _ = p.communicate()
+            BUILD_LOG[s] = out
             if verbose and out:
                 print(f"[nvcc {s}]\n{out}", flush=True)
             if p.returncode != 0:

@@ -1,7 +1,9 @@
 """Training loops."""
 
+from fsrl_torch.trainer.host_trainer import (HostOffpolicyTrainer,
+                                            HostOnpolicyTrainer)
 from fsrl_torch.trainer.trainer import (BaseTrainer, OffpolicyTrainer,
                                        OnpolicyTrainer, perf_is_better)
 
-__all__ = ["BaseTrainer", "OffpolicyTrainer", "OnpolicyTrainer",
-           "perf_is_better"]
+__all__ = ["BaseTrainer", "HostOffpolicyTrainer", "HostOnpolicyTrainer",
+           "OffpolicyTrainer", "OnpolicyTrainer", "perf_is_better"]

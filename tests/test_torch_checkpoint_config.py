@@ -195,10 +195,19 @@ def test_task_presets():
     assert cfg3.cost_limit == 10.0
     assert apply_task_preset(TRPOLagCfg(task="SafetyDroneCircle-v0")
                              ).epochs == 500
-    # every task the port registers has a preset row, and no other: the
-    # 9 Run / Circle / Drone / Ant tasks and the 16 navigation tasks
-    assert set(TASK_TO_PRESET) == set(registered_tasks())
-    assert len(registered_tasks()) == 25
+    # every task the port has gets a preset row, and no other: the 9 Run /
+    # Circle / Drone / Ant tasks and the 16 navigation tasks (batched), and
+    # the 6 velocity tasks (host envs)
+    from fsrl_torch.envs.velocity import velocity_tasks
+    assert set(TASK_TO_PRESET) == set(registered_tasks()) | set(
+        velocity_tasks())
+    assert len(registered_tasks()) == 25 and len(velocity_tasks()) == 6
+    # the velocity rows, and a reference velocity id resolved first
+    cfg6 = apply_task_preset(PPOLagCfg(
+        task="SafetyWalker2dVelocityGymnasium-v1"))
+    assert cfg6.task == "SafetyWalker2dVelocity-v1"
+    assert (cfg6.epochs * cfg6.step_per_epoch, cfg6.cost_limit) == \
+        (10_000_000, 25.0)
     # the navigation rows, and a reference task id resolved first
     cfg4 = apply_task_preset(PPOLagCfg(task="SafetyPointGoal1Gymnasium-v0"))
     assert cfg4.task == "SafetyPointGoal1-v0"

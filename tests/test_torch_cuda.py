@@ -170,11 +170,14 @@ def test_gae_kernel_equals_plain_bit_for_bit(cuda, T, N, K):
 
 
 # the edges of the kernels' envelope, and the main path's shape; the
-# navigation tasks' widths (Goal 21, Button 54) and the widest corner
+# navigation tasks' widths (Goal 21, Button 54) and the widest corner; the
+# instances for 5 to 8 actions: the host path's minibatch (256 rows, D 17,
+# A 6), the corners at 8 actions and a ragged row count
 ENVELOPE_EDGES = [
     (1000, 9, 2, 2), (100, 9, 2, 2), (4096, 9, 2, 1), (4096, 9, 2, 6),
     (4096, 12, 4, 2), (4096, 1, 2, 2), (1000, 5, 3, 3), (32768, 9, 2, 2),
-    (4096, 21, 2, 2), (1000, 54, 2, 2), (4096, 64, 4, 6)]
+    (4096, 21, 2, 2), (1000, 54, 2, 2), (4096, 64, 4, 6),
+    (256, 17, 6, 2), (4096, 9, 8, 6), (4096, 64, 8, 6), (1000, 33, 5, 3)]
 
 
 def _check_at_shape(cuda, B, D, A, K, bf16):

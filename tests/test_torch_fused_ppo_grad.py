@@ -114,6 +114,12 @@ def test_kernel_envelope():
     # both kernel forms take every navigation task's observation (D <= 64)
     assert GradLayout(D=64, H=128, A=4, K=6).kernel_fits()
     assert not GradLayout(D=65, H=128, A=2, K=2).kernel_fits()
+    # and up to 8 actions (the velocity suite but Humanoid's 17)
+    assert GradLayout(D=17, H=128, A=6, K=2).kernel_fits()
+    assert GradLayout(D=64, H=128, A=8, K=6).kernel_fits()
+    assert not GradLayout(D=9, H=128, A=9, K=2).kernel_fits()
+    assert PPOLag(17, 6, device="cpu").use_grad_kernel
+    assert not PPOLag(17, 9, device="cpu").use_grad_kernel
     assert PPOLag(9, 2, device="cpu").use_grad_kernel
     assert not PPOLag(9, 2, dual_clip=3.0, device="cpu").use_grad_kernel
     assert not PPOLag(9, 2, value_clip=True, device="cpu").use_grad_kernel
@@ -187,7 +193,11 @@ EDGES = {"K6": (9, 2, 6, 256), "D12_A4": (12, 4, 2, 256),
          "D1": (1, 2, 2, 256), "rows200": (9, 2, 2, 200),
          "rows72_K3_A3": (5, 3, 3, 72),
          # the navigation tasks' widths: Goal (21) and Button (54)
-         "D21": (21, 2, 2, 256), "D54": (54, 2, 2, 200)}
+         "D21": (21, 2, 2, 256), "D54": (54, 2, 2, 200),
+         # the velocity suite's actions: HalfCheetah (D 17, A 6), and the
+         # envelope's 8 at the narrowest and widest observations
+         "D17_A6": (17, 6, 2, 256), "D9_A8_K6": (9, 8, 6, 256),
+         "D64_A8_rows200": (64, 8, 3, 200)}
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
