@@ -79,7 +79,12 @@ Phases, each of which must pass:
    D 54, and the autograd step PPO-Lag took outside the old envelope timed
    once at D 21; the instances for 5 to 8 actions at D 9, 17 and 64 with
    K 6, at 256 rows and at ragged row counts, and both forms timed at the
-   host path's D 17, A 6 at 256 and 32,768 rows;
+   host path's D 17, A 6 at 256 and 32,768 rows; above D 64 and A 8 (D
+   65 to 376, A 9 to 32, the corner (348, 17, K 6), 256 rows and ragged
+   counts), both forms timed at Ant's (105, 8) and Humanoid's (348, 17) at
+   256 and 32,768 rows with their shared memory and registers, the f32
+   kernel on Humanoid's natural rows against float64 with its float64
+   retakes counted, and the autograd step those widths took before;
 5. off-policy: DDPG-Lagrangian, SAC-Lagrangian and CVPO through the agent
    API at the JAX package's off-policy benchmark shape
    (SafetyBallCircle-v0, 32 envs x 100 steps, 0.2 grad steps per env step,
@@ -209,10 +214,16 @@ def ptxas_report(log: str) -> dict:
 
 
 # The K2 instances the training paths launch, (form, KD or WIDE, AM): bf16
-# at D 9 (KD 1) and D 17 / 21 (KD 2), A <= 4 and the host path's A 6; f32
-# narrow and wide at A <= 4, and the wide-action instance
+# at D 9 (KD 1) and D 17 / 21 (KD 2), A <= 4 and the host path's A 6, the
+# sliced form (KD 0) at Ant's (105, 8) and Humanoid's (348, 17); f32 narrow
+# and wide at A <= 4, and the wide-action instances for 8 and 32 actions
 PATH_INSTANCES = {("bf16", 1, 4), ("bf16", 2, 4), ("bf16", 2, 8),
-                  ("f32", 0, 4), ("f32", 1, 4), ("f32", 1, 8)}
+                  ("bf16", 0, 8), ("bf16", 0, 32),
+                  ("f32", 0, 4), ("f32", 1, 4), ("f32", 1, 8),
+                  ("f32", 1, 32)}
+# K2's shared memory does not grow with D above 64 (the sliced form), so
+# the envelope's widths are checked up to 80 and at the wide tasks' widths
+SMEM_WIDTHS = (*range(1, 81), 105, 129, 348, 376, 1000)
 
 
 def phase_build():
@@ -226,19 +237,21 @@ def phase_build():
     # envelope's corners, then its largest over the whole envelope
     for D, A, K in ((9, 2, 2), (12, 4, 6), (16, 4, 6), (21, 2, 2),
                     (54, 2, 2), (64, 4, 6), (17, 6, 2), (9, 8, 6),
-                    (12, 8, 6), (16, 8, 6), (64, 8, 6)):
+                    (12, 8, 6), (16, 8, 6), (64, 8, 6), (105, 8, 2),
+                    (105, 8, 6), (348, 17, 2), (348, 17, 6), (376, 24, 2),
+                    (9, 9, 2), (1, 32, 6), (348, 32, 6)):
         b, f = (lib.fsrl_ppo_grad_smem_bytes(D, A, K, bf16)
                 for bf16 in (1, 0))
         print(f"[build] K2 shared memory at D {D}, A {A}, K {K}: bf16 {b} "
               f"bytes, f32 {f} bytes (limit {SMEM_LIMIT})", flush=True)
     most = max((lib.fsrl_ppo_grad_smem_bytes(D, A, K, bf16), bf16, D, A, K)
-               for D in range(1, fpg.KERNEL_D_MAX + 1)
+               for D in SMEM_WIDTHS
                for A in range(1, fpg.KERNEL_A_MAX + 1)
                for K in range(1, fpg.KERNEL_M_MAX + 2) for bf16 in (0, 1))
-    print(f"[build] K2 shared memory, most over the envelope (D <= "
-          f"{fpg.KERNEL_D_MAX}, A <= {fpg.KERNEL_A_MAX}, K <= "
-          f"{fpg.KERNEL_M_MAX + 1}): {most[0]} bytes ({'bf16' if most[1] else 'f32'} "
-          f"at D {most[2]}, A {most[3]}, K {most[4]})", flush=True)
+    print(f"[build] K2 shared memory, most over the envelope (any D, A <= "
+          f"{fpg.KERNEL_A_MAX}, K <= {fpg.KERNEL_M_MAX + 1}): {most[0]} "
+          f"bytes ({'bf16' if most[1] else 'f32'} at D {most[2]}, A "
+          f"{most[3]}, K {most[4]})", flush=True)
     if most[0] > SMEM_LIMIT:
         fail(f"K2 needs more shared memory than a block has at {most[2:]}")
     # ptxas' registers and spills of each K2 instance
@@ -253,11 +266,25 @@ def phase_build():
               f"spill stores {st} bytes, loads {ld} bytes"
               f"{' (on a training path)' if key in PATH_INSTANCES else ''}",
               flush=True)
-    if report and not PATH_INSTANCES <= set(report):
-        fail(f"ptxas reported no K2 instance {PATH_INSTANCES - set(report)}")
+    if not PATH_INSTANCES <= set(report):
+        fail(f"ptxas reported no K2 instance {PATH_INSTANCES - set(report)}"
+             f" (a library built without its .log.json: delete "
+             f"fsrl_torch/_build)")
     spilled = [k for k in PATH_INSTANCES if k in report and any(report[k][1:])]
     if spilled:
         fail(f"K2 instances on a training path spill: {spilled}")
+    return report
+
+
+def k2_instance(D: int, A: int, bf16: bool) -> tuple:
+    """The K2 instance (form, KD or WIDE, AM) that the library launches at
+    (D, A), as ``ptxas_report`` names it (the dispatch of
+    ``fsrl_ppo_grad`` and ``launch_f32``)."""
+    if bf16:
+        if D > 64 or A > 8:                    # the sliced form, KD 0
+            return ("bf16", 0, 32 if A > 8 else 8)
+        return ("bf16", -(-D // 16), 8 if A > 4 else 4)
+    return ("f32", int(A > 4 or D > 12), 32 if A > 8 else 8 if A > 4 else 4)
 
 
 def phase_train():
@@ -487,36 +514,57 @@ HOST_ENVS, HOST_T, HOST_EP = 10, 2000, 1000
 HOST_OFF_ENVS, HOST_OFF_T = 4, 100
 
 
-class StandInCheetah:
-    """A numpy stand-in for HalfCheetah-v5 under Safety-Gymnasium's velocity
-    cost, for a machine without gymnasium and mujoco: HalfCheetah's widths
-    (observation 17, action 6 in [-1, 1]), truncation at 1000 steps and the
-    cost 1[|x velocity| > 3.2096]. The dynamics are a damped linear system
-    driven by the action, with its own seeded noise; observation 8 is the x
-    velocity, as in HalfCheetah's, and the reward is that velocity minus
-    0.1 |a|^2 (HalfCheetah's forward reward and control cost)."""
+# The velocity tasks the stand-in takes: (observation, action, index of
+# the x velocity in the observation, |s_0| bound past which an episode
+# terminates or None, healthy reward a step), from the gymnasium env's
+# widths and observation layout (x velocity after the positions that
+# exclude x and y) and its termination (Ant and Humanoid fall; HalfCheetah
+# never terminates)
+STAND_IN = {"SafetyHalfCheetahVelocity-v1": (17, 6, 8, None, 0.0),
+            "SafetyAntVelocity-v1": (105, 8, 13, 3.0, 1.0),
+            "SafetyHumanoidVelocity-v1": (348, 17, 22, 5.0, 5.0)}
+# terminated episodes of each task's stand-in envs, over the process
+TERMINATED = dict.fromkeys(STAND_IN, 0)
 
-    LIMIT = 3.2096
 
-    def __init__(self, seed: int = 0):
+class StandInVelocity:
+    """A numpy stand-in for a Safety-Gymnasium velocity task (HalfCheetah-v5,
+    Ant-v5 or Humanoid-v5 under the velocity cost), for a machine without
+    gymnasium and mujoco: the task's widths (actions in [-1, 1]),
+    truncation at 1000 steps and the cost 1[|x velocity| > limit] at the
+    limit of ``fsrl_torch/envs/velocity.py``. The dynamics are a damped
+    linear system driven by the action, with its own seeded noise (the
+    coupling scaled by sqrt(17 / D), so that HalfCheetah's is the one its
+    earlier readings were taken on, and every width's is stable); the x velocity sits at the task's index, and
+    the reward is that velocity minus 0.1 |a|^2 plus the healthy reward.
+    Ant's and Humanoid's episodes terminate once |s_0| (the stand-in's
+    torso height) passes a bound."""
+
+    def __init__(self, task: str = "SafetyHalfCheetahVelocity-v1",
+                 seed: int = 0):
         import numpy as np
         from types import SimpleNamespace
+        from fsrl_torch.envs.velocity import VELOCITY_LIMITS
         self.np = np
+        self.task = task
+        D, A, self.vx, self.bound, self.healthy = STAND_IN[task]
+        self.limit = VELOCITY_LIMITS[task][1]
         g = np.random.default_rng(1000 + seed)
-        self.A = 0.9 * np.eye(17) + 0.01 * g.normal(size=(17, 17))
-        self.B = 0.5 * g.normal(size=(17, 6))
+        self.A = 0.9 * np.eye(D) + 0.01 * math.sqrt(17 / D) * g.normal(
+            size=(D, D))
+        self.B = 0.5 * g.normal(size=(D, A))
         self.rng = np.random.default_rng(seed)
-        self.observation_space = SimpleNamespace(shape=(17,))
+        self.observation_space = SimpleNamespace(shape=(D,))
         self.action_space = SimpleNamespace(
-            shape=(6,), low=-np.ones(6, np.float32),
-            high=np.ones(6, np.float32))
+            shape=(A,), low=-np.ones(A, np.float32),
+            high=np.ones(A, np.float32))
         self.spec = SimpleNamespace(max_episode_steps=HOST_EP)
-        self.s, self.t = np.zeros(17), 0
+        self.s, self.t = np.zeros(D), 0
 
     def reset(self, seed=None, options=None):
         if seed is not None:
             self.rng = self.np.random.default_rng(seed)
-        self.s = 0.1 * self.rng.normal(size=17)
+        self.s = 0.1 * self.rng.normal(size=self.s.shape[0])
         self.t = 0
         return self.s.copy(), {}
 
@@ -524,20 +572,23 @@ class StandInCheetah:
         np = self.np
         a = np.clip(np.asarray(action, np.float64), -1.0, 1.0)
         self.s = self.A @ self.s + self.B @ a + 0.05 * self.rng.normal(
-            size=17)
+            size=self.s.shape[0])
         self.t += 1
-        vx = float(self.s[8])
-        info = {"cost": float(abs(vx) > self.LIMIT), "x_velocity": vx}
-        return (self.s.copy(), vx - 0.1 * float(a @ a), False,
-                self.t >= HOST_EP, info)
+        vx = float(self.s[self.vx])
+        info = {"cost": float(abs(vx) > self.limit), "x_velocity": vx}
+        term = self.bound is not None and abs(self.s[0]) > self.bound
+        TERMINATED[self.task] += term
+        return (self.s.copy(), vx - 0.1 * float(a @ a) + self.healthy,
+                bool(term), self.t >= HOST_EP and not term, info)
 
     def close(self):
         pass
 
 
-def _standin_venv(n):
+def _standin_venv(n, task: str = HOST_TASK):
     from fsrl_torch.envs.host_env import HostVectorEnv
-    return HostVectorEnv([lambda i=i: StandInCheetah(i) for i in range(n)])
+    return HostVectorEnv([lambda i=i: StandInVelocity(task, i)
+                          for i in range(n)])
 
 
 def _host_iterations(tr, n: int = 3):
@@ -572,12 +623,15 @@ def _host_iterations(tr, n: int = 3):
     return dict(zip(("collect", "env", "act", "transfer", "update"), med))
 
 
-def phase_train_host(make_venv=_standin_venv, label="stand-in", iters=3):
-    """PPO-Lag through ``HostOnpolicyTrainer`` at the velocity protocol, f32
-    and bf16: one epoch (one collect and update, and the episode-exact
-    test) with the launch counters zeroed before and read after (exactly 1
-    K1 and 312 K2 of the matching form, at D 17, A 6, 256 rows), then
-    ``iters`` iterations timed. Returns the launch counts and timings."""
+def phase_train_host(make_venv=None, label="stand-in", iters=1,
+                     task=HOST_TASK, name=""):
+    """PPO-Lag through ``HostOnpolicyTrainer`` at the velocity protocol on
+    ``task``'s widths, f32 and bf16: one epoch (one collect and update, and
+    the episode-exact test) with the launch counters zeroed before and
+    read after (exactly 1 K1 and 312 K2 of the matching form, at 256 rows),
+    then ``iters`` iterations timed. ``make_venv(n)`` defaults to the
+    task's stand-in; ``name`` goes into the phase's tag ("train host
+    ppo_lag <name> f32"). Returns the launch counts and timings."""
     import torch
     from fsrl_torch.algos.ppo_lag import PPOLag
     from fsrl_torch.ops import kernels
@@ -585,17 +639,19 @@ def phase_train_host(make_venv=_standin_venv, label="stand-in", iters=3):
 
     out = {}
     n_mb = HOST_ENVS * HOST_T // 256
+    widths = STAND_IN[task][:2]
     for dtype in (None, torch.bfloat16):
         form, other = (("fused_ppo_grad", "fused_ppo_grad_f32") if dtype
                        else ("fused_ppo_grad_f32", "fused_ppo_grad"))
-        tag = f"train host ppo_lag {'bf16' if dtype else 'f32'}"
-        venv = make_venv(HOST_ENVS)
+        tag = (f"train host ppo_lag {name + ' ' if name else ''}"
+               f"{'bf16' if dtype else 'f32'}")
+        venv = (make_venv or (lambda n: _standin_venv(n, task)))(HOST_ENVS)
         algo = PPOLag(venv.observation_size, venv.action_size,
                       cost_limit=25.0, lagrangian_pid=(0.05, 0.0005, 0.1),
                       repeat=4, n_minibatches=n_mb, episode_len=HOST_EP,
                       compute_dtype=dtype)
         layout = algo.grad_layout
-        if not algo.use_grad_kernel or (layout.D, layout.A) != (17, 6):
+        if not algo.use_grad_kernel or (layout.D, layout.A) != widths:
             fail(f"[{tag}] {layout} is not on the grad kernel's path")
         tr = HostOnpolicyTrainer(algo, venv, epochs=1,
                                  step_per_epoch=HOST_ENVS * HOST_T,
@@ -603,9 +659,13 @@ def phase_train_host(make_venv=_standin_venv, label="stand-in", iters=3):
                                  episode_per_test=HOST_ENVS, cost_limit=25.0,
                                  seed=0, verbose=False)
         kernels.reset_launch_counts()
+        term0 = TERMINATED.get(task, 0)
         (_, _, info), ms = _timed(lambda: next(tr))
         launches = dict(kernels.LAUNCHES)
-        print(f"[{tag}] {HOST_TASK} ({label}), {HOST_ENVS} envs x {HOST_T} "
+        if task in TERMINATED and make_venv is None:
+            print(f"[{tag}] terminated episodes in the epoch: "
+                  f"{TERMINATED[task] - term0}", flush=True)
+        print(f"[{tag}] {task} ({label}), {HOST_ENVS} envs x {HOST_T} "
               f"steps, repeat 4 x {n_mb} minibatches of "
               f"{HOST_ENVS * HOST_T // n_mb} rows, D {layout.D}, A "
               f"{layout.A}: epoch (1 collect + update + test of "
@@ -620,16 +680,53 @@ def phase_train_host(make_venv=_standin_venv, label="stand-in", iters=3):
         if not all(math.isfinite(float(info[k])) for k in
                    ("test_reward", "test_cost")):
             fail(f"[{tag}] non-finite test result {info}")
-        t = _host_iterations(tr, iters)
-        print(f"[{tag}] iteration {t['collect'] + t['update']:.2f} ms = "
-              f"collect {t['collect']:.2f} (env {t['env']:.2f}, policy "
-              f"{t['act']:.2f}, transfer {t['transfer']:.2f}) + update "
-              f"{t['update']:.2f} (medians of {iters}), "
-              f"{HOST_ENVS * HOST_T / ((t['collect'] + t['update']) / 1e3):.0f}"
-              f" env-steps/s", flush=True)
+        t = {}
+        if iters:
+            t = _host_iterations(tr, iters)
+            print(f"[{tag}] iteration {t['collect'] + t['update']:.2f} ms = "
+                  f"collect {t['collect']:.2f} (env {t['env']:.2f}, policy "
+                  f"{t['act']:.2f}, transfer {t['transfer']:.2f}) + update "
+                  f"{t['update']:.2f} (medians of {iters}), "
+                  f"{HOST_ENVS * HOST_T / ((t['collect'] + t['update']) / 1e3):.0f}"
+                  f" env-steps/s", flush=True)
         venv.close()
-        out[tag] = dict(launches=launches, **t)
+        out[tag] = dict(launches=launches, epoch_ms=ms, **t)
     return out
+
+
+def phase_train_host_cli():
+    """The host velocity command line's ``run``
+    (``fsrl_torch/examples/mlp/train_velocity_host.py``) for one epoch at
+    its defaults (10 envs x 500 steps a collect, PPO-Lag's repeat 4 x 4
+    minibatches, f32) but an epoch of one collect (the default is 4), on
+    Humanoid's widths over the stand-in, with a ``DummyLogger`` (the card's
+    machine has no tensorboardX): the launch counters zeroed before and
+    read after, exactly 1 K1 and 16 f32 K2 launches a collect."""
+    from fsrl_torch.examples.mlp.train_velocity_host import VelCfg, run
+    from fsrl_torch.ops import kernels
+    from fsrl_torch.utils.logger import DummyLogger
+
+    task = "SafetyHumanoidVelocity-v1"
+    cfg = VelCfg(task=task, epochs=1)
+    cfg.step_per_epoch = cfg.n_envs * cfg.steps_per_collect
+    n_iter = cfg.step_per_epoch // (cfg.n_envs * cfg.steps_per_collect)
+    kernels.reset_launch_counts()
+    info, ms = _timed(lambda: run(
+        cfg, make_venv=lambda n: _standin_venv(n, task),
+        logger=DummyLogger()))
+    launches = dict(kernels.LAUNCHES)
+    print(f"[train host cli] {task} (stand-in), {cfg.n_envs} envs x "
+          f"{cfg.steps_per_collect} steps, {n_iter} collects: epoch "
+          f"{ms / 1e3:.2f} s; launches {launches}; info {info}", flush=True)
+    if (launches.get("gae", 0), launches.get("fused_ppo_grad_f32", 0),
+            launches.get("fused_ppo_grad", 0)) != (n_iter, 16 * n_iter, 0):
+        fail(f"[train host cli] expected {n_iter} launches of K1 and "
+             f"{16 * n_iter} of fused_ppo_grad_f32, got {launches}")
+    if info.get("epoch") != 1 or not all(
+            math.isfinite(float(info[k])) for k in ("test_reward",
+                                                    "test_cost")):
+        fail(f"[train host cli] bad result {info}")
+    return dict(launches=launches, epoch_ms=ms)
 
 
 def phase_train_host_sac(make_venv=_standin_venv, label="stand-in",
@@ -1415,7 +1512,7 @@ def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2,
 
 
 def phase_k2_f32_natural_rows(seeds=(0, 1, 2), B: int = 32768, K: int = 2,
-                              D: int = 9):
+                              D: int = 9, A: int = 2):
     """The f32 kernel on the main path's rows as they are drawn, ReLU kinks
     included. A pre-activation within rounding of 0 lets two float32
     computations take different sides of the ReLU, and that row's whole
@@ -1425,22 +1522,26 @@ def phase_k2_f32_natural_rows(seeds=(0, 1, 2), B: int = 32768, K: int = 2,
     each gradient tensor of the kernel must be no farther from it than the
     plain f32 version's plus 1e-5 of its largest entry, each aux entry no
     farther than the plain version's plus 1e-5 (``_aux_excess``). Printed
-    beside them: the rows with a pre-activation within 1e-6 of a kink and
-    the kernel's distance from the plain version."""
+    beside them: the rows with a pre-activation within 1e-6 of a kink, the
+    kernel's distance from the plain version, and the pre-activations the
+    kernel took again in float64 in the launch (first layer, second
+    layer). Returns the last seed's retake counts."""
     from fsrl_torch.ops.fused_ppo_grad import (ppo_grad_plain, ppo_grad_rows,
-                                               relu_margin)
+                                               relu_margin, retake_counts)
     kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=False)
     for seed in seeds:
-        args = _k2_inputs(K, False, B, D, off_kinks=False, seed=seed)
+        args = _k2_inputs(K, False, B, D, A, off_kinks=False, seed=seed)
         flat, layout, obs = args[:3]
+        retake_counts()
         gk, ak = ppo_grad_rows(*args, **kw)
+        retakes = retake_counts()
         gp, ap = ppo_grad_plain(*args, **kw)
         g64, a64 = _plain64(args, **kw)
         ek, ep = _tensor_errs(layout, gk, g64), _tensor_errs(layout, gp, g64)
         name = max(ek, key=lambda n: ek[n] - ep[n])
         excess = _aux_excess(ak, ap, a64, B)
         near = int((relu_margin(flat, layout, obs) < 1e-6).sum())
-        tag = f"K2 B={B} D={D} K={K} f32 natural rows seed {seed}"
+        tag = f"K2 B={B} D={D} A={A} K={K} f32 natural rows seed {seed}"
         print(f"[{tag}] vs float64, kernel / plain f32: worst tensor "
               f"{max(ek.values()):.3e} / {max(ep.values()):.3e}, nearest "
               f"the bound {name} {ek[name]:.3e} / {ep[name]:.3e} (tol: plain "
@@ -1448,11 +1549,14 @@ def phase_k2_f32_natural_rows(seeds=(0, 1, 2), B: int = 32768, K: int = 2,
               f"{_aux_err(ap, a64):.3e}, kernel beyond plain {excess:.3e} "
               f"(tol 1e-5); kernel vs plain "
               f"{max(_tensor_errs(layout, gk, gp).values()):.3e} (aux "
-              f"{_aux_err(ak, ap):.3e}); rows within 1e-6 of a kink {near}",
+              f"{_aux_err(ak, ap):.3e}); rows within 1e-6 of a kink {near}; "
+              f"float64 retakes {retakes[0]} first layer, {retakes[1]} "
+              f"second, of {B * 2 * layout.H * (K + 1)} pre-activations",
               flush=True)
         if ek[name] > ep[name] + 1e-5 or excess > 1e-5:
             fail(f"[{tag}] the f32 kernel is farther from float64 than the "
                  f"plain f32 version")
+    return retakes
 
 
 def phase_k2_scaling(full_ms: float, bf16: bool, B: int = 32768, K: int = 2):
@@ -1477,7 +1581,17 @@ def phase_k2_edges():
     f32 kernel's wide form from D 13, the corner D 64, A 4, K 6; the
     instances for 5 to 8 actions at D 9, 17 and 64 with the most value
     channels (K 6), at the host path's minibatch (256 rows), and at
-    ragged row counts."""
+    ragged row counts; above D 64 (the bf16 kernel's slices of x and W1,
+    the f32 kernel's P4 slices) at 65, 105, 129, 348 and Humanoid-v4's
+    376, above 8 actions (the AMAX instances) at 9, 16, 17 and 24, the
+    corner (348, 17, K 6) and the envelope's 32 actions, at 256 rows and
+    at ragged counts."""
+    wide_d = [*(dict(K=2, B=4096, D=D) for D in (65, 105, 129, 348, 376)),
+              *(dict(K=2, B=4096, D=17, A=A) for A in (9, 16, 17, 24)),
+              dict(K=6, B=4096, D=348, A=17), dict(K=2, B=256, D=348, A=17),
+              dict(K=2, B=256, D=105, A=8), dict(K=3, B=1000, D=348, A=17),
+              dict(K=2, B=100, D=105, A=8), dict(K=4, B=1000, D=376, A=24),
+              dict(K=2, B=100, D=129, A=9), dict(K=6, B=1000, D=9, A=32)]
     wide_a = [*(dict(K=6, B=4096, D=D, A=A) for D in (9, 17, 64)
                 for A in (6, 8)),
               *(dict(K=2, B=256, D=D, A=A) for D in (9, 17, 64)
@@ -1485,7 +1599,7 @@ def phase_k2_edges():
               dict(K=3, B=1000, D=17, A=6), dict(K=2, B=100, D=64, A=8),
               dict(K=4, B=640, D=33, A=7), dict(K=2, B=200, D=9, A=5)]
     for bf16 in (True, False):
-        for kw in wide_a:
+        for kw in wide_a + wide_d:
             _k2_case(bf16=bf16, timed=False, **kw)
         for kw in (dict(K=2, B=1000), dict(K=2, B=100), dict(K=1, B=4096),
                    dict(K=6, B=4096), dict(K=2, B=4096, D=12, A=4),
@@ -1498,16 +1612,18 @@ def phase_k2_edges():
             _k2_case(bf16=bf16, timed=False, **kw)
 
 
-def phase_autograd_nav(B: int = 32768, D: int = 21):
-    """The autograd step PPO-Lag took outside K2's old envelope (D > 12),
-    timed once at the navigation width: host-clock ms a call, the device
-    drained before and after, median of 5 after 2 warm-up calls."""
+def phase_autograd(B: int = 32768, D: int = 21, A: int = 2,
+                   name: str = "nav"):
+    """The autograd step PPO-Lag took outside K2's earlier envelopes (D >
+    12, then D > 64 or A > 8), timed once at a path's width:
+    host-clock ms a call, the device drained before and after, median of 5
+    after 2 warm-up calls."""
     import torch
     from fsrl_torch.algos.common import OnPolicyBatch
     from fsrl_torch.algos.ppo_lag import PPOLag
 
-    args = _k2_inputs(2, False, B, D)
-    algo = PPOLag(D, 2, cost_limit=[10.0], device="cuda")
+    args = _k2_inputs(2, False, B, D, A)
+    algo = PPOLag(D, A, cost_limit=[10.0], device="cuda")
     state = algo.init(seed=3)
     obs, act, logp_old, adv, ret, lam, resc = args[2:]
     mb = OnPolicyBatch(obs, act, logp_old, adv, ret, torch.zeros_like(ret))
@@ -1517,8 +1633,8 @@ def phase_autograd_nav(B: int = 32768, D: int = 21):
         if i >= 2:
             times.append(ms)
     ms = statistics.median(times)
-    print(f"[autograd step nav] B={B} D={D} A=2 K=2 f32: {ms:.3f} ms a "
-          f"grad step (host clock, median of 5)", flush=True)
+    print(f"[autograd step {name}] B={B} D={D} A={A} K=2 f32: {ms:.3f} ms "
+          f"a grad step (host clock, median of 5)", flush=True)
     return ms
 
 
@@ -1847,13 +1963,14 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     from fsrl_torch.agent import FOCOPSAgent
+    from fsrl_torch.ops import kernels as fsrl_kernels
     t_start = time.time()
 
     def mark(tag):
         print(f"[time] {tag} done at {time.time() - t_start:.1f} s",
               flush=True)
 
-    phase_build()
+    ptxas = phase_build()
     # host-clock timings first: once torch.profiler has run in a process,
     # every later launch costs the host more
     phase_critic_forms()
@@ -1867,6 +1984,14 @@ def main() -> int:
     rnn_counts = phase_train_rnn()
     mark("navigation paths")
     host = phase_train_host()
+    # the velocity suite's widest tasks, above K2's old envelope: Ant one
+    # epoch, Humanoid one epoch and one timed iteration, then the host
+    # command line at Humanoid's widths
+    host_ant = phase_train_host(task="SafetyAntVelocity-v1", name="ant",
+                                iters=0)
+    host_hum = phase_train_host(task="SafetyHumanoidVelocity-v1",
+                                name="humanoid", iters=1)
+    host_cli = phase_train_host_cli()
     host_sac = phase_train_host_sac()
     phase_host_real()
     phase_grid_filter()
@@ -1902,7 +2027,28 @@ def main() -> int:
     for D in (21, 54):
         phase_k2_f32_natural_rows(seeds=(0,), D=D)
     phase_k2_edges()
-    autograd_ms = phase_autograd_nav()
+    autograd_ms = phase_autograd()
+    # the velocity suite's widest tasks: Ant (105, 8) and Humanoid
+    # (348, 17), at the host path's 256 rows and at 32,768; the f32 kernel
+    # on Humanoid's natural rows against float64, with its retakes; the
+    # autograd step those widths took before this kernel
+    vel_k2 = {(D, A, B, bf16): _k2_case(2, bf16, B=B, D=D, A=A)
+              for D, A in ((105, 8), (348, 17)) for B in (256, 32768)
+              for bf16 in (True, False)}
+    retakes = phase_k2_f32_natural_rows(seeds=(0,), D=348, A=17)
+    autograd_hum = {B: phase_autograd(B, 348, 17, "humanoid")
+                    for B in (256, 32768)}
+    lib = fsrl_kernels.library()
+    for (D, A, B, bf16), r in vel_k2.items():
+        key = k2_instance(D, A, bf16)
+        r["smem_bytes"] = lib.fsrl_ppo_grad_smem_bytes(D, A, 2, int(bf16))
+        r["registers"] = ptxas.get(key, (None,))[0]
+        # the block partials and aux rows the reduce launch sums
+        part = 4 * lib.fsrl_ppo_grad_scratch_floats(B, D, 128, A, 2)
+        print(f"[K2 B={B} D={D} A={A} K=2 {'bf16' if bf16 else 'f32'}] "
+              f"instance {key}: {r['registers']} registers, "
+              f"{r['smem_bytes']} bytes of shared memory, {part} bytes of "
+              f"block partials", flush=True)
     mark("kernels")
     phase_breakdown(ppo_trainer)
     for name, agent in f32_agents.items():
@@ -1915,6 +2061,17 @@ def main() -> int:
                          for t in ("f32", "bf16"))
     host_f32, host_bf16 = (host[f"train host ppo_lag {t}"]["launches"]
                            for t in ("f32", "bf16"))
+    wide_hosts = {name: {t: out[f"train host ppo_lag {name} {t}"]["launches"]
+                         for t in ("f32", "bf16")}
+                  for name, out in (("ant", host_ant), ("humanoid", host_hum))}
+    vel_ms = lambda bf16: {
+        f"B{B}_D{D}_A{A}": {k: vel_k2[D, A, B, bf16][k] for k in
+                            ("ms", "bound_ms", "plain_ms", "smem_bytes",
+                             "registers")}
+        for D, A in ((105, 8), (348, 17)) for B in (256, 32768)}
+    wide_launches = lambda form, t: {
+        f"host_ppo_lag_{name}_{t}": wide_hosts[name][t].get(form, 0)
+        for name in ("ant", "humanoid")}
     host_ms = lambda bf16: {f"B{B}_D17_A6": {k: host_k2[B, bf16][k] for k in
                                              ("ms", "bound_ms", "plain_ms")}
                             for B in (256, 32768)}
@@ -1932,6 +2089,9 @@ def main() -> int:
                  ppo_lag_rnn=rnn_counts.get("gae", 0),
                  host_ppo_lag_f32=host_f32.get("gae", 0),
                  host_ppo_lag_bf16=host_bf16.get("gae", 0),
+                 **wide_launches("gae", "f32"),
+                 **wide_launches("gae", "bf16"),
+                 host_cli=host_cli["launches"].get("gae", 0),
                  host_sac_lag=host_sac["launches"].get("gae", 0)), **k1),
         dict(name="fused_ppo_grad", route="cuda",
              source="fsrl_torch/csrc/fused_ppo_grad.cu",
@@ -1940,8 +2100,10 @@ def main() -> int:
              launches_by_path=dict(
                  ppo_lag_bf16=launches.get("fused_ppo_grad", 0),
                  ppo_lag_nav_bf16=nav_bf16.get("fused_ppo_grad", 0),
-                 host_ppo_lag_bf16=host_bf16.get("fused_ppo_grad", 0)),
-             by_width=wide_ms(True), host_path=host_ms(True), **k2),
+                 host_ppo_lag_bf16=host_bf16.get("fused_ppo_grad", 0),
+                 **wide_launches("fused_ppo_grad", "bf16")),
+             by_width=wide_ms(True), host_path=host_ms(True),
+             velocity_widest=vel_ms(True), **k2),
         dict(name="fused_ppo_grad_f32", route="cuda",
              source="fsrl_torch/csrc/fused_ppo_grad_f32.cu",
              replaces="fsrl_tpu/ops/fused_ppo_grad.py:68",
@@ -1949,9 +2111,15 @@ def main() -> int:
              launches_by_path=dict(
                  ppo_lag_f32=k2_f32_launches,
                  ppo_lag_nav_f32=nav_f32.get("fused_ppo_grad_f32", 0),
-                 host_ppo_lag_f32=host_f32.get("fused_ppo_grad_f32", 0)),
+                 host_ppo_lag_f32=host_f32.get("fused_ppo_grad_f32", 0),
+                 **wide_launches("fused_ppo_grad_f32", "f32"),
+                 host_cli=host_cli["launches"].get("fused_ppo_grad_f32", 0)),
              by_width=wide_ms(False), host_path=host_ms(False),
+             velocity_widest=vel_ms(False),
+             retakes_d348_natural_rows=list(retakes),
              autograd_step_ms_d21=autograd_ms,
+             autograd_step_ms_humanoid={f"B{B}": v
+                                        for B, v in autograd_hum.items()},
              **k2_f32),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

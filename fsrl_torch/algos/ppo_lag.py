@@ -12,8 +12,9 @@
 * PID multiplier update from the collect's mean episodic cost.
 
 Where the config is inside kernel K2's envelope (two hidden layers of the
-kernel's width, no dual or value clip, advantage normalization on, bounded
-mean with ``max_action`` 1, f32 or bf16 compute) every grad step goes through
+kernel's width, any observation width, up to 32 actions, no dual or value
+clip, advantage normalization on, bounded mean with ``max_action`` 1, f32
+or bf16 compute; JAX's ``_pallas_ok`` gate) every grad step goes through
 :func:`fsrl_torch.ops.fused_ppo_grad.ppo_grad_minibatch`: the CUDA kernel on
 the card, its plain version on the CPU. Outside it, autograd of the plain
 loss, as in JAX. The port has no ``gae_impl`` and no ``use_pallas_grad``

@@ -30,7 +30,8 @@
 //     P4  dW1 += g_h1^T x               M out,   N = D padded to 16 KD, K rows
 //   KD = ceil(D / 16) 16-deep steps (P0) or 16-wide slices (P4); the kernel
 //   is a template on KD, and KD = 1 (D <= 16) is the design below as it
-//   was written for D <= 12.
+//   was written for D <= 12. Above D 64, and above 8 actions, it is the
+//   sliced form (KD_SLICED), which takes any D (see below).
 //   Operands are bf16 tiles in shared memory in wgmma's unswizzled
 //   core-matrix layout (wgmma.cuh). One stored copy of W2 serves P1 and P3,
 //   one of h1 P1 and P2, one of g_h2 P2 and P3, one of x P0 and P4, through
@@ -59,6 +60,23 @@
 //   into the g_h1 tile, which is free from the chunk's start until P3's
 //   epilogue, and converted there into the second of two bf16 x tiles
 //   (double-buffered, 4 KB per KD each): 221 KB at D 64, A 4, K 6.
+// * The sliced form (D > 64, or A > 8, whose head leaves no room for the
+//   resident x and W1 tiles): shared memory holds no x and no W1. P0 takes
+//   the depth in slices of 64 columns, each slice's x (the chunk's rows,
+//   read from L2 or device memory) and W1 (read-only, in L2 after the
+//   first chunk) converted to bf16 into the g_h1 tile (free until P3's
+//   epilogue: 16 KB each), both warpgroups' products of a slice summed
+//   into the same accumulators; P4 stages each slice's x again in the h1
+//   tile (free once P3's epilogue has read the mask) and adds its
+//   16-wide dW1 slices into the block's partial as KD > 1 does. The
+//   partial is H x D floats a tower: at D 348, A 17, K 2 and 32,768 rows,
+//   44 blocks a tower, 33.5 MB of partials, which the reduce reads once.
+//   Its shared memory does not grow with D: 206,360 bytes at (348, 17, 6).
+// * Actions above 8 (AM = AMAX, 32): the AM 8 instance's layout with every
+//   per-action loop taken 8 actions at a time (a loop over the slices that
+//   is not unrolled), the head values in shared memory [NW][16][32], and
+//   the head-weight fold staged through the g_h2 tile one slice of 8 at a
+//   time (the tile holds 8 warps x 8 actions x 128 floats).
 // * No accumulation across blocks: each block writes its partial to scratch
 //   and `ppo_grad_reduce` sums the G partials in a fixed order. No float
 //   atomics and fixed shuffle orders, so runs reproduce bit for bit.
@@ -79,33 +97,52 @@ constexpr int NCG = H / 8;        // column groups of a 128-wide tile
 constexpr int TILE = R * H * 2;   // bytes of a 128x128 bf16 tile
 constexpr int XTILE = R * 16 * 2; // bytes of a 128x16 bf16 tile (one KD)
 constexpr int NW = NT / 32;       // warps per block
+// The sliced form (template KD = KD_SLICED): x and W1 in slices of XS
+// 16-deep steps (64 columns), each a 128 x 64 bf16 tile of XSLICE bytes
+constexpr int KD_SLICED = 0;
+constexpr int XS = 4;
+constexpr int XSLICE = XS * XTILE;
 // the sums over a block's rows (head bias and log-sigma gradients, kl, min
 // surrogate, diff^2, ratio * cadv) at AM actions
 __host__ __device__ constexpr int nsum(int AM) { return 2 * AM + 3 + MMAX; }
+// floats of the block's row sums (WIDE_A: [NW][nsum]) and reduce scratch
+__host__ __device__ constexpr int redn(int AM) {
+  return NW * nsum(AM) > NT ? NW * nsum(AM) : NT;
+}
 
 // 16-deep steps of x and W1 for an observation width D.
 __host__ __device__ constexpr int kd_of(int D) { return (D + 15) / 16; }
+// The form that takes (D, A): the sliced one above DMAX_RESIDENT
+// observations or above AM_SLICE actions (whose head leaves no room for
+// resident x and W1 tiles), else KD = kd_of(D).
+__host__ __device__ constexpr int form_of(int D, int A) {
+  return D > DMAX_RESIDENT || A > AM_SLICE ? KD_SLICED : kd_of(D);
+}
 
 // A ring slot: x (KD = 1 only), act, logp_old, adv, ret.
 __host__ __device__ int slot_floats(int KD, int D, int A, int K) {
   return R * ((KD == 1 ? D : 0) + A + 1 + 2 * K);
 }
-// The tiles (W2, h1, g_h2, g_h1; x, once for KD = 1 and twice above; W1),
-// then the floats. The instance for AM = AMAX_NARROW actions keeps per-warp
-// head-weight partials; the one for AMAX keeps instead the rows' head values
-// and the loss's constants (see the kernel).
+// The tiles (W2, h1, g_h2, g_h1; x, once for KD = 1 and twice above, and W1;
+// none in the sliced form, which stages its slices in the g_h1 and h1
+// tiles), then the floats. The instance for AM = AMAX_NARROW actions keeps
+// per-warp head-weight partials; the wider ones keep instead the rows' head
+// values and the loss's constants (see the kernel).
 template <int AM>
 __host__ __device__ size_t smem_bytes_am(int D, int A, int K) {
-  const int KD = kd_of(D);
+  const int KD = form_of(D, A);
   const int own = AM > AMAX_NARROW ? NW * 16 * AM + AM + MMAX + 1
                                    : NW * AM * H;
-  return 4 * TILE + (KD == 1 ? 2 : 3) * KD * XTILE +
+  return 4 * TILE +
+         (KD == KD_SLICED ? 0 : (KD == 1 ? 2 : 3) * KD * XTILE) +
          sizeof(float) * (2 * H + AM * H + AM + own + 2 * NW * H +
-                          2 * slot_floats(KD, D, A, K) + NT);
+                          2 * slot_floats(KD, D, A, K) + redn(AM));
 }
 __host__ __device__ size_t smem_bytes(int D, int A, int K) {
-  return A > AMAX_NARROW ? smem_bytes_am<AMAX>(D, A, K)
-                         : smem_bytes_am<AMAX_NARROW>(D, A, K);
+  if (A > AM_SLICE) return smem_bytes_am<AMAX>(D, A, K);
+  return A > AMAX_NARROW || form_of(D, A) == KD_SLICED
+             ? smem_bytes_am<AM_SLICE>(D, A, K)
+             : smem_bytes_am<AMAX_NARROW>(D, A, K);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -125,6 +162,8 @@ __device__ __forceinline__ void add_column_sums(float (&v)[32], int lane,
   for (int i = 0; i < 4; ++i) acc[column_of<32>(lane, i)] += v[i];
 }
 
+// KD: 1 to 4 16-deep steps of x and W1 kept whole in shared memory, or
+// KD_SLICED: any D, x and W1 taken in 64-wide slices (see the design).
 // AM: the actions the instance takes (A <= AM). AM = AMAX_NARROW is the
 // kernel as it was written for A <= 4. Above it (WIDE_A) a row's per-action
 // values do not fit in the registers beside h2 and dW2, so they go through
@@ -132,11 +171,16 @@ __device__ __forceinline__ void add_column_sums(float (&v)[32], int lane,
 // loss's constants, and the row sums, added up over the warp in each chunk
 // (actor_row_shared); and the head weight gradient's per-warp column sums
 // are staged in the g_h2 tile (free until g_h2 is written) and folded over
-// the warps, in order, into the block's partial chunk by chunk.
+// the warps, in order, into the block's partial chunk by chunk. The
+// actions are taken AM_SLICE at a time (AM = AMAX: slices of the AM_SLICE
+// instance's code in a loop that is not unrolled), and the fold goes
+// through the tile one slice at a time.
 template <int KD, int AM>
 __global__ void __launch_bounds__(NT, 1)
 ppo_grad_bf16_kernel(const Args p) {
-  constexpr int XCG = 2 * KD;    // column groups of the x / W1 tiles
+  constexpr bool SLICED = KD == KD_SLICED;
+  // column groups of the x / W1 tiles (SLICED: of one slice)
+  constexpr int XCG = SLICED ? 2 * XS : 2 * KD;
   constexpr bool WIDE_A = AM > AMAX_NARROW;
   constexpr int NSUM = nsum(AM);
   extern __shared__ __align__(128) unsigned char smem[];
@@ -160,7 +204,9 @@ ppo_grad_bf16_kernel(const Args p) {
   unsigned char* xt = g1t + TILE;       // [row][16 KD] x, columns >= D zero
                                         // (two of them for KD > 1)
   unsigned char* W1t = xt + (KD == 1 ? 1 : 2) * KD * XTILE;   // [out][16 KD]
-  float* b1s = reinterpret_cast<float*>(W1t + KD * XTILE);
+  // (SLICED: neither; a slice of x and one of W1 are staged in the g_h1
+  // tile for P0, a slice of x in the h1 tile for P4)
+  float* b1s = reinterpret_cast<float*>(SLICED ? xt : W1t + KD * XTILE);
   float* b2s = b1s + H;
   float* whs = b2s + H;                 // [O][H] head weight
   float* bhs = whs + AM * H;
@@ -170,11 +216,12 @@ ppo_grad_bf16_kernel(const Args p) {
   float* pb1 = pb2 + NW * H;            // [NW][H]
   float* ring = pb1 + NW * H;           // [2][slot]
   const int slot = slot_floats(KD, D, A, K);
-  float* red = ring + 2 * slot;         // [NT] (WIDE_A: [NW][NSUM] row sums)
+  float* red = ring + 2 * slot;         // [redn] (WIDE_A: [NW][NSUM] row
+                                        // sums)
   // WIDE_A: the warp's rows' head outputs, then their gradients
-  float* hw = red + NT + 16 * AM * warp;   // [16][AM]
-  float* cst = red + NT + 16 * AM * NW;    // log-sigma [AM], lambda
-                                           // [MMAX], rescale
+  float* hw = red + redn(AM) + 16 * AM * warp;   // [16][AM]
+  float* cst = red + redn(AM) + 16 * AM * NW;    // log-sigma [AM], lambda
+                                                 // [MMAX], rescale
   const uint32_t aW2 = wg::smem_addr(W2t), ah1 = wg::smem_addr(h1t),
                  ag2 = wg::smem_addr(g2t), ag1 = wg::smem_addr(g1t),
                  ax = wg::smem_addr(xt), aW1 = wg::smem_addr(W1t);
@@ -197,7 +244,8 @@ ppo_grad_bf16_kernel(const Args p) {
     if constexpr (KD == 1) {
       cp::rows(dst, p.obs + r0 * D, nr * D, R * D, vec);
       dst += R * D;
-    } else {   // x as f32 into the g_h1 tile (R * D <= R * H floats)
+    } else if constexpr (!SLICED) {
+      // x as f32 into the g_h1 tile (R * D <= R * H floats)
       cp::rows(reinterpret_cast<float*>(g1t), p.obs + r0 * D, nr * D, R * D,
                vec);
     }
@@ -227,6 +275,23 @@ ppo_grad_bf16_kernel(const Args p) {
     }
   };
 
+  // SLICED: columns [d0, d0 + 64) of n rows of a row-major (., D) float
+  // array as a bf16 tile, zero past D and past row n (the chunk's dead rows)
+  auto stage_slice = [&](unsigned char* dst, const float* src, int n,
+                         int d0) {
+#pragma unroll
+    for (int u = tid; u < R * XCG; u += NT) {
+      const int r = u / XCG, c0 = 8 * (u % XCG), d = d0 + c0;
+      const float* row = src + (size_t)r * D + d;
+      float x[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = r < n && d + i < D ? row[i] : 0.f;
+      *reinterpret_cast<uint4*>(dst + wg::tile_off(r, c0, XCG)) =
+          make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                     pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+    }
+  };
+
   // Weights, once: W2 and W1 as bf16 tiles (16-byte units of 8 inputs).
   // (unrolled, so that all of a thread's loads are in flight together)
 #pragma unroll
@@ -246,7 +311,7 @@ ppo_grad_bf16_kernel(const Args p) {
     *reinterpret_cast<uint4*>(W1t + wg::tile_off(j, d0, XCG)) =
         make_uint4(pack_bf16(w[0], w[1]), pack_bf16(w[2], w[3]),
                    pack_bf16(w[4], w[5]), pack_bf16(w[6], w[7]));
-  } else {
+  } else if constexpr (!SLICED) {
     for (int u = tid; u < H * XCG; u += NT) {
       const int j = u / XCG, d0 = 8 * (u % XCG);
       float w[8];
@@ -321,7 +386,7 @@ ppo_grad_bf16_kernel(const Args p) {
     const float* rows = ring + (it & 1) * slot;
     // the chunk's x tile
     const uint32_t axc = KD == 1 ? ax : ax + (it & 1) * KD * XTILE;
-    if constexpr (KD == 1) {
+    if constexpr (KD == 1 || SLICED) {
       if (c + G < n_chunks) {
         fetch(c + G, (it + 1) & 1);
         cp::wait<1>();
@@ -346,20 +411,46 @@ ppo_grad_bf16_kernel(const Args p) {
                      pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
       wg::fence_async_smem();
       wg::warpgroup_sync(wgid);
-    } else {
+    } else if constexpr (!SLICED) {
       // the next chunk's rows, and its x into the g_h1 tile (free: every
       // warpgroup has finished the last chunk's P4)
       if (c + G < n_chunks) fetch(c + G, (it + 1) & 1);
     }
+    // SLICED: the chunk's x in global memory
+    const float* xg = p.obs + (size_t)c * R * D;
 
     // P0: h1 = relu(x W1^T + b1), rounded to bf16 into its tile
-    wg::arrive();
+    if constexpr (SLICED) {
+      // slice by slice through the g_h1 tile (free until P3's epilogue):
+      // x's columns [d0, d0 + 64) and W1's, summed into the accumulators
+#pragma unroll 1
+      for (int d0 = 0; d0 < D; d0 += 16 * XS) {
+        if (d0 > 0) __syncthreads();   // both warpgroups are done with the
+                                       // last slice
+        stage_slice(g1t, xg, nr, d0);
+        stage_slice(g1t + XSLICE, gW1, H, d0);
+        wg::fence_async_smem();
+        __syncthreads();
+        wg::arrive();
 #pragma unroll
-    for (int ks = 0; ks < KD; ++ks)
-      wg::mma_m64n128k16<0, 0>(acc, wg::desc_kmajor(axc, XCG, m0, 16 * ks),
-                               wg::desc_kmajor(aW1, XCG, 0, 16 * ks), ks > 0);
-    wg::commit();
-    wg::wait_all();
+        for (int ks = 0; ks < XS; ++ks)
+          wg::mma_m64n128k16<0, 0>(
+              acc, wg::desc_kmajor(ag1, XCG, m0, 16 * ks),
+              wg::desc_kmajor(ag1 + XSLICE, XCG, 0, 16 * ks),
+              d0 > 0 || ks > 0);
+        wg::commit();
+        wg::wait_all();
+      }
+    } else {
+      wg::arrive();
+#pragma unroll
+      for (int ks = 0; ks < KD; ++ks)
+        wg::mma_m64n128k16<0, 0>(acc, wg::desc_kmajor(axc, XCG, m0, 16 * ks),
+                                 wg::desc_kmajor(aW1, XCG, 0, 16 * ks),
+                                 ks > 0);
+      wg::commit();
+      wg::wait_all();
+    }
     wg::fence_regs(acc);
     float2 ld[16];   // a fragment's worth of loads, issued before their use
     load_cols(ld, b1s, q);
@@ -404,23 +495,27 @@ ppo_grad_bf16_kernel(const Args p) {
     float gh[2][AM];   // (WIDE_A: the gradients are in hw)
     if constexpr (WIDE_A) {
       // the rows' head outputs into hw, by lane 0 of the quad
+#pragma unroll 1
+      for (int a0 = 0; a0 < O; a0 += AM_SLICE)
 #pragma unroll
-      for (int a = 0; a < AM; ++a)
-        if (a < O) {
-          load_cols(ld, whs + a * H, q);
-          float o0 = 0.f, o1 = 0.f;
+        for (int u = 0; u < AM_SLICE; ++u) {
+          const int a = a0 + u;
+          if (a < O) {
+            load_cols(ld, whs + a * H, q);
+            float o0 = 0.f, o1 = 0.f;
 #pragma unroll
-          for (int jb = 0; jb < 16; ++jb) {
-            o0 += acc[4 * jb] * ld[jb].x + acc[4 * jb + 1] * ld[jb].y;
-            o1 += acc[4 * jb + 2] * ld[jb].x + acc[4 * jb + 3] * ld[jb].y;
-          }
-          o0 += __shfl_xor_sync(0xffffffffu, o0, 1);
-          o0 += __shfl_xor_sync(0xffffffffu, o0, 2);
-          o1 += __shfl_xor_sync(0xffffffffu, o1, 1);
-          o1 += __shfl_xor_sync(0xffffffffu, o1, 2);
-          if (q == 0) {
-            hw[(lane >> 2) * AM + a] = o0 + bhs[a];
-            hw[((lane >> 2) + 8) * AM + a] = o1 + bhs[a];
+            for (int jb = 0; jb < 16; ++jb) {
+              o0 += acc[4 * jb] * ld[jb].x + acc[4 * jb + 1] * ld[jb].y;
+              o1 += acc[4 * jb + 2] * ld[jb].x + acc[4 * jb + 3] * ld[jb].y;
+            }
+            o0 += __shfl_xor_sync(0xffffffffu, o0, 1);
+            o0 += __shfl_xor_sync(0xffffffffu, o0, 2);
+            o1 += __shfl_xor_sync(0xffffffffu, o1, 1);
+            o1 += __shfl_xor_sync(0xffffffffu, o1, 2);
+            if (q == 0) {
+              hw[(lane >> 2) * AM + a] = o0 + bhs[a];
+              hw[((lane >> 2) + 8) * AM + a] = o1 + bhs[a];
+            }
           }
         }
       __syncwarp();
@@ -528,29 +623,38 @@ ppo_grad_bf16_kernel(const Args p) {
       // each warp's column sums staged in the g_h2 tile (free until g_h2
       // is written below), folded over the warps in order into the block's
       // partial: each thread alone reads and writes its entries there, the
-      // first chunk storing and later ones adding
-      float* stg = reinterpret_cast<float*>(g2t);   // [NW][AM][H]
-#pragma unroll
-      for (int a = 0; a < AM; ++a)
-        if (a < O) {
-          const float ga = hw[(lane >> 2) * AM + a];
-          const float gb = hw[((lane >> 2) + 8) * AM + a];
-#pragma unroll
-          for (int i = 0; i < 32; ++i)
-            v[i] = ga * acc[4 * (i >> 1) + (i & 1)] +
-                   gb * acc[4 * (i >> 1) + 2 + (i & 1)];
-          column_sums(v, lane);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            stg[(warp * AM + a) * H + column_of<32>(lane, i)] = v[i];
-        }
-      __syncthreads();
+      // first chunk storing and later ones adding. The tile holds one
+      // slice of AM_SLICE actions at a time.
+      float* stg = reinterpret_cast<float*>(g2t);   // [NW][AM_SLICE][H]
       float* oWh = p.part + ((size_t)g * (K + 1) + tower) * L.tower_size(0) +
                    L.local_off(tower, 4);
-      for (int i = tid; i < O * H; i += NT) {
-        float s = 0.f;
-        for (int w = 0; w < NW; ++w) s += stg[w * AM * H + i];
-        oWh[i] = it > 0 ? oWh[i] + s : s;
+#pragma unroll 1
+      for (int a0 = 0; a0 < O; a0 += AM_SLICE) {
+        if (a0 > 0) __syncthreads();   // the last slice has been folded
+#pragma unroll
+        for (int u = 0; u < AM_SLICE; ++u) {
+          const int a = a0 + u;
+          if (a < O) {
+            const float ga = hw[(lane >> 2) * AM + a];
+            const float gb = hw[((lane >> 2) + 8) * AM + a];
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+              v[i] = ga * acc[4 * (i >> 1) + (i & 1)] +
+                     gb * acc[4 * (i >> 1) + 2 + (i & 1)];
+            column_sums(v, lane);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              stg[(warp * AM_SLICE + u) * H + column_of<32>(lane, i)] = v[i];
+          }
+        }
+        __syncthreads();
+        const int n = min(AM_SLICE, O - a0) * H;
+        for (int i = tid; i < n; i += NT) {
+          float s = 0.f;
+          for (int w = 0; w < NW; ++w) s += stg[w * AM_SLICE * H + i];
+          float* o = oWh + a0 * H + i;
+          *o = it > 0 ? *o + s : s;
+        }
       }
       __syncthreads();   // g_h2 takes the staging's place
     } else {
@@ -572,22 +676,29 @@ ppo_grad_bf16_kernel(const Args p) {
       float s[8][4];
 #pragma unroll
       for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      // s += ga w_a (row row_lo) and gb w_a (row row_lo + 8) over the head
+      // outputs a: WIDE_A AM_SLICE at a time from hw, else from registers
+#pragma unroll 1
+      for (int a0 = 0; a0 < (WIDE_A ? O : 1); a0 += AM_SLICE)
 #pragma unroll
-      for (int a = 0; a < AM; ++a)
-        if (a < O) {
-          float2 w[8];
+        for (int u = 0; u < (WIDE_A ? AM_SLICE : AM); ++u) {
+          const int a = WIDE_A ? a0 + u : u;
+          if (a < O) {
+            float2 w[8];
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
-            w[i] = *reinterpret_cast<const float2*>(whs + a * H +
-                                                    8 * (j0 + i) + 2 * q);
-          const float ga = WIDE_A ? hw[(lane >> 2) * AM + a] : gh[0][a];
-          const float gb = WIDE_A ? hw[((lane >> 2) + 8) * AM + a] : gh[1][a];
+            for (int i = 0; i < 8; ++i)
+              w[i] = *reinterpret_cast<const float2*>(whs + a * H +
+                                                      8 * (j0 + i) + 2 * q);
+            const float ga = WIDE_A ? hw[(lane >> 2) * AM + a] : gh[0][u];
+            const float gb =
+                WIDE_A ? hw[((lane >> 2) + 8) * AM + a] : gh[1][u];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            s[i][0] += ga * w[i].x;
-            s[i][1] += ga * w[i].y;
-            s[i][2] += gb * w[i].x;
-            s[i][3] += gb * w[i].y;
+            for (int i = 0; i < 8; ++i) {
+              s[i][0] += ga * w[i].x;
+              s[i][1] += ga * w[i].y;
+              s[i][2] += gb * w[i].x;
+              s[i][3] += gb * w[i].y;
+            }
           }
         }
 #pragma unroll
@@ -673,6 +784,46 @@ ppo_grad_bf16_kernel(const Args p) {
       wg::commit();
       wg::wait_all();
       wg::fence_regs(dW1);
+    } else if constexpr (SLICED) {
+      // P4: x's columns [d0, d0 + 64) staged in the h1 tile (free: P3's
+      // epilogue has read the mask), then as below, 16 columns at a time
+#pragma unroll 1
+      for (int d0 = 0; d0 < D; d0 += 16 * XS) {
+        if (d0 > 0) __syncthreads();   // both warpgroups are done with the
+                                       // last slice
+        stage_slice(h1t, xg, nr, d0);
+        wg::fence_async_smem();
+        __syncthreads();
+#pragma unroll
+        for (int kd = 0; kd < XS; ++kd) {
+          if (d0 + 16 * kd >= D) break;   // (block-uniform)
+          float d1[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) d1[i] = 0.f;
+          wg::arrive();
+#pragma unroll
+          for (int ks = 0; ks < R / 16; ++ks)
+            wg::mma_m64n16k16<1, 1>(
+                d1, wg::desc_mnmajor(ag1, NCG, 16 * ks, m0),
+                wg::desc_mnmajor(ah1, XCG, 16 * ks, 16 * kd), ks > 0);
+          wg::commit();
+          wg::wait_all();
+          wg::fence_regs(d1);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = row_lo + 8 * h;
+#pragma unroll
+            for (int jb = 0; jb < 2; ++jb)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int d = d0 + 16 * kd + 8 * jb + 2 * q + e;
+                const float v1 = d1[4 * jb + 2 * h + e];
+                if (d < D)
+                  pW1[j * D + d] = it > 0 ? pW1[j * D + d] + v1 : v1;
+              }
+          }
+        }
+      }
     } else {
       // P4: the chunk's g_h1^T x, one 16-wide slice of x at a time into a
       // fresh accumulator, added into the block's partial: element 4 jb +
@@ -877,10 +1028,17 @@ cudaError_t launch_bf16_am(const Args& a, int G, cudaStream_t s) {
   ppo_grad_bf16_kernel<KD, AM><<<dim3(G, a.K + 1), NT, smem, s>>>(a);
   return cudaGetLastError();
 }
+// The sliced form has no AMAX_NARROW instance (its registers spill there):
+// it takes every A <= AM_SLICE with the AM_SLICE one.
 template <int KD>
 cudaError_t launch_bf16(const Args& a, int G, cudaStream_t s) {
-  return a.A > AMAX_NARROW ? launch_bf16_am<KD, AMAX>(a, G, s)
-                           : launch_bf16_am<KD, AMAX_NARROW>(a, G, s);
+  if constexpr (KD == KD_SLICED) {
+    return a.A > AM_SLICE ? launch_bf16_am<KD, AMAX>(a, G, s)
+                          : launch_bf16_am<KD, AM_SLICE>(a, G, s);
+  } else {
+    return a.A > AMAX_NARROW ? launch_bf16_am<KD, AM_SLICE>(a, G, s)
+                             : launch_bf16_am<KD, AMAX_NARROW>(a, G, s);
+  }
 }
 
 // Blocks per tower: at most the SMs shared among the towers, and no more
@@ -934,7 +1092,7 @@ extern "C" int fsrl_ppo_grad(const float* params, const float* obs,
                              int A, int K, int bf16, long scratch_floats,
                              float clip_lo, float clip_hi, float vf_coef,
                              void* stream) {
-  if (Hd != H || D < 1 || D > DMAX || A < 1 || A > AMAX || K < 1 ||
+  if (Hd != H || D < 1 || A < 1 || A > AMAX || K < 1 ||
       K - 1 > MMAX || B < 1 ||
       scratch_floats < fsrl_ppo_grad_scratch_floats(B, D, Hd, A, K))
     return (int)cudaErrorInvalidValue;
@@ -952,11 +1110,12 @@ extern "C" int fsrl_ppo_grad(const float* params, const float* obs,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (bf16) {
-    switch (kd_of(D)) {
+    switch (form_of(D, A)) {
       case 1: err = launch_bf16<1>(a, G, s); break;
       case 2: err = launch_bf16<2>(a, G, s); break;
       case 3: err = launch_bf16<3>(a, G, s); break;
-      default: err = launch_bf16<4>(a, G, s); break;
+      case 4: err = launch_bf16<4>(a, G, s); break;
+      default: err = launch_bf16<KD_SLICED>(a, G, s); break;
     }
   } else {
     err = launch_f32(a, G, s);

@@ -72,9 +72,18 @@
 // * Wide observations (D > DMAX_F32_NARROW = 12, the template's WIDE): the
 //   tiles leave no room for x in the ring (1 KB a column and slot), so x is
 //   read from global memory (L2) where P0, P4 and the float64 retakes use
-//   it, as W1 is; and dW1 (up to 9 tiles of P4) is taken per chunk in the
-//   registers of acc, free in P4, and added into the block's partial as
-//   dW2 is. D <= 12 keeps the design above unchanged.
+//   it, as W1 is; and dW1 is taken per chunk in the registers of acc, free
+//   in P4, in slices of 9 tiles of 8 columns (D + 1 <= 72 in one, as the
+//   form was written), each slice added into the block's partial as dW2
+//   is. Any D: P0 and the retakes loop over D at run time. D <= 12 keeps
+//   the design above unchanged.
+// * Wide actions (A > 8, AM = AMAX, 32): the AM 8 instance's design with
+//   every per-action loop taken 8 actions at a time; its head values
+//   ([NW][16][32]) go in the second half of the g_h2 tile, which is free
+//   until g_h2 is written and whose first half stages the fold (one slice
+//   of 8 actions at a time), and the rows' actions are read from L2, not
+//   the ring: the 200 KB of tiles leave room for nothing more (232,028
+//   bytes at K 6), which is what caps A at 32.
 // * Per-block partials and the fixed-order reduce launch, no float atomics:
 //   runs reproduce bit for bit. The ragged last chunk is zero-filled and
 //   masked.
@@ -128,24 +137,47 @@ __host__ __device__ constexpr int sw(int r, int c) {
   return r * H + (c ^ (((r ^ (r >> 1)) & 3) << 3));
 }
 
-// A ring slot: x (up to DMAX_F32_NARROW only), act, logp_old, adv / ret.
-__host__ __device__ int slot_floats(bool wide, int D, int A, int K) {
-  return R * ((wide ? 0 : D) + A + 1 + K);
+// P4's columns in one slice (WIDE): 9 tiles of 8, the unrolled loop the
+// wide form had for D <= 64 and its column of ones, so that such a D runs
+// in one slice as it did (16 tiles, all of acc, spill at 255 registers)
+constexpr int P4_TILES = (DMAX_RESIDENT + 8) / 8;
+
+// Where the instance for AMAX actions keeps what the AM_SLICE one keeps in
+// shared memory of its own, which the 200 KB of tiles leave no room for:
+// the rows' head values ([NW][16][AM]) in the second half of the g_h2 tile
+// (free until g_h2 is written; the first half stages the fold), and the
+// rows' actions in global memory (L2) rather than the ring.
+__host__ __device__ constexpr bool hw_in_tile(int AM) { return AM > AM_SLICE; }
+
+// A ring slot: x (up to DMAX_F32_NARROW only), act (but for AMAX),
+// logp_old, adv / ret.
+__host__ __device__ int slot_floats(bool wide, bool act, int D, int A,
+                                    int K) {
+  return R * ((wide ? 0 : D) + (act ? A : 0) + 1 + K);
 }
-// The instance for AMAX actions (always WIDE) adds the rows' head values
-// ([NW][16][AM], see the kernel).
+// The instances above AMAX_NARROW actions (always WIDE) add the rows' head
+// values ([NW][16][AM], see the kernel): AM_SLICE in shared memory of their
+// own, AMAX in the g_h2 tile.
 template <bool WIDE, int AM>
 __host__ __device__ size_t smem_bytes_am(int D, int A, int K) {
-  return sizeof(float) * (2 * H * WS + TILE + 2 * H + AM * H + AM +
-                          2 * slot_floats(WIDE, D, A, K) + ncst(AM) +
-                          NW * nsum(AM) + 2 * NW +
-                          (AM > AMAX_NARROW ? NW * 16 * AM : 0));
+  return sizeof(float) *
+         (2 * H * WS + TILE + 2 * H + AM * H + AM +
+          2 * slot_floats(WIDE, !hw_in_tile(AM), D, A, K) + ncst(AM) +
+          NW * nsum(AM) + 2 * NW + 2 +
+          (AM > AMAX_NARROW && !hw_in_tile(AM) ? NW * 16 * AM : 0));
 }
 __host__ __device__ size_t smem_bytes(int D, int A, int K) {
-  if (A > AMAX_NARROW) return smem_bytes_am<true, AMAX>(D, A, K);
+  if (A > AM_SLICE) return smem_bytes_am<true, AMAX>(D, A, K);
+  if (A > AMAX_NARROW) return smem_bytes_am<true, AM_SLICE>(D, A, K);
   return D > DMAX_F32_NARROW ? smem_bytes_am<true, AMAX_NARROW>(D, A, K)
                              : smem_bytes_am<false, AMAX_NARROW>(D, A, K);
 }
+
+// Pre-activations taken again in float64, [0] in the first layer and [1] in
+// the second, summed over launches until fsrl_ppo_grad_f32_retakes reads
+// and clears them (an integer count: atomics keep it exact). A block counts
+// in shared memory and adds its counts here once, at its end.
+__device__ unsigned long long retakes[2];
 
 __device__ __forceinline__ void zero(float (&v)[64]) {
 #pragma unroll
@@ -193,11 +225,17 @@ __device__ __forceinline__ float kink_scale(const float* m) {
 // head weight gradient's per-warp column sums are staged in the g_h2 tile
 // (free until g_h2 is written) and folded over the warps, in order, into
 // the block's partial chunk by chunk, so that no per-action array is held
-// in registers.
+// in registers. The actions are taken AM_SLICE at a time, and the fold
+// goes through the tile one slice at a time (all loops unrolled over AM:
+// a loop over the slices that is not unrolled costs the AM_SLICE instance,
+// at 255 registers, a spill). AM = AMAX keeps the head
+// values in the g_h2 tile beside the staging (hw_in_tile), so g_h2 is
+// formed in registers first and written there after a barrier.
 template <bool WIDE, int AM>
 __global__ void __launch_bounds__(NT, 1)
 ppo_grad_f32_kernel(const Args p) {
   constexpr bool WIDE_A = AM > AMAX_NARROW;
+  constexpr bool HW_TILE = hw_in_tile(AM);
   static_assert(WIDE || !WIDE_A, "the wide action instance reads x from L2");
   constexpr int NSUM = nsum(AM), NCST = ncst(AM);
   extern __shared__ __align__(16) float sm[];
@@ -215,6 +253,7 @@ ppo_grad_f32_kernel(const Args p) {
   const int nd = (D + 7) / 8;                // depth steps of P0
   const int n4 = D / 8 + 1;                  // P4's tiles: x, a 1s column
   const int XD = WIDE ? 0 : D;               // x's floats in a ring row
+  const int AR = HW_TILE ? 0 : A;            // act's floats in a ring row
 
   float* W2s = sm;                  // [out][WS] (in)
   float* h1s = W2s + H * WS;        // [row][WS] (in)  h1, later g_h1
@@ -224,14 +263,16 @@ ppo_grad_f32_kernel(const Args p) {
   float* whs = b2s + H;             // [O][H] head weight
   float* bhs = whs + AM * H;
   float* ring = bhs + AM;           // [2][slot]: obs, act, logp_old, adv/ret
-  const int slot = slot_floats(WIDE, D, A, K);
+  const int slot = slot_floats(WIDE, !HW_TILE, D, A, K);
   float* cst = ring + 2 * slot;     // [NCST] the loss's constants
   float* wsum = cst + NCST;         // [NW][NSUM] the warps' row sums
   float* nrm = wsum + NW * NSUM;    // [2][NW] largest squared row norms of
                                     // W1 and W2 over each warp's rows
-  float* hw = nrm + 2 * NW + 16 * AM * warp;   // WIDE_A: [16][AM] the
-                                    // warp's rows' head outputs, then their
-                                    // gradients
+  // the block's float64 retakes, first and second layer
+  unsigned* rtk = reinterpret_cast<unsigned*>(nrm + 2 * NW);
+  float* hw = (HW_TILE ? g2s + TILE / 2 : nrm + 2 * NW + 2) + 16 * AM * warp;
+                                    // WIDE_A: [16][AM] the warp's rows' head
+                                    // outputs, then their gradients
 
   const float* gW1 = p.params + L.global_off(tower, 0);
   const float* gb1 = p.params + L.global_off(tower, 1);
@@ -250,10 +291,11 @@ ppo_grad_f32_kernel(const Args p) {
     const bool vec = p.aligned16;
     if constexpr (!WIDE) cp::rows(dst, p.obs + r0 * D, nr * D, R * D, vec);
     if (actor) {
-      cp::rows(dst + R * XD, p.act + r0 * A, nr * A, R * A, vec);
-      cp::rows(dst + R * (XD + A), p.logp_old + r0, nr, R, vec);
+      if constexpr (!HW_TILE)
+        cp::rows(dst + R * XD, p.act + r0 * A, nr * A, R * A, vec);
+      cp::rows(dst + R * (XD + AR), p.logp_old + r0, nr, R, vec);
     }
-    cp::rows(dst + R * (XD + A + 1), (actor ? p.adv : p.ret) + r0 * K,
+    cp::rows(dst + R * (XD + AR + 1), (actor ? p.adv : p.ret) + r0 * K,
              nr * K, R * K, vec);
     cp::commit();
   };
@@ -309,6 +351,7 @@ ppo_grad_f32_kernel(const Args p) {
     cst[AM + MMAX + 1] = *p.resc;
   }
   for (int i = tid; i < NW * NSUM; i += NT) wsum[i] = 0.f;
+  if (tid < 2) rtk[tid] = 0u;
 
   // the block's partial: [1+K][tower_size(0)] gradients in tower-local order
   const int T = K + 1;
@@ -409,6 +452,7 @@ ppo_grad_f32_kernel(const Args p) {
                                      2 * q) = make_float2(v0, v1);
         }
       }
+      if (near) atomicAdd(rtk, (unsigned)__popcll(near));
       while (near) {
         const int i = __ffsll((long long)near) - 1;
         near &= near - 1;
@@ -468,6 +512,7 @@ ppo_grad_f32_kernel(const Args p) {
           acc[i] = fmaxf(z0, 0.f);
           acc[i + 1] = fmaxf(z1, 0.f);
         }
+      if (near) atomicAdd(rtk + 1, (unsigned)__popcll(near));
       // one at a time by the whole warp, the lowest lane's first
       for (;;) {
         const unsigned who = __ballot_sync(0xffffffffu, near != 0);
@@ -497,23 +542,27 @@ ppo_grad_f32_kernel(const Args p) {
     if constexpr (WIDE_A) {
       // the rows' head outputs into hw, by lane 0 of the quad
 #pragma unroll
-      for (int a = 0; a < AM; ++a)
-        if (a < O) {
-          float2 ld[16];
-          load_cols(ld, whs + a * H, q);
-          float o0 = 0.f, o1 = 0.f;
+      for (int a0 = 0; a0 < AM; a0 += AM_SLICE)
 #pragma unroll
-          for (int jb = 0; jb < 16; ++jb) {
-            o0 += acc[4 * jb] * ld[jb].x + acc[4 * jb + 1] * ld[jb].y;
-            o1 += acc[4 * jb + 2] * ld[jb].x + acc[4 * jb + 3] * ld[jb].y;
-          }
-          o0 += __shfl_xor_sync(0xffffffffu, o0, 1);
-          o0 += __shfl_xor_sync(0xffffffffu, o0, 2);
-          o1 += __shfl_xor_sync(0xffffffffu, o1, 1);
-          o1 += __shfl_xor_sync(0xffffffffu, o1, 2);
-          if (q == 0) {
-            hw[lr * AM + a] = o0 + bhs[a];
-            hw[(lr + 8) * AM + a] = o1 + bhs[a];
+        for (int u = 0; u < AM_SLICE; ++u) {
+          const int a = a0 + u;
+          if (a < O) {
+            float2 ld[16];
+            load_cols(ld, whs + a * H, q);
+            float o0 = 0.f, o1 = 0.f;
+#pragma unroll
+            for (int jb = 0; jb < 16; ++jb) {
+              o0 += acc[4 * jb] * ld[jb].x + acc[4 * jb + 1] * ld[jb].y;
+              o1 += acc[4 * jb + 2] * ld[jb].x + acc[4 * jb + 3] * ld[jb].y;
+            }
+            o0 += __shfl_xor_sync(0xffffffffu, o0, 1);
+            o0 += __shfl_xor_sync(0xffffffffu, o0, 2);
+            o1 += __shfl_xor_sync(0xffffffffu, o1, 1);
+            o1 += __shfl_xor_sync(0xffffffffu, o1, 2);
+            if (q == 0) {
+              hw[lr * AM + a] = o0 + bhs[a];
+              hw[(lr + 8) * AM + a] = o1 + bhs[a];
+            }
           }
         }
       __syncwarp();
@@ -522,15 +571,18 @@ ppo_grad_f32_kernel(const Args p) {
       const int h = q & 1, r = row_lo + 8 * h;
       const bool live = r < nr, own = q < 2;
       float* hrow = hw + (lr + 8 * h) * AM;
-      const float* tail = rows + R * (XD + A + 1) + r * K;  // adv / ret
+      const float* tail = rows + R * (XD + AR + 1) + r * K;  // adv / ret
       auto add = [&](int k, float v) {
         warp_add(wsum + warp * NSUM + k, v, lane);
       };
       if (actor) {
         // a dead row is zero-filled, so its loss is finite; it is masked
-        actor_row_shared<AM, double>(hrow, hrow, own, live,
-                                     rows + R * XD + r * A,
-                                     rows[R * (XD + A) + r], tail, cst, lamv,
+        // (HW_TILE: its actions are those of the chunk's first row)
+        const float* act_row =
+            HW_TILE ? p.act + ((size_t)c * R + (live ? r : 0)) * A
+                    : rows + R * XD + r * A;
+        actor_row_shared<AM, double>(hrow, hrow, own, live, act_row,
+                                     rows[R * (XD + AR) + r], tail, cst, lamv,
                                      cst[AM + MMAX + 1], p, add);
       } else {
         float diff = 0.f, gv = 0.f;
@@ -577,7 +629,7 @@ ppo_grad_f32_kernel(const Args p) {
           hr[a] = h ? hd[1][a] : hd[0][a];
           g_out[a] = 0.f;
         }
-        const float* tail = rows + R * (XD + A + 1) + r * K;  // adv / ret
+        const float* tail = rows + R * (XD + AR + 1) + r * K;  // adv / ret
         // the row's terms of the block's sums: head bias and log-sigma
         // gradients, kl, min surrogate, diff^2, ratio * cadv
         float vals[NSUM];
@@ -586,7 +638,7 @@ ppo_grad_f32_kernel(const Args p) {
         if (actor) {
           // a dead row is zero-filled, so its loss is finite; it is masked
           const ActorRow<AM> o = actor_row(
-              hr, rows + R * XD + r * A, rows[R * (XD + A) + r], tail, sig,
+              hr, rows + R * XD + r * A, rows[R * (XD + AR) + r], tail, sig,
               cst[AM + MMAX], lamv, cst[AM + MMAX + 1], p);
 #pragma unroll
           for (int a = 0; a < AM; ++a) g_out[a] = live ? o.g_mu[a] : 0.f;
@@ -646,29 +698,40 @@ ppo_grad_f32_kernel(const Args p) {
       // each warp's column sums staged in the g_h2 tile (free until g_h2
       // is written below), folded over the warps in order into the block's
       // partial: each thread alone reads and writes its entries there, the
-      // first chunk storing and later ones adding
-      float* stg = g2s;   // [NW][AM][H]
-#pragma unroll
-      for (int a = 0; a < AM; ++a)
-        if (a < O) {
-          const float ga = hw[lr * AM + a], gb = hw[(lr + 8) * AM + a];
-#pragma unroll
-          for (int i = 0; i < 32; ++i)
-            v[i] = ga * acc[4 * (i >> 1) + (i & 1)] +
-                   gb * acc[4 * (i >> 1) + 2 + (i & 1)];
-          column_sums(v, lane);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            stg[(warp * AM + a) * H + column_of<32>(lane, i)] = v[i];
-        }
-      __syncthreads();
+      // first chunk storing and later ones adding. The tile's first half
+      // holds one slice of AM_SLICE actions at a time.
+      float* stg = g2s;   // [NW][AM_SLICE][H]
       float* oWh = out + L.local_off(tower, 4);
-      for (int i = tid; i < O * H; i += NT) {
-        float s = 0.f;
-        for (int w = 0; w < NW; ++w) s += stg[w * AM * H + i];
-        oWh[i] = it > 0 ? oWh[i] + s : s;
+#pragma unroll
+      for (int a0 = 0; a0 < AM; a0 += AM_SLICE) {
+        if (a0 >= O) break;            // (block-uniform)
+        if (a0 > 0) __syncthreads();   // the last slice has been folded
+#pragma unroll
+        for (int u = 0; u < AM_SLICE; ++u) {
+          const int a = a0 + u;
+          if (a < O) {
+            const float ga = hw[lr * AM + a], gb = hw[(lr + 8) * AM + a];
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+              v[i] = ga * acc[4 * (i >> 1) + (i & 1)] +
+                     gb * acc[4 * (i >> 1) + 2 + (i & 1)];
+            column_sums(v, lane);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              stg[(warp * AM_SLICE + u) * H + column_of<32>(lane, i)] = v[i];
+          }
+        }
+        __syncthreads();
+        const int n = min(AM_SLICE, O - a0) * H;
+        for (int i = tid; i < n; i += NT) {
+          float s = 0.f;
+          for (int w = 0; w < NW; ++w) s += stg[w * AM_SLICE * H + i];
+          float* o = oWh + a0 * H + i;
+          *o = it > 0 ? *o + s : s;
+        }
       }
-      __syncthreads();   // g_h2 takes the staging's place
+      // g_h2 takes the staging's place (HW_TILE: after the barrier below)
+      if constexpr (!HW_TILE) __syncthreads();
     } else {
 #pragma unroll
       for (int a = 0; a < AM; ++a)
@@ -689,22 +752,28 @@ ppo_grad_f32_kernel(const Args p) {
       float s[8][4];
 #pragma unroll
       for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      // s += ga w_a (row row_lo) and gb w_a (row row_lo + 8) over the head
+      // outputs a: WIDE_A AM_SLICE at a time from hw, else from registers
 #pragma unroll
-      for (int a = 0; a < AM; ++a)
-        if (a < O) {
-          float2 w[8];
+      for (int a0 = 0; a0 < (WIDE_A ? AM : 1); a0 += AM_SLICE)
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
-            w[i] = *reinterpret_cast<const float2*>(whs + a * H +
-                                                    8 * (j0 + i) + 2 * q);
-          const float ga = WIDE_A ? hw[lr * AM + a] : gh[0][a];
-          const float gb = WIDE_A ? hw[(lr + 8) * AM + a] : gh[1][a];
+        for (int u = 0; u < (WIDE_A ? AM_SLICE : AM); ++u) {
+          const int a = WIDE_A ? a0 + u : u;
+          if (a < O) {
+            float2 w[8];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            s[i][0] += ga * w[i].x;
-            s[i][1] += ga * w[i].y;
-            s[i][2] += gb * w[i].x;
-            s[i][3] += gb * w[i].y;
+            for (int i = 0; i < 8; ++i)
+              w[i] = *reinterpret_cast<const float2*>(whs + a * H +
+                                                      8 * (j0 + i) + 2 * q);
+            const float ga = WIDE_A ? hw[lr * AM + a] : gh[0][u];
+            const float gb = WIDE_A ? hw[(lr + 8) * AM + a] : gh[1][u];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              s[i][0] += ga * w[i].x;
+              s[i][1] += ga * w[i].y;
+              s[i][2] += gb * w[i].x;
+              s[i][3] += gb * w[i].y;
+            }
           }
         }
 #pragma unroll
@@ -717,10 +786,23 @@ ppo_grad_f32_kernel(const Args p) {
               acc[4 * jb + 2 * h + 1] > 0.f ? s[i][2 * h + 1] : 0.f;
           acc[4 * jb + 2 * h] = g0;
           acc[4 * jb + 2 * h + 1] = g1;
-          *reinterpret_cast<float2*>(
-              g2s + sw(row_lo + 8 * h, 8 * jb + 2 * q)) = make_float2(g0, g1);
+          if constexpr (!HW_TILE)
+            *reinterpret_cast<float2*>(
+                g2s + sw(row_lo + 8 * h, 8 * jb + 2 * q)) =
+                make_float2(g0, g1);
         }
       }
+    }
+    if constexpr (HW_TILE) {
+      // every warp has read its head values and the fold's staging
+      __syncthreads();
+#pragma unroll
+      for (int jb = 0; jb < 16; ++jb)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              g2s + sw(row_lo + 8 * h, 8 * jb + 2 * q)) =
+              make_float2(acc[4 * jb + 2 * h], acc[4 * jb + 2 * h + 1]);
     }
     __syncthreads();   // P2 reads every row of g_h2 and h1
 
@@ -806,42 +888,45 @@ ppo_grad_f32_kernel(const Args p) {
     __syncthreads();   // P4 reads every row of g_h1
 
     if constexpr (WIDE) {
-      // P4: the chunk's g_h1^T [x 1] on the warp's 16 outputs into acc
-      // (tile nt at acc[4 nt]), added into the block's partial; column D
-      // (ones) gives db1
-      zero(acc);
-#pragma unroll 1
-      for (int ks = 0; ks < R / 8; ++ks) {
-        const int r = 8 * ks + q;
-        const float* g1 = h1s + r * WS + row_lo;
-        const tf32::FragA a =
-            tf32::frag_a(g1[0], g1[8], g1[4 * WS], g1[4 * WS + 8]);
-#pragma unroll
-        for (int nt = 0; nt < (DMAX + 8) / 8; ++nt)
-          if (nt < n4) {
-            const int d = 8 * nt + lr;
-            const float one = d == D ? 1.f : 0.f;
-            tf32::mma3(acc + 4 * nt, a,
-                       tf32::frag_b(d < D ? xv(r, d) : one,
-                                    d < D ? xv(r + 4, d) : one));
-          }
-      }
+      // P4: the chunk's g_h1^T [x 1] on the warp's 16 outputs, P4_TILES
+      // tiles of 8 columns at a time into acc (tile nt at acc[4 nt]), each
+      // slice added into the block's partial; column D (ones) gives db1
       float* pW1 = out + L.local_off(tower, 0);
       float* pb1 = out + L.local_off(tower, 1);
+#pragma unroll 1
+      for (int t0 = 0; t0 < n4; t0 += P4_TILES) {
+        zero(acc);
+#pragma unroll 1
+        for (int ks = 0; ks < R / 8; ++ks) {
+          const int r = 8 * ks + q;
+          const float* g1 = h1s + r * WS + row_lo;
+          const tf32::FragA a =
+              tf32::frag_a(g1[0], g1[8], g1[4 * WS], g1[4 * WS + 8]);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = row_lo + 8 * h;
-#pragma unroll
-        for (int nt = 0; nt < (DMAX + 8) / 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int d = 8 * nt + 2 * q + e;
-            if (nt < n4 && d <= D) {
-              float* o = d < D ? pW1 + j * D + d : pb1 + j;
-              const float v1 = acc[4 * nt + 2 * h + e];
-              *o = it > 0 ? *o + v1 : v1;
+          for (int nt = 0; nt < P4_TILES; ++nt)
+            if (t0 + nt < n4) {
+              const int d = 8 * (t0 + nt) + lr;
+              const float one = d == D ? 1.f : 0.f;
+              tf32::mma3(acc + 4 * nt, a,
+                         tf32::frag_b(d < D ? xv(r, d) : one,
+                                      d < D ? xv(r + 4, d) : one));
             }
-          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = row_lo + 8 * h;
+#pragma unroll
+          for (int nt = 0; nt < P4_TILES; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int d = 8 * (t0 + nt) + 2 * q + e;
+              if (t0 + nt < n4 && d <= D) {
+                float* o = d < D ? pW1 + j * D + d : pb1 + j;
+                const float v1 = acc[4 * nt + 2 * h + e];
+                *o = it > 0 ? *o + v1 : v1;
+              }
+            }
+        }
       }
     } else {
       // P4: dW1 += g_h1^T [x 1] on the warp's 16 outputs, as dW2; column D
@@ -870,6 +955,8 @@ ppo_grad_f32_kernel(const Args p) {
     }
   }
   __syncthreads();   // the tiles are free from here on
+  if (tid < 2 && rtk[tid])
+    atomicAdd(&retakes[tid], (unsigned long long)rtk[tid]);
 
   // the rest of the block's partial
   {
@@ -941,7 +1028,8 @@ cudaError_t launch(const Args& a, int G, cudaStream_t stream) {
 // Above AMAX_NARROW actions the wide form (x read from L2) at any D: the
 // narrow form's x in the ring and the wider head leave no room at D 12.
 cudaError_t launch_f32(const Args& a, int G, cudaStream_t stream) {
-  if (a.A > AMAX_NARROW) return launch<true, AMAX>(a, G, stream);
+  if (a.A > AM_SLICE) return launch<true, AMAX>(a, G, stream);
+  if (a.A > AMAX_NARROW) return launch<true, AM_SLICE>(a, G, stream);
   return a.D > DMAX_F32_NARROW ? launch<true, AMAX_NARROW>(a, G, stream)
                                : launch<false, AMAX_NARROW>(a, G, stream);
 }
@@ -949,3 +1037,12 @@ cudaError_t launch_f32(const Args& a, int G, cudaStream_t stream) {
 size_t smem_bytes_f32(int D, int A, int K) { return smem_bytes(D, A, K); }
 
 }  // namespace ppo
+
+// The f32 kernel's float64 retakes since the last call ([0] first layer,
+// [1] second), written to out[2]; clears them. Synchronises the device.
+extern "C" int fsrl_ppo_grad_f32_retakes(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, ppo::retakes, sizeof(ppo::retakes));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[2] = {0ull, 0ull};
+  return (int)cudaMemcpyToSymbol(ppo::retakes, zero, sizeof(zero));
+}

@@ -14,12 +14,20 @@ namespace ppo {
 constexpr int H = 128;      // hidden width (both layers)
 constexpr int R = 128;      // rows per chunk
 constexpr int NT = 256;     // threads per block
-constexpr int DMAX = 64;    // largest observation width (both kernels)
+// Any observation width D >= 1. Up to DMAX_RESIDENT the bf16 kernel keeps
+// the whole of x and W1 in shared memory; above it, it takes them in slices
+// of 64 (four 16-deep steps). The f32 kernel reads x and W1 from L2 above
+// DMAX_F32_NARROW and takes P4 in slices of 128 columns.
+constexpr int DMAX_RESIDENT = 64;
 constexpr int DMAX_F32_NARROW = 12;   // the f32 kernel stages x in shared
                                       // memory up to this width
-constexpr int AMAX = 8;     // largest action width (both kernels)
 constexpr int AMAX_NARROW = 4;   // up to this action width the kernels keep
                                  // a row's per-action values in registers
+constexpr int AM_SLICE = 8;      // above it, a row's per-action values go
+                                 // through shared memory, taken in slices of
+                                 // this many actions
+constexpr int AMAX = 32;    // largest action width (both kernels): what the
+                            // f32 kernel's shared memory holds at K 6
 constexpr int MMAX = 5;     // largest number of constraints
 constexpr int AUXW = 8;     // aux partial width per tower
 
@@ -138,6 +146,37 @@ __device__ __forceinline__ double r_exp(double x) { return exp(x); }
 __device__ __forceinline__ float r_tanh(float x) { return tanhf(x); }
 __device__ __forceinline__ double r_tanh(double x) { return tanh(x); }
 
+// The row's -z^2 / 2 at action i (actor_row_shared).
+template <class Real>
+__device__ __forceinline__ Real row_sq(const float* s, const float* act_row,
+                                       const float* ls, int i) {
+  const Real mu = r_tanh((Real)s[i]);
+  const Real z = ((Real)act_row[i] - mu) / r_exp((Real)ls[i]);
+  return (Real)-0.5 * z * z;
+}
+
+// The row's gradient at action i (actor_row_shared): d loss / d the head's
+// output into g_out[i] (0 on a dead row) and into the warp's sums.
+template <int AM, class Real, class Add>
+__device__ __forceinline__ void row_grad(const float* s, float* g_out,
+                                         bool own, bool live,
+                                         const float* act_row,
+                                         const float* ls, Real g_logp, int i,
+                                         Add& add) {
+  float gm = 0.f, gl = 0.f;
+  if (own) {
+    const Real sig = r_exp((Real)ls[i]);
+    const Real mu = r_tanh((Real)s[i]);
+    const Real z = ((Real)act_row[i] - mu) / sig;
+    gm = (float)(g_logp * (z / sig) * ((Real)1 - mu * mu));
+    gl = (float)(g_logp * (z * z - (Real)1));
+    g_out[i] = live ? gm : 0.f;
+  }
+  const bool mine = own && live;
+  add(i, mine ? gm : 0.f);
+  add(AM + i, mine ? gl : 0.f);
+}
+
 // actor_row for the instances above AMAX_NARROW actions, which hold no
 // per-action array in registers: the row's pre-tanh means s[0, A) are read
 // from shared memory twice (for the log-prob, then for the gradient), the
@@ -145,7 +184,9 @@ __device__ __forceinline__ double r_tanh(double x) { return tanh(x); }
 // row), and each of the row's terms goes straight to add(k, v), a sum over
 // the warp that every lane calls with the same k: k < AM the head bias
 // gradient, AM + i d loss / d log-sigma_i, 2 AM kl, 2 AM + 1 the min
-// surrogate, 2 AM + 3 + m ratio * cadv_m. Only a lane with `own` reads s
+// surrogate, 2 AM + 3 + m ratio * cadv_m. Up to AM_SLICE actions the
+// loops are unrolled; above, they take AM_SLICE actions at a time in a loop
+// that is not unrolled. Only a lane with `own` reads s
 // and writes g_out (one lane a row); the others add zeros. `ls` is the
 // log-sigma vector. The row's arithmetic is in Real: float, as actor_row,
 // or double (the f32 kernel), where the log-prob's float32 rounding (its
@@ -157,18 +198,27 @@ __device__ __forceinline__ void actor_row_shared(
     float logp_old, const float* adv_row, const float* ls, const float* lamv,
     float resc, const Args& a, Add&& add) {
   Real lsig_sum = 0;
-#pragma unroll
-  for (int i = 0; i < AM; ++i)
-    if (i < a.A) lsig_sum += (Real)ls[i];
-  Real sq = 0;
-  if (own) {
+  if constexpr (AM <= AM_SLICE) {
 #pragma unroll
     for (int i = 0; i < AM; ++i)
-      if (i < a.A) {
-        const Real mu = r_tanh((Real)s[i]);
-        const Real z = ((Real)act_row[i] - mu) / r_exp((Real)ls[i]);
-        sq += (Real)-0.5 * z * z;
-      }
+      if (i < a.A) lsig_sum += (Real)ls[i];
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < a.A; ++i) lsig_sum += (Real)ls[i];
+  }
+  Real sq = 0;
+  if (own) {
+    if constexpr (AM <= AM_SLICE) {
+#pragma unroll
+      for (int i = 0; i < AM; ++i)
+        if (i < a.A) sq += row_sq<Real>(s, act_row, ls, i);
+    } else {
+#pragma unroll 1
+      for (int i0 = 0; i0 < a.A; i0 += AM_SLICE)
+#pragma unroll
+        for (int u = 0; u < AM_SLICE; ++u)
+          if (i0 + u < a.A) sq += row_sq<Real>(s, act_row, ls, i0 + u);
+    }
   }
   const Real c = sizeof(Real) == sizeof(float)
                      ? (Real)a.a_log_sqrt_2pi
@@ -193,21 +243,20 @@ __device__ __forceinline__ void actor_row_shared(
   const Real g_ratio = (Real)resc * (-dmin + lsum) / (Real)a.B;
   const Real g_logp = g_ratio * ratio;
   const bool mine = own && live;
+  if constexpr (AM <= AM_SLICE) {
 #pragma unroll
-  for (int i = 0; i < AM; ++i)
-    if (i < a.A) {
-      float gm = 0.f, gl = 0.f;
-      if (own) {
-        const Real sig = r_exp((Real)ls[i]);
-        const Real mu = r_tanh((Real)s[i]);
-        const Real z = ((Real)act_row[i] - mu) / sig;
-        gm = (float)(g_logp * (z / sig) * ((Real)1 - mu * mu));
-        gl = (float)(g_logp * (z * z - (Real)1));
-        g_out[i] = live ? gm : 0.f;
-      }
-      add(i, mine ? gm : 0.f);
-      add(AM + i, mine ? gl : 0.f);
-    }
+    for (int i = 0; i < AM; ++i)
+      if (i < a.A)
+        row_grad<AM, Real>(s, g_out, own, live, act_row, ls, g_logp, i, add);
+  } else {
+#pragma unroll 1
+    for (int i0 = 0; i0 < a.A; i0 += AM_SLICE)
+#pragma unroll
+      for (int u = 0; u < AM_SLICE; ++u)
+        if (i0 + u < a.A)
+          row_grad<AM, Real>(s, g_out, own, live, act_row, ls, g_logp,
+                             i0 + u, add);
+  }
   add(2 * AM, mine ? (float)((Real)logp_old - logp) : 0.f);
   add(2 * AM + 1, mine ? (float)(s1 < s2 ? s1 : s2) : 0.f);
 #pragma unroll

@@ -44,10 +44,9 @@ from fsrl_torch.ops import kernels
 LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 AUX_WIDTH = 8
 KERNEL_H = 128       # the kernels' tiling is written for width 128
-KERNEL_D_MAX = 64    # x and W1 are padded to ceil(D / 16) 16-deep steps
-KERNEL_A_MAX = 8     # the kernels' instances for A <= 4 hold a row's
-                     # per-action values in registers, those for A <= 8 in
-                     # shared memory
+KERNEL_A_MAX = 32    # the f32 kernel's shared memory: 200 KB of float32
+                     # tiles, and 580 bytes an action of head weights and
+                     # sums, fill a block's 232,448 bytes at A 32, K 6
 KERNEL_M_MAX = 5     # the aux row holds 3 + M sums in 8 slots
 
 
@@ -90,10 +89,14 @@ class GradLayout:
         return out
 
     def kernel_fits(self) -> bool:
-        """Shapes the CUDA kernels take: every (D, A, K) here fits a
-        block's shared memory in both forms (``chip_smoke.py``'s build
-        phase checks the whole set)."""
-        return (self.H == KERNEL_H and 1 <= self.D <= KERNEL_D_MAX
+        """Shapes the CUDA kernels take, the Pallas kernel's gate: hidden
+        width 128, any observation width D (the bf16 kernel takes x and W1
+        in 64-wide slices above 64, the f32 kernel reads them from L2), up
+        to ``KERNEL_A_MAX`` actions and ``KERNEL_M_MAX`` constraints. Every
+        (D, A, K) here fits a block's shared memory in both forms, which
+        does not grow with D above 64 (``chip_smoke.py``'s build phase
+        checks the corners)."""
+        return (self.H == KERNEL_H and self.D >= 1
                 and 1 <= self.A <= KERNEL_A_MAX
                 and 1 <= self.K <= KERNEL_M_MAX + 1)
 
@@ -286,7 +289,7 @@ def _launch(flat, layout: GradLayout, obs, act, logp_old, adv, ret, lam,
     K, A = layout.K, layout.A
     req = kernels.require
     req(layout.kernel_fits(),
-        f"fused PPO grad kernel takes H={KERNEL_H}, D<={KERNEL_D_MAX}, "
+        f"fused PPO grad kernel takes H={KERNEL_H}, any D >= 1, "
         f"A<={KERNEL_A_MAX}, K-1<={KERNEL_M_MAX}; got {layout}")
     expect = {"flat": (flat, (layout.size,)), "obs": (obs, (B, layout.D)),
               "act": (act, (B, A)), "logp_old": (logp_old, (B,)),
@@ -333,6 +336,17 @@ def reduce_launch(layout: GradLayout, B: int, device="cuda"):
             layout.A, layout.K, kernels.stream_ptr())
     kernels.check(rc, "fused PPO grad reduce launch")
     return grad, aux
+
+
+def retake_counts() -> tuple[int, int]:
+    """Pre-activations the f32 kernel took again in float64 (first layer,
+    second layer) since the last call, which clears them; synchronises the
+    card. For the card checks, used by nothing on the main path."""
+    import ctypes
+    out = (ctypes.c_ulonglong * 2)()
+    kernels.check(kernels.library().fsrl_ppo_grad_f32_retakes(out),
+                  "f32 retake count")
+    return int(out[0]), int(out[1])
 
 
 def ppo_grad_rows(flat, layout, obs, act, logp_old, adv, ret, lam, resc, *,

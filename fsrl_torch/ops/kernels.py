@@ -20,6 +20,7 @@ import collections
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -37,8 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: collections.Counter = collections.Counter()
-# the compiler's output for each source of the last build in this process
-# (ptxas' register and spill report)
+# the compiler's output for each source of the library (ptxas' register and
+# spill report), kept beside it as JSON so that a reused library has it too
 BUILD_LOG: dict[str, str] = {}
 
 
@@ -62,7 +63,10 @@ def build(verbose: bool = False) -> Path:
         digest.update((CSRC / s).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     so = BUILD / f"libfsrl_kernels_{digest.hexdigest()[:16]}.so"
+    log = so.with_suffix(".log.json")
     if so.exists():
+        if log.exists():
+            BUILD_LOG.update(json.loads(log.read_text()))
         return so
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -89,6 +93,7 @@ def build(verbose: bool = False) -> Path:
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed\n{res.stdout}{res.stderr}")
+        log.write_text(json.dumps(BUILD_LOG))
         os.replace(tmp_so, so)
     return so
 
@@ -111,6 +116,8 @@ def library() -> ctypes.CDLL:
     lib.fsrl_ppo_grad_smem_bytes.argtypes = [I, I, I, I]
     lib.fsrl_ppo_grad_smem_bytes.restype = ctypes.c_long
     lib.fsrl_ppo_grad_tile_offset.argtypes = [I, I, I]
+    lib.fsrl_ppo_grad_f32_retakes.argtypes = [P]
+    lib.fsrl_ppo_grad_f32_retakes.restype = I
     lib.fsrl_gae_strip.argtypes = []
     lib.fsrl_gae_time_tile.argtypes = []
     lib.fsrl_empty_launch.argtypes = [P]

@@ -3,7 +3,9 @@
 from fsrl_torch.trainer.host_trainer import (HostOffpolicyTrainer,
                                             HostOnpolicyTrainer)
 from fsrl_torch.trainer.trainer import (BaseTrainer, OffpolicyTrainer,
-                                       OnpolicyTrainer, perf_is_better)
+                                       OnpolicyTrainer, offpolicy_trainer,
+                                       onpolicy_trainer, perf_is_better)
 
 __all__ = ["BaseTrainer", "HostOffpolicyTrainer", "HostOnpolicyTrainer",
-           "OffpolicyTrainer", "OnpolicyTrainer", "perf_is_better"]
+           "OffpolicyTrainer", "OnpolicyTrainer", "offpolicy_trainer",
+           "onpolicy_trainer", "perf_is_better"]

@@ -293,3 +293,15 @@ class OffpolicyTrainer(BaseTrainer):
         metrics = self.update()
         self._log_train(self.stats, metrics)
         return metrics
+
+
+def onpolicy_trainer(*args, **kwargs) -> dict:
+    """Functional wrapper: ``OnpolicyTrainer(*args, **kwargs).run()``
+    (reference ``fsrl/trainer/onpolicy.py:113-120``)."""
+    return OnpolicyTrainer(*args, **kwargs).run()
+
+
+def offpolicy_trainer(*args, **kwargs) -> dict:
+    """Functional wrapper: ``OffpolicyTrainer(*args, **kwargs).run()``
+    (reference ``fsrl/trainer/offpolicy.py:109-116``)."""
+    return OffpolicyTrainer(*args, **kwargs).run()

@@ -1,1 +1,1 @@
-"""Parameter bridge and logging."""
+"""Parameter bridge, logging and profiling."""

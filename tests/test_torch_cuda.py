@@ -172,12 +172,17 @@ def test_gae_kernel_equals_plain_bit_for_bit(cuda, T, N, K):
 # the edges of the kernels' envelope, and the main path's shape; the
 # navigation tasks' widths (Goal 21, Button 54) and the widest corner; the
 # instances for 5 to 8 actions: the host path's minibatch (256 rows, D 17,
-# A 6), the corners at 8 actions and a ragged row count
+# A 6), the corners at 8 actions and a ragged row count; above 64
+# observations and 8 actions: Humanoid-v5 (348, 17) at the host path's
+# minibatch, Ant-v5 (105, 8) with the most value channels, a ragged count
+# at 129 and Humanoid-v4's 376 observations with 24 actions
 ENVELOPE_EDGES = [
     (1000, 9, 2, 2), (100, 9, 2, 2), (4096, 9, 2, 1), (4096, 9, 2, 6),
     (4096, 12, 4, 2), (4096, 1, 2, 2), (1000, 5, 3, 3), (32768, 9, 2, 2),
     (4096, 21, 2, 2), (1000, 54, 2, 2), (4096, 64, 4, 6),
-    (256, 17, 6, 2), (4096, 9, 8, 6), (4096, 64, 8, 6), (1000, 33, 5, 3)]
+    (256, 17, 6, 2), (4096, 9, 8, 6), (4096, 64, 8, 6), (1000, 33, 5, 3),
+    (256, 348, 17, 2), (4096, 105, 8, 6), (1000, 129, 17, 3),
+    (4096, 376, 24, 2)]
 
 
 def _check_at_shape(cuda, B, D, A, K, bf16):
@@ -247,13 +252,17 @@ def test_fused_grad_f32_two_launches_identical(cuda):
         "fused_ppo_grad", 0)
 
 
+@pytest.mark.parametrize("D,A", [(9, 2), (348, 17)])
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-def test_fused_grad_wrapper_raises_rather_than_falling_back(cuda, bf16):
-    from fsrl_torch.ops.fused_ppo_grad import GradLayout, ppo_grad_rows
-    args = _grad_case(cuda, 256, 9, 2, 2, bf16=bf16)
+def test_fused_grad_wrapper_raises_rather_than_falling_back(cuda, bf16, D,
+                                                            A):
+    """At the main path's width and at Humanoid's (the sliced form)."""
+    from fsrl_torch.ops.fused_ppo_grad import (KERNEL_A_MAX, GradLayout,
+                                               ppo_grad_rows)
+    args = _grad_case(cuda, 256, D, A, 2, bf16=bf16)
     before = sum(kernels.LAUNCHES.values())
     bad = list(args)
-    bad[2] = torch.randn(9, 256, device=cuda).T          # not contiguous
+    bad[2] = torch.randn(D, 256, device=cuda).T          # not contiguous
     with pytest.raises(ValueError):
         ppo_grad_rows(*bad, bf16=bf16)
     bad = list(args)
@@ -265,7 +274,11 @@ def test_fused_grad_wrapper_raises_rather_than_falling_back(cuda, bf16):
     with pytest.raises(ValueError):
         ppo_grad_rows(*bad, bf16=bf16)
     bad = list(args)
-    bad[1] = GradLayout(D=9, H=64, A=2, K=2)             # outside the envelope
+    bad[1] = GradLayout(D=D, H=64, A=A, K=2)             # outside the envelope
+    with pytest.raises(ValueError):
+        ppo_grad_rows(*bad, bf16=bf16)
+    bad = list(args)                                     # above the action cap
+    bad[1] = GradLayout(D=D, H=128, A=KERNEL_A_MAX + 1, K=2)
     with pytest.raises(ValueError):
         ppo_grad_rows(*bad, bf16=bf16)
     assert sum(kernels.LAUNCHES.values()) == before
@@ -302,21 +315,24 @@ def test_python_mirrors_of_the_kernels_tiling_agree_with_the_library(cuda):
                     tile_offset(r, c, ncg), (r, c, ncg)
 
 
-def _one_update(cls, dev, **kw):
-    """One small f32 update of ``cls`` on ``dev`` from numpy-seeded rows,
-    with the shuffle drawn on the CPU: the flat parameters and metrics."""
+def _one_update(cls, dev, D=9, A=2, act_scale=1.0, logp_mean=-2.0, **kw):
+    """One small f32 update of ``cls`` on ``dev`` from numpy-seeded rows of
+    widths ``D`` and ``A`` (actions ``act_scale`` times normal draws, old
+    log-probs normal about ``logp_mean``), with the shuffle drawn on the
+    CPU: the flat parameters and metrics."""
     import numpy as np
 
     from fsrl_torch.types import TileLayout, Transition, draw_tile_perms
     rng = np.random.default_rng(0)
-    T, N, D, A = 32, 64, 9, 2
+    T, N = 32, 64
     rows = {
-        "obs": rng.normal(size=(T, N, D)), "act": rng.normal(size=(T, N, A)),
+        "obs": rng.normal(size=(T, N, D)),
+        "act": act_scale * rng.normal(size=(T, N, A)),
         "obs_next": rng.normal(size=(T, N, D)),
         "reward": rng.normal(size=(T, N)), "cost": rng.random((T, N, 1)),
         "terminated": rng.random((T, N)) < 0.02,
         "truncated": rng.random((T, N)) < 0.02,
-        "logp": rng.normal(size=(T, N)) - 2.0}
+        "logp": rng.normal(size=(T, N)) + logp_mean}
     algo = cls(D, A, cost_limit=5.0, device=dev, **kw)
     state = algo.init(seed=1)
     tr = Transition(**{
@@ -341,28 +357,36 @@ def _one_update(cls, dev, **kw):
     return algo, state.flat.cpu(), m, launched
 
 
-@pytest.mark.parametrize("name", ["ppo_lag", "focops", "trpo_lag", "cpo"])
+@pytest.mark.parametrize("name", ["ppo_lag", "ppo_lag_humanoid", "focops",
+                                  "trpo_lag", "cpo"])
 def test_update_on_the_card_matches_the_cpu(cuda, name):
     """One update of each on-policy algorithm on the card (GAE through
-    kernel K1; PPO-Lag's 2 x 2 grad steps through the f32 K2 kernel)
-    against the same update on the CPU."""
+    kernel K1; PPO-Lag's 2 x 2 grad steps through the f32 K2 kernel, also
+    at Humanoid-v5's widths, D 348 and A 17) against the same update on
+    the CPU."""
     from fsrl_torch.algos.common import split_flat
     from fsrl_torch.algos.cpo import CPO
     from fsrl_torch.algos.focops import FOCOPS
     from fsrl_torch.algos.ppo_lag import PPOLag
     from fsrl_torch.algos.trpo_lag import TRPOLag
     mb = dict(repeat=2, n_minibatches=2)
-    cls, kw = {"ppo_lag": (PPOLag, mb), "focops": (FOCOPS, mb),
+    cls, kw = {"ppo_lag": (PPOLag, mb),
+               # actions and old log-probs of the policy's own scale at 17
+               # actions (log-prob about -9), so that the ratio is near 1
+               "ppo_lag_humanoid": (PPOLag, dict(mb, D=348, A=17,
+                                                 act_scale=0.3,
+                                                 logp_mean=-9.0)),
+               "focops": (FOCOPS, mb),
                "trpo_lag": (TRPOLag, dict(target_kl=0.01)),
                "cpo": (CPO, dict())}[name]
     algo, fc, mc, n_cpu = _one_update(cls, "cpu", **kw)
     _, fg, mg, n_gpu = _one_update(cls, cuda, **kw)
     assert n_cpu == {}
-    assert n_gpu == ({"gae": 1, "fused_ppo_grad_f32": 4} if name == "ppo_lag"
+    assert n_gpu == ({"gae": 1, "fused_ppo_grad_f32": 4} if cls is PPOLag
                      else {"gae": 1})
     start = algo.init(seed=1)
     model = start.params
-    if name in ("ppo_lag", "focops"):
+    if cls in (PPOLag, FOCOPS):
         # Adam on gradients ~1e-7 apart: 1e-5 after 4 steps of lr 3e-4
         assert float((fc - fg).abs().max()) < 1e-5
     else:

@@ -19,7 +19,8 @@ from fsrl_tpu.ops.fused_ppo_grad import ppo_grad_minibatch as j_grad
 from fsrl_torch.algos.common import OnPolicyBatch, normalize_adv
 from fsrl_torch.algos.ppo_lag import PPOLag
 from fsrl_torch.ops import kernels
-from fsrl_torch.ops.fused_ppo_grad import (KINK_MARGIN, GradLayout, _launch,
+from fsrl_torch.ops.fused_ppo_grad import (KERNEL_A_MAX, KINK_MARGIN,
+                                           GradLayout, _launch,
                                            policy_logp, ppo_grad_minibatch,
                                            ppo_grad_plain, ppo_grad_rows,
                                            redraw_near_kinks, relu_margin,
@@ -113,13 +114,22 @@ def test_kernel_envelope():
     assert not GradLayout(D=9, H=64, A=2, K=2).kernel_fits()
     # both kernel forms take every navigation task's observation (D <= 64)
     assert GradLayout(D=64, H=128, A=4, K=6).kernel_fits()
-    assert not GradLayout(D=65, H=128, A=2, K=2).kernel_fits()
-    # and up to 8 actions (the velocity suite but Humanoid's 17)
+    # and, as the Pallas kernel's gate, any wider one: the velocity suite's
+    # Ant (105, 8) and Humanoid (348, 17)
+    assert GradLayout(D=65, H=128, A=2, K=2).kernel_fits()
+    assert GradLayout(D=105, H=128, A=8, K=6).kernel_fits()
+    assert GradLayout(D=348, H=128, A=17, K=2).kernel_fits()
     assert GradLayout(D=17, H=128, A=6, K=2).kernel_fits()
     assert GradLayout(D=64, H=128, A=8, K=6).kernel_fits()
-    assert not GradLayout(D=9, H=128, A=9, K=2).kernel_fits()
+    assert GradLayout(D=9, H=128, A=9, K=2).kernel_fits()
+    # up to KERNEL_A_MAX actions, which the f32 kernel's shared memory sets
+    assert GradLayout(D=9, H=128, A=KERNEL_A_MAX, K=6).kernel_fits()
+    assert not GradLayout(D=9, H=128, A=KERNEL_A_MAX + 1, K=2).kernel_fits()
+    assert not GradLayout(D=9, H=128, A=2, K=7).kernel_fits()
     assert PPOLag(17, 6, device="cpu").use_grad_kernel
-    assert not PPOLag(17, 9, device="cpu").use_grad_kernel
+    assert PPOLag(17, 9, device="cpu").use_grad_kernel
+    assert PPOLag(105, 8, device="cpu").use_grad_kernel
+    assert PPOLag(348, 17, device="cpu").use_grad_kernel
     assert PPOLag(9, 2, device="cpu").use_grad_kernel
     assert not PPOLag(9, 2, dual_clip=3.0, device="cpu").use_grad_kernel
     assert not PPOLag(9, 2, value_clip=True, device="cpu").use_grad_kernel
@@ -197,7 +207,12 @@ EDGES = {"K6": (9, 2, 6, 256), "D12_A4": (12, 4, 2, 256),
          # the velocity suite's actions: HalfCheetah (D 17, A 6), and the
          # envelope's 8 at the narrowest and widest observations
          "D17_A6": (17, 6, 2, 256), "D9_A8_K6": (9, 8, 6, 256),
-         "D64_A8_rows200": (64, 8, 3, 200)}
+         "D64_A8_rows200": (64, 8, 3, 200),
+         # above the resident tiles' 64 observations and the AM 8 layout's
+         # 8 actions: Ant (105, 8), Humanoid (348, 17), and the corners
+         "D65": (65, 2, 2, 256), "D105_A8": (105, 8, 2, 256),
+         "D348_A17": (348, 17, 2, 256), "A9": (9, 9, 2, 200),
+         "D129_A17_K6": (129, 17, 6, 200)}
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])

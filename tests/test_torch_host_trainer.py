@@ -10,7 +10,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_host import A, D, EP, stub_venvs
+from _torch_host import A, D, EP, HUMANOID, stub_venvs
 from _torch_parity import n, state_dict
 from test_torch_ppo_lag import _jax_perms
 
@@ -30,15 +30,15 @@ T, N = 12, 4
 KW = dict(cost_limit=5.0, repeat=2, n_minibatches=2, episode_len=EP)
 
 
-def _trainers(noise=None):
+def _trainers(noise=None, d=D, a=A):
     """Both trainers from the same weights, acting with the mean action,
     or with the mean plus ``noise[t]`` at the t-th step (the same draws on
-    both sides)."""
-    jv, tv = stub_venvs(N)
-    jalgo = JPPOLag(D, A, **KW)
+    both sides), on stub envs of widths ``d`` and ``a``."""
+    jv, tv = stub_venvs(N, d, a)
+    jalgo = JPPOLag(d, a, **KW)
     jtr = JHostOnpolicyTrainer(jalgo, jv, steps_per_collect=T, seed=0,
                                verbose=False)
-    talgo = PPOLag(D, A, device="cpu", **KW)
+    talgo = PPOLag(d, a, device="cpu", **KW)
     ttr = HostOnpolicyTrainer(talgo, tv, steps_per_collect=T, seed=0,
                               verbose=False)
     ttr.state = talgo.init(state_dict=state_dict(jtr.state.params))
@@ -104,15 +104,19 @@ def test_obs_next_at_a_done_step_is_the_reset_observation(segments):
         assert obs_next[0, 0, 1] == 1.0 and obs_next[0, 0, 4] == 1.0
 
 
-def test_update_on_a_segment_matches_jax():
+@pytest.mark.parametrize("d,a", [(D, A), HUMANOID],
+                         ids=["stub", "humanoid"])
+def test_update_on_a_segment_matches_jax(d, a):
     """One update of a segment that both trainers collect acting with the
-    mean action plus the same draws. (At the mean action itself the actor
-    mean's gradient is rounding noise around 0, and Adam's first step moves
-    every weight by about lr times its sign, which the two libraries draw
-    differently.)"""
-    noise = 0.3 * np.random.default_rng(4).normal(size=(T, N, A)).astype(
+    mean action plus the same draws, on the stub's widths and on
+    Humanoid-v5's (348, 17), the widest of the velocity suite, where the
+    port's update takes the fused gradient (its plain version on the CPU).
+    (At the mean action itself the actor mean's gradient is rounding noise
+    around 0, and Adam's first step moves every weight by about lr times
+    its sign, which the two libraries draw differently.)"""
+    noise = 0.3 * np.random.default_rng(4).normal(size=(T, N, a)).astype(
         np.float32)
-    jtr, ttr = _trainers(noise)
+    jtr, ttr = _trainers(noise, d, a)
     (jseg, jc, jn), (tseg, tc, tn) = jtr.collect_segment(), \
         ttr.collect_segment()
     np.testing.assert_allclose(n(tseg.act), np.asarray(jseg.act), atol=1e-6)
