@@ -70,12 +70,14 @@ Phases, each of which must pass:
    plain f32 version plus 1e-5 of its largest entry, each aux entry as
    above; each kernel's time
    split into a cost per chunk and a fixed cost; then both at the
-   envelope's edges (1000 and 100 rows, K = 1, K = 6, D = 12 with A = 4,
-   D = 1); two launches on the same inputs must give identical outputs; the
-   reduce launch and an empty kernel are timed on their own; both forms at
-   the widened envelope (D 13, 16, 17, 21, 32, 54, 64 with A 2, K 2; the
-   corner D 64, A 4, K 6; ragged rows at D 21 and D 54), the f32 kernel on
-   natural rows at D 21 and D 54 against float64, both timed at D 21 and
+   envelope's edges (1000 and 100 rows, K = 1, K = 6, D = 12 with A = 4, D =
+   1) and at the data-parallel path's row counts (16,384, and a
+   ``dp_blocks`` 1 minibatch's uneven share); two launches on the same
+   inputs must give identical outputs; the reduce launch and an empty kernel
+   are timed on their own; both forms at the widened envelope (D 13, 16, 17,
+   21, 32, 54, 64 with A 2, K 2; the corner D 64, A 4, K 6; ragged rows at D
+   21 and D 54), the f32 kernel on natural rows at D 21 and D 54 against
+   float64, both timed at D 21 and
    D 54, and the autograd step PPO-Lag took outside the old envelope timed
    once at D 21; the instances for 5 to 8 actions at D 9, 17 and 64 with
    K 6, at 256 rows and at ragged row counts, and both forms timed at the
@@ -89,7 +91,7 @@ Phases, each of which must pass:
    API at the JAX package's off-policy benchmark shape
    (SafetyBallCircle-v0, 32 envs x 100 steps, 0.2 grad steps per env step,
    so 640 grad steps per collect, batch 256, buffer 100,000, hidden
-   (128, 128), f32): 3 iterations plus the test with the launch counters
+   (128, 128), f32): 2 iterations plus the test with the launch counters
    zeroed before and read after (K1 and K2 are on none of these paths),
    each iteration's collect and update timed apart; one short bf16 SAC-Lag
    run; one ``update_step`` of each algorithm on the card against the CPU
@@ -97,12 +99,36 @@ Phases, each of which must pass:
    SAC-Lag state trained on the card restored bit for bit; the Q-critic
    ensemble's batched form timed against one chain per tower at 256 and
    4,096 rows;
-6. breakdown: for PPO-Lag and the three f32 trust-region / FOCOPS paths the
+6. data parallel (``phase_dp``): two ranks spawned by the script
+   (``--dp-rank``), sharing the card over gloo and loading the kernels the
+   parent built: ``[dp ppo_lag f32]`` and ``[dp ppo_lag bf16]``, PPO-Lag on
+   SafetyCarCircle-v0 at 4096 envs x 64 steps global, repeat 4 x 8, one
+   iteration from a fresh trainer at ``dp_blocks`` 2 and 1 and seeds 3, 4
+   and 5 (the first case a second iteration), exactly 1 K1 and 32 K2 of
+   the form on each rank every iteration, the ranks' parameters
+   ``torch.equal`` after each, after the first within ``DP_TOL`` of one
+   process with the same seed (f32 rtol 2e-4 / atol 2e-5, the CPU tests';
+   bf16 atol 1.6e-3), and at seed 3, ``dp_blocks`` 2 equal bit for bit to
+   one process whose K2 runs on each minibatch's two halves; beside them
+   one process against itself with every gradient entry moved one ulp
+   before each Adam step, two ranks with the policy on their own rows (not
+   the path), a rank's collect both ways, and the policy's forward at a
+   rank's share of the rows; ``[dp cpo]`` (AntRun, one iteration: the
+   ranks equal, one ``optim_case``); ``[dp sac_lag]`` at the off-policy
+   benchmark shape, one iteration of 640 grad steps, equal to one process
+   bit for bit, buffers included;
+7. command lines (``phase_cli``): ``python -m
+   fsrl_torch.examples.mlp.train_ppol_agent`` for one epoch of one
+   collect on the card, then ``eval_ppol_agent --path`` on its run
+   directory; the same under ``torchrun --nproc_per_node 1`` with
+   ``--use_mesh true`` (NCCL, one rank);
+8. breakdown: for PPO-Lag and the three f32 trust-region / FOCOPS paths the
    two halves of an iteration and one iteration under ``torch.profiler``,
-   then one SAC-Lag collect and the first 64 of its 640 grad steps under it
+   then one SAC-Lag collect and the first 32 of its 640 grad steps under it
    (device busy share, device ops and host ms per grad step); last, because
    the profiler leaves every later launch slower for the host;
-7. summary: one JSON line of kernels (K1, K2 bf16, K2 f32), the card's
+9. summary: one JSON line of kernels (K1, K2 bf16, K2 f32; their
+   launches by path, the data-parallel ranks' among them), the card's
    name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -1575,8 +1601,28 @@ def phase_k2_scaling(full_ms: float, bf16: bool, B: int = 32768, K: int = 2):
           f"{1e3 * (one_ms - per_chunk):.2f} us fixed", flush=True)
 
 
+def _dp_share() -> int:
+    """The rows rank 0 of two holds in a minibatch of the data-parallel
+    PPO-Lag path at ``dp_blocks`` 1 (the global shuffle, 262,144 rows, 8
+    minibatches), drawn as that path draws its tiles: the first minibatch
+    whose share is not half."""
+    import torch
+    from fsrl_torch.types import (TileLayout, draw_tile_perms,
+                                  minibatch_row_index)
+    n = N_ENVS * T_STEPS
+    layout = TileLayout.of(n, 8)
+    g = torch.Generator(device="cuda").manual_seed(DP_SEED)
+    rows = minibatch_row_index(layout, *draw_tile_perms(layout, 4, g,
+                                                        "cuda"))
+    shares = (rows < n // DP_WORLD).sum(1).tolist()
+    return next(c for c in shares if c != layout.mb_rows // DP_WORLD)
+
+
 def phase_k2_edges():
     """Both K2 kernels at the edges of their envelope: errors only. The
+    data-parallel path's row counts at D 9: a rank's half of a minibatch
+    (16,384 rows, ``dp_blocks`` 2) and an uneven share (``dp_blocks`` 1,
+    ``_dp_share``). The
     widened envelope: x and W1 in 1 to 4 16-deep steps (D 13 to 64), the
     f32 kernel's wide form from D 13, the corner D 64, A 4, K 6; the
     instances for 5 to 8 actions at D 9, 17 and 64 with the most value
@@ -1598,8 +1644,12 @@ def phase_k2_edges():
                 for A in (6, 8)),
               dict(K=3, B=1000, D=17, A=6), dict(K=2, B=100, D=64, A=8),
               dict(K=4, B=640, D=33, A=7), dict(K=2, B=200, D=9, A=5)]
+    share = _dp_share()
+    print(f"[K2 edges] a dp_blocks 1 minibatch's uneven share on rank 0: "
+          f"{share} rows", flush=True)
+    dp_rows = [dict(K=2, B=16384), dict(K=2, B=share)]
     for bf16 in (True, False):
-        for kw in wide_a + wide_d:
+        for kw in dp_rows + wide_a + wide_d:
             _k2_case(bf16=bf16, timed=False, **kw)
         for kw in (dict(K=2, B=1000), dict(K=2, B=100), dict(K=1, B=4096),
                    dict(K=6, B=4096), dict(K=2, B=4096, D=12, A=4),
@@ -1876,7 +1926,7 @@ def phase_q_forms():
     return out
 
 
-def phase_offpolicy_breakdown(agent, window=64):
+def phase_offpolicy_breakdown(agent, window=32):
     """One SAC-Lag iteration with its collect and its first ``window``
     grad steps under ``torch.profiler``, the remaining steps and
     ``post_update`` on the host clock alone: device busy share, device ops
@@ -1935,7 +1985,8 @@ def phase_offpolicy():
     SAC-Lag run, the card-against-CPU step and the checkpoint round trip.
     Returns the SAC-Lag agent (for the profiled breakdown)."""
     import torch
-    agents = {name: phase_train_offpolicy(name)
+    # two iterations each (three before the data-parallel phases came)
+    agents = {name: phase_train_offpolicy(name, iters=2)
               for name in ("ddpg_lag", "sac_lag", "cvpo")}
     phase_train_offpolicy("sac_lag", dtype=torch.bfloat16, iters=1)
     phase_offpolicy_parity()
@@ -1945,6 +1996,492 @@ def phase_offpolicy():
              **OFF_LEARN))
     phase_q_forms()
     return agents["sac_lag"]
+
+
+# ---------------------------------------------------------------------------
+# Data parallel: two ranks that share the card over gloo, spawned by this
+# script (``python3 chip_smoke.py --dp-rank R W PORT LIBRARY OUT``), and the
+# per-algorithm command lines
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_SEED = 3
+# PPO-Lag's first iteration from a fresh trainer, held to one process at
+# each of these seeds and at dp_blocks 2 (block-local) and 1 (the global
+# shuffle: uneven, ragged shares)
+DP_SEEDS = (3, 4, 5)
+DP_BLOCKS = (2, 1)
+DP_TIMEOUT = 600          # seconds both ranks may take for all DP phases
+# (rtol, atol) for parameters after one data-parallel iteration against one
+# process. f32: the CPU tests' (tests/test_torch_parallel.py). bf16: twice
+# the largest of the six readings on an H100 80GB HBM3 at 700 W (7.774e-4
+# at seed 4, dp_blocks 1), since the tests' bound failed there: K2's sums
+# over each rank's rows, in another order than over the whole minibatch,
+# move the bf16 run that far (the two ranks equal one process whose K2
+# runs on the halves, bit for bit, checked below), and on that card one
+# process moved 3.6e-5 from itself when every gradient entry moved one ulp
+DP_TOL = {"f32": (2e-4, 2e-5), "bf16": (2e-4, 1.6e-3)}
+
+
+def _dp_ppo_trainer(dtype, mesh=None, blocks: int = 2,
+                    seed: int = DP_SEED):
+    """PPO-Lag at the benchmark width with ``dp_blocks`` ``blocks``, its
+    trainer data parallel over ``mesh`` (one process without)."""
+    from fsrl_torch.agent import PPOLagAgent
+    from fsrl_torch.trainer import OnpolicyTrainer
+    agent = PPOLagAgent("SafetyCarCircle-v0", cost_limit=10.0, repeat=4,
+                        n_minibatches=8, compute_dtype=dtype,
+                        dp_blocks=blocks, seed=seed)
+    return OnpolicyTrainer(agent.algo, agent.env, None, n_envs=N_ENVS,
+                           steps_per_collect=T_STEPS, cost_limit=10.0,
+                           seed=seed, verbose=False, mesh=mesh,
+                           state=agent.state)
+
+
+def _dp_cases():
+    """The PPO-Lag cases held to one process: ``(key, form, dtype,
+    dp_blocks, seed)``."""
+    import torch
+    return [(f"ppo_lag {form} b{blocks} s{seed}", form, dtype, blocks, seed)
+            for form, dtype in (("f32", None), ("bf16", torch.bfloat16))
+            for blocks in DP_BLOCKS for seed in DP_SEEDS]
+
+
+def _dp_cpo_trainer(mesh=None):
+    from fsrl_torch.agent import CPOAgent
+    from fsrl_torch.trainer import OnpolicyTrainer
+    agent = CPOAgent("SafetyAntRun-v0", cost_limit=10.0, seed=DP_SEED)
+    return OnpolicyTrainer(agent.algo, agent.env, None, n_envs=N_ENVS,
+                           steps_per_collect=T_STEPS, cost_limit=10.0,
+                           seed=DP_SEED, verbose=False, mesh=mesh,
+                           state=agent.state)
+
+
+def _dp_sac_trainer(mesh=None):
+    from fsrl_torch.trainer import OffpolicyTrainer
+    agent = _offpolicy_agent("sac_lag", seed=DP_SEED)
+    return OffpolicyTrainer(agent.algo, agent.env, None, cost_limit=10.0,
+                            seed=DP_SEED, verbose=False, mesh=mesh,
+                            state=agent.state, **OFF_LEARN)
+
+
+def _flat(tr):
+    """A copy of the trainer's flat parameters, on the CPU."""
+    st = tr.state
+    return (st.flat if hasattr(st, "flat") else st.params.flat).detach(
+    ).cpu().clone()
+
+
+def _dp_iteration(tr, dp):
+    """One iteration of a rank's trainer with the launch counters zeroed
+    before and read after: (host ms, launches, whether every rank holds the
+    same parameters bit for bit)."""
+    import torch
+    from fsrl_torch.ops import kernels
+    kernels.reset_launch_counts()
+    _, ms = _timed(tr._run_iter)
+    launches = dict(kernels.LAUNCHES)
+    st = tr.state
+    flat = st.flat if hasattr(st, "flat") else st.params.flat
+    ref = flat.clone()
+    dp.broadcast_(ref)
+    return ms, launches, bool(torch.equal(ref, flat))
+
+
+def _own_rows_rollout(tr):
+    """``tr``'s rollout with the policy run on the rank's own rows (its
+    noise still drawn for every env) in the place of the padded global
+    batch the collector gives it: what the padding costs, and what it
+    buys. The feedforward actor-critic's ``act_fn``."""
+    import torch
+    from fsrl_torch.data.collector import make_rollout_fn
+    rows = tr.draw
+
+    def act(params, obs, g):
+        dist = params.actor(obs[rows.lo: rows.hi])
+        noise = torch.randn((rows.n_total,) + dist.mean.shape[1:],
+                            generator=g, device=obs.device)
+        a = dist.sample(noise=noise[rows.lo: rows.hi])
+        return rows.pad(a), rows.pad(dist.log_prob(a))
+
+    return make_rollout_fn(tr.env, act, tr.T, tr.device)
+
+
+def _collect_ms(tr, reps: int = 3) -> dict:
+    """A rank's collect with the policy on the padded global batch (the
+    path) and on its own rows, alternated: median ms of ``reps`` each.
+    Advances the generator alike on every rank; the trainer's state is
+    left as it was."""
+    import torch
+    variants = {"padded": tr.rollout, "own rows": _own_rows_rollout(tr)}
+    times = {name: [] for name in variants}
+    for _ in range(reps):
+        for name, rollout in variants.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rollout(tr.state.params, tr.env_state,
+                    tr.stats.reset_aggregates(), tr.draw)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _policy_ms(tr, rows=(512, 1024, 2048, 4096), reps: int = 3) -> dict:
+    """One process (f32): ms of a collect's ``T_STEPS`` policy calls at
+    each env count, median of ``reps``: the padded forward at 4096 envs
+    against a rank's own share at W = 8, 4, 2, 1."""
+    import torch
+    out = {}
+    for n in rows:
+        obs = tr.env_state.obs[:n].contiguous()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(T_STEPS):
+                tr.algo.act_fn(tr.state.params, obs, tr.generator)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[n] = statistics.median(times)
+    return out
+
+
+def _halves(tr):
+    """``tr`` (one process, ``dp_blocks`` 2) with each grad step's K2
+    launched on the two halves of its minibatch, the rows each of two ranks
+    holds, and the results summed with weight 1/2 as the ranks sum them:
+    the data-parallel arithmetic in one process. Returns a function that
+    runs one iteration so."""
+    import fsrl_torch.algos.ppo_lag as ppo_lag
+    whole = ppo_lag.ppo_grad_minibatch
+
+    def halves(flat, layout, obs, act, logp_old, adv, ret, lam, resc, **kw):
+        h = obs.shape[0] // 2
+        (l0, a0, g0), (l1, a1, g1) = (
+            whole(flat, layout, obs[s], act[s], logp_old[s], adv[s], ret[s],
+                  lam, resc, **kw) for s in (slice(0, h), slice(h, None)))
+        return (l0 * 0.5 + l1 * 0.5, {k: a0[k] * 0.5 + a1[k] * 0.5
+                                      for k in a0}, g0 * 0.5 + g1 * 0.5)
+
+    def run():
+        ppo_lag.ppo_grad_minibatch = halves
+        try:
+            tr._run_iter()
+        finally:
+            ppo_lag.ppo_grad_minibatch = whole
+
+    return run
+
+
+def _ulp_grads(tr):
+    """``tr`` with every gradient entry moved up one ulp before each Adam
+    step: the control for a last-bit difference of the sums."""
+    import torch
+    step = tr.algo.tx.update
+    tr.algo.tx.update = lambda g, opt: step(
+        torch.nextafter(g, torch.full_like(g, math.inf)), opt)
+    return tr
+
+
+def dp_rank_main(rank: int, world: int, port: str, library: str,
+                 out: str) -> int:
+    """One rank of the data-parallel phases: the process group over TCP
+    (gloo: NCCL refuses two ranks on one card), the kernels loaded from the
+    library the parent built, then PPO-Lag f32 and bf16 (every case of
+    ``_dp_cases``; the first one a second iteration and the collect
+    timed), CPO and SAC-Lag over the ranks; the results go to ``out``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from fsrl_torch.ops import kernels
+    from fsrl_torch.parallel.mesh import (DPGroup, init_multihost,
+                                          make_multihost_mesh)
+    if not Path(library).exists():
+        fail(f"[dp rank {rank}] the kernel library {library} is not built")
+    init_multihost(f"localhost:{port}", world, rank, backend="gloo",
+                   device="cuda:0")
+    mesh = make_multihost_mesh(device="cuda:0")
+    dp = DPGroup.of(mesh)
+    if kernels.build() != Path(library):
+        fail(f"[dp rank {rank}] loaded another kernel library")
+    kernels.library()
+    res = {}
+    for key, form, dtype, blocks, seed in _dp_cases():
+        tr = _dp_ppo_trainer(dtype, mesh, blocks, seed)
+        res[key] = [_dp_iteration(tr, dp)]
+        res[f"{key} flat"] = _flat(tr)
+        if (blocks, seed) == (2, DP_SEED):
+            res[key].append(_dp_iteration(tr, dp))
+            res[f"{key} metrics"] = tr.last_metrics
+            res[f"ppo_lag {form} collect"] = _collect_ms(tr)
+            own = _dp_ppo_trainer(dtype, mesh, blocks, seed)
+            own.rollout = _own_rows_rollout(own)
+            res[f"{key} own rows"] = _dp_iteration(own, dp)
+            res[f"{key} own rows flat"] = _flat(own)
+    tr = _dp_cpo_trainer(mesh)
+    res["cpo"] = [_dp_iteration(tr, dp)]
+    res["cpo flat"], res["cpo metrics"] = _flat(tr), tr.last_metrics
+    tr = _dp_sac_trainer(mesh)
+    res["sac_lag"] = [_dp_iteration(tr, dp)]
+    res["sac_lag flat"] = _flat(tr)
+    res["sac_lag buffer"] = {k: v[:OFF_T].cpu() for k, v in
+                             vars(tr.buf_state.data).items()}
+    res["sac_lag metrics"] = tr.last_metrics
+    torch.save(res, out)
+    dist.destroy_process_group()
+    return 0
+
+
+def _dp_one_process():
+    """The one-process runs the ranks are held to: the first PPO-Lag
+    iteration of every case of ``_dp_cases``, the CPO iteration and the
+    SAC-Lag one, from the same seeds; the control: the first case of each
+    form again with every gradient entry moved up one ulp before each Adam
+    step; the first case with K2 on each minibatch's halves (``_halves``);
+    and the policy's forward at a rank's share of the rows."""
+    import torch
+    ref = {}
+    for key, form, dtype, blocks, seed in _dp_cases():
+        tr = _dp_ppo_trainer(dtype, None, blocks, seed)
+        tr._run_iter()
+        ref[key] = _flat(tr)
+        if "policy ms" not in ref:
+            ref["policy ms"] = _policy_ms(tr)
+    for form, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        tr = _ulp_grads(_dp_ppo_trainer(dtype))
+        tr._run_iter()
+        ref[f"ppo_lag {form} ulp"] = _flat(tr)
+        tr = _dp_ppo_trainer(dtype)
+        _halves(tr)()
+        ref[f"ppo_lag {form} halves"] = _flat(tr)
+    for name, make in (("cpo", _dp_cpo_trainer), ("sac_lag",
+                                                  _dp_sac_trainer)):
+        tr = make()
+        tr._run_iter()
+        ref[name], ref[f"{name} metrics"] = _flat(tr), tr.last_metrics
+        if name == "sac_lag":
+            ref["sac_lag buffer"] = {k: v[:OFF_T].cpu() for k, v in
+                                     vars(tr.buf_state.data).items()}
+    torch.cuda.synchronize()
+    return ref
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dp():
+    """``[dp ppo_lag f32]``, ``[dp ppo_lag bf16]``, ``[dp cpo]``, ``[dp
+    sac_lag]``: two ranks share the card over gloo. PPO-Lag at 4096 envs x
+    64 steps global, repeat 4 x 8, ``dp_blocks`` 2 and 1 at each of
+    ``DP_SEEDS`` from a fresh trainer: exactly 1 K1 and 32 K2 of the form
+    on each rank every iteration, the ranks' parameters equal after each
+    (the first case also after a second iteration), and after the first
+    within ``DP_TOL`` of one process with the same seed; the first case in
+    each dtype equal bit for bit to one process whose K2 runs on each
+    minibatch's two halves (``_halves``); beside them one process against
+    itself with every gradient entry moved one ulp before each Adam step,
+    two ranks with the policy on their own rows (not the path:
+    ``_own_rows_rollout``), a rank's collect both ways, and the policy's
+    forward at each rank's share of the rows. CPO (AntRun) one
+    iteration: the ranks equal, the same ``optim_case``. SAC-Lag at the
+    off-policy benchmark shape, one iteration of 640 grad steps: the ranks
+    equal each other and the one-process run, buffers included, bit for
+    bit. The ms and env-steps/s say what two ranks on one card cost, not a
+    speed-up. Returns the launch counts by path."""
+    import tempfile
+
+    import torch
+    from fsrl_torch.ops import kernels
+    t0 = time.time()
+    ref = _dp_one_process()
+    print(f"[dp] the one-process runs in {time.time() - t0:.1f} s",
+          flush=True)
+    library = str(kernels.build())
+    port = str(_free_port())
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(DP_WORLD)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank",
+             str(r), str(DP_WORLD), port, library, outs[r]], cwd=ROOT)
+            for r in range(DP_WORLD)]
+        t0 = time.time()
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, DP_TIMEOUT - (time.time() - t0)))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                fail(f"[dp] the ranks ran past {DP_TIMEOUT} s")
+        if any(p.returncode for p in procs):
+            fail(f"[dp] a rank failed: exit codes "
+                 f"{[p.returncode for p in procs]}")
+        print(f"[dp] the two ranks ran in {time.time() - t0:.1f} s",
+              flush=True)
+        ranks = [torch.load(o) for o in outs]
+    counts, far = {}, []
+    forms = {"f32": "fused_ppo_grad_f32", "bf16": "fused_ppo_grad"}
+    for key, form, _, blocks, seed in _dp_cases():
+        tag = f"dp ppo_lag {form}"
+        for r, res in enumerate(ranks):
+            for i, (ms, launches, equal) in enumerate(res[key]):
+                print(f"[{tag}] rank {r} seed {seed} dp_blocks {blocks} "
+                      f"iteration {i}: {ms:.2f} ms, "
+                      f"{N_ENVS * T_STEPS / (ms / 1e3):.0f} env-steps/s "
+                      f"of the two ranks' envs; launches "
+                      f"{launches}; ranks equal {equal}", flush=True)
+                if (launches.get("gae", 0),
+                        launches.get(forms[form], 0)) != (1, 32):
+                    fail(f"[{tag}] rank {r} {key} iteration {i}: expected "
+                         f"1 K1 and 32 {forms[form]} launches, got "
+                         f"{launches}")
+                if not equal:
+                    fail(f"[{tag}] the ranks' parameters differ after "
+                         f"{key} iteration {i}")
+            if (blocks, seed) == (2, DP_SEED):
+                counts[f"dp_ppo_lag_{form}_rank{r}"] = res[key][0][1]
+        got, want = ranks[0][f"{key} flat"], ref[key]
+        rtol, atol = DP_TOL[form]
+        gap = float((got - want).abs().max())
+        print(f"[{tag}] seed {seed} dp_blocks {blocks}, after one "
+              f"iteration, 2 ranks against one process: largest parameter "
+              f"distance {gap:.3e} (tolerance rtol {rtol}, atol {atol})",
+              flush=True)
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            far.append(f"{key} by {gap:.3e}")
+    for form in forms:
+        tag = f"dp ppo_lag {form}"
+        first = f"ppo_lag {form} b2 s{DP_SEED}"
+        ulp = float((ref[f"ppo_lag {form} ulp"] - ref[first]).abs().max())
+        own = float((ranks[0][f"{first} own rows flat"]
+                     - ref[first]).abs().max())
+        halves = ref[f"ppo_lag {form} halves"]
+        same = torch.equal(ranks[0][f"{first} flat"], halves)
+        print(f"[{tag}] seed {DP_SEED} dp_blocks 2: one process with K2 on "
+              f"each minibatch's two halves, summed as the ranks sum them, "
+              f"against 2 ranks: equal {same}, largest distance "
+              f"{float((ranks[0][f'{first} flat'] - halves).abs().max()):.3e}"
+              f"; against one process "
+              f"{float((halves - ref[first]).abs().max()):.3e}", flush=True)
+        if not same:
+            far.append(f"{first}: 2 ranks against one process with K2 on "
+                       f"halves")
+        print(f"[{tag}] seed {DP_SEED} dp_blocks 2, after one iteration: "
+              f"the control, one process against itself with every "
+              f"gradient entry moved one ulp before each Adam step, "
+              f"largest parameter distance {ulp:.3e}; 2 ranks with the "
+              f"policy on each rank's own rows (not the path) against one "
+              f"process {own:.3e}, ranks equal "
+              f"{[r[f'{first} own rows'][2] for r in ranks]}; last "
+              f"metrics {ranks[0][f'{first} metrics']}", flush=True)
+        for r, res in enumerate(ranks):
+            c = res[f"ppo_lag {form} collect"]
+            print(f"[{tag}] rank {r} collect of its {N_ENVS // DP_WORLD} "
+                  f"envs x {T_STEPS} steps, median of 3: the policy on the "
+                  f"padded global batch {c['padded']:.2f} ms, on its own "
+                  f"rows {c['own rows']:.2f} ms", flush=True)
+    print(f"[dp policy forward] one process, {T_STEPS} policy calls (a "
+          f"collect's) at 4096 envs and at a rank's share for W 2, 4, 8: "
+          + ", ".join(f"{n} envs {ms:.3f} ms" for n, ms in sorted(
+              ref["policy ms"].items(), reverse=True)), flush=True)
+    cases = [r["cpo metrics"]["loss/optim_case"] for r in ranks]
+    ms = ranks[0]["cpo"][0][0]
+    cpo_dist = float((ranks[0]["cpo flat"] - ref["cpo"]).abs().max())
+    print(f"[dp cpo] SafetyAntRun-v0, one iteration: {ms:.2f} ms on rank "
+          f"0; "
+          f"ranks equal {[r['cpo'][0][2] for r in ranks]}; optim_case "
+          f"{cases} (one process {ref['cpo metrics']['loss/optim_case']}); "
+          f"distance to one process {cpo_dist:.3e}; launches "
+          f"{ranks[0]['cpo'][0][1]}", flush=True)
+    if not all(r["cpo"][0][2] for r in ranks) or len(set(cases)) != 1:
+        fail(f"[dp cpo] the ranks differ: optim_case {cases}")
+    counts["dp_cpo_rank0"] = ranks[0]["cpo"][0][1]
+    sac_equal = all(torch.equal(r["sac_lag flat"], ref["sac_lag"])
+                    for r in ranks)
+    per = OFF_ENVS // DP_WORLD
+    buf_equal = all(torch.equal(v, ref["sac_lag buffer"][k][:, r * per:
+                                                           (r + 1) * per])
+                    for r, res in enumerate(ranks)
+                    for k, v in res["sac_lag buffer"].items())
+    ms = ranks[0]["sac_lag"][0][0]
+    print(f"[dp sac_lag] {OFF_TASK}, {OFF_ENVS} envs x {OFF_T} steps, "
+          f"{round(OFF_UPS * OFF_ENVS * OFF_T)} grad steps: {ms:.2f} ms on "
+          f"rank 0 ({ms / round(OFF_UPS * OFF_ENVS * OFF_T):.3f} ms per "
+          f"grad step); ranks equal {[r['sac_lag'][0][2] for r in ranks]}; "
+          f"parameters equal to one process {sac_equal}, buffers "
+          f"{buf_equal}", flush=True)
+    if not (sac_equal and buf_equal
+            and all(r["sac_lag"][0][2] for r in ranks)):
+        fail("[dp sac_lag] the ranks differ from one process")
+    if far:
+        fail(f"[dp ppo_lag] 2 ranks differ from one process: {far}")
+    return counts
+
+
+def _cli(runs: dict, timeout: float = 300) -> dict:
+    """Run command lines of the port at once (``{tag: argv}``): they are
+    correctness checks, and run side by side they take the time of one.
+    Returns each one's standard output; fails on a non-zero exit."""
+    t0 = time.time()
+    procs = {tag: subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+             for tag, cmd in runs.items()}
+    outs = {}
+    for tag, p in procs.items():
+        try:
+            out, err = p.communicate(
+                timeout=max(1.0, timeout - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            fail(f"[{tag}] ran past {timeout} s")
+        tail = (out + err).strip().splitlines()[-4:]
+        print(f"[{tag}] {' '.join(runs[tag][1:])}: exit {p.returncode} at "
+              f"{time.time() - t0:.1f} s; {' | '.join(tail)}", flush=True)
+        if p.returncode != 0:
+            fail(f"[{tag}] failed:\n{out[-3000:]}\n{err[-3000:]}")
+        outs[tag] = out
+    return outs
+
+
+def phase_cli():
+    """``[cli ppol]``: ``python -m
+    fsrl_torch.examples.mlp.train_ppol_agent`` for one epoch of one
+    collect at its defaults otherwise (20 envs x 500 steps, f32), then
+    ``eval_ppol_agent --path`` on its run directory;
+    ``[cli ppol mesh]``: the same under ``torchrun --nproc_per_node 1`` with
+    ``--use_mesh true`` (NCCL, one rank). The two run side by side."""
+    import shutil
+    logs = ROOT / "logs" / "chip_smoke_cli"
+    shutil.rmtree(logs, ignore_errors=True)
+    train = ["-m", "fsrl_torch.examples.mlp.train_ppol_agent", "--epochs",
+             "1", "--step_per_epoch", "10000", "--verbose", "false"]
+    launchers = {
+        "cli ppol": ([sys.executable], []),
+        "cli ppol mesh": ([sys.executable, "-m", "torch.distributed.run",
+                           "--nproc_per_node", "1", "--master_port",
+                           str(_free_port())], ["--use_mesh", "true"])}
+    logdirs = {tag: logs / tag.replace(" ", "_") for tag in launchers}
+    outs = _cli({tag: launcher + train + extra + ["--logdir",
+                                                  str(logdirs[tag])]
+                 for tag, (launcher, extra) in launchers.items()})
+    evals = {}
+    for tag, out in outs.items():
+        runs = sorted(p for p in logdirs[tag].glob("*/*/*") if p.is_dir())
+        if "final eval" not in out or len(runs) != 1 or not (
+                runs[0] / "checkpoint" / "model_best.pt").is_file():
+            fail(f"[{tag}] no run directory with a checkpoint: {runs}")
+        evals[f"{tag} eval"] = [
+            sys.executable, "-m", "fsrl_torch.examples.mlp.eval_ppol_agent",
+            "--path", str(runs[0]), "--eval_episodes", "10"]
+    for tag, out in _cli(evals).items():
+        if "Eval reward" not in out:
+            fail(f"[{tag}] printed no result")
+    shutil.rmtree(logs, ignore_errors=True)
 
 
 def main() -> int:
@@ -1984,13 +2521,13 @@ def main() -> int:
     rnn_counts = phase_train_rnn()
     mark("navigation paths")
     host = phase_train_host()
-    # the velocity suite's widest tasks, above K2's old envelope: Ant one
-    # epoch, Humanoid one epoch and one timed iteration, then the host
-    # command line at Humanoid's widths
+    # the velocity suite's widest tasks, above K2's old envelope: one epoch
+    # each of Ant and Humanoid, then the host command line at Humanoid's
+    # widths
     host_ant = phase_train_host(task="SafetyAntVelocity-v1", name="ant",
                                 iters=0)
     host_hum = phase_train_host(task="SafetyHumanoidVelocity-v1",
-                                name="humanoid", iters=1)
+                                name="humanoid", iters=0)
     host_cli = phase_train_host_cli()
     host_sac = phase_train_host_sac()
     phase_host_real()
@@ -2007,6 +2544,10 @@ def main() -> int:
              steps_per_collect=T_STEPS, episode_per_test=2))
     sac_agent = phase_offpolicy()
     mark("off-policy paths")
+    dp_counts = phase_dp()
+    mark("data parallel")
+    phase_cli()
+    mark("command lines")
     k1 = phase_gae()
     k2 = _k2_case(2, True)
     phase_k2_scaling(k2["ms"], bf16=True)
@@ -2092,7 +2633,9 @@ def main() -> int:
                  **wide_launches("gae", "f32"),
                  **wide_launches("gae", "bf16"),
                  host_cli=host_cli["launches"].get("gae", 0),
-                 host_sac_lag=host_sac["launches"].get("gae", 0)), **k1),
+                 host_sac_lag=host_sac["launches"].get("gae", 0),
+                 **{f"{k}_per_iteration": v.get("gae", 0)
+                    for k, v in dp_counts.items()}), **k1),
         dict(name="fused_ppo_grad", route="cuda",
              source="fsrl_torch/csrc/fused_ppo_grad.cu",
              replaces="fsrl_tpu/ops/fused_ppo_grad.py:68",
@@ -2101,7 +2644,9 @@ def main() -> int:
                  ppo_lag_bf16=launches.get("fused_ppo_grad", 0),
                  ppo_lag_nav_bf16=nav_bf16.get("fused_ppo_grad", 0),
                  host_ppo_lag_bf16=host_bf16.get("fused_ppo_grad", 0),
-                 **wide_launches("fused_ppo_grad", "bf16")),
+                 **wide_launches("fused_ppo_grad", "bf16"),
+                 **{f"{k}_per_iteration": v.get("fused_ppo_grad", 0)
+                    for k, v in dp_counts.items() if "bf16" in k}),
              by_width=wide_ms(True), host_path=host_ms(True),
              velocity_widest=vel_ms(True), **k2),
         dict(name="fused_ppo_grad_f32", route="cuda",
@@ -2113,7 +2658,9 @@ def main() -> int:
                  ppo_lag_nav_f32=nav_f32.get("fused_ppo_grad_f32", 0),
                  host_ppo_lag_f32=host_f32.get("fused_ppo_grad_f32", 0),
                  **wide_launches("fused_ppo_grad_f32", "f32"),
-                 host_cli=host_cli["launches"].get("fused_ppo_grad_f32", 0)),
+                 host_cli=host_cli["launches"].get("fused_ppo_grad_f32", 0),
+                 **{f"{k}_per_iteration": v.get("fused_ppo_grad_f32", 0)
+                    for k, v in dp_counts.items() if "f32" in k}),
              by_width=wide_ms(False), host_path=host_ms(False),
              velocity_widest=vel_ms(False),
              retakes_d348_natural_rows=list(retakes),
@@ -2137,4 +2684,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     os.chdir(ROOT)
+    if sys.argv[1:2] == ["--dp-rank"]:
+        r, w, port, lib, out = sys.argv[2:7]
+        sys.exit(dp_rank_main(int(r), int(w), port, lib, out))
     sys.exit(main())

@@ -68,9 +68,12 @@ class BaseAgent:
               episode_per_test: int = 10, save_model_interval: int = 4,
               reward_threshold: Optional[float] = None,
               buffer_size: int = 100000, update_per_step: float = 0.2,
-              verbose: bool = False, **trainer_kwargs) -> dict:
+              mesh=None, verbose: bool = False, **trainer_kwargs) -> dict:
         """Train with the trainer that fits the algorithm; ``buffer_size``
-        and ``update_per_step`` are the off-policy trainer's."""
+        and ``update_per_step`` are the off-policy trainer's. ``mesh`` (from
+        :func:`fsrl_torch.parallel.mesh.make_mesh`, made before the agent)
+        trains data parallel over its ranks, ``n_envs`` being the global
+        count."""
         stop_fn = None
         if reward_threshold is not None:
             limit = float(np.sum(self.cost_limit))
@@ -80,7 +83,7 @@ class BaseAgent:
             steps_per_collect=steps_per_collect,
             episode_per_test=episode_per_test, cost_limit=self.cost_limit,
             save_model_interval=save_model_interval, stop_fn=stop_fn,
-            seed=self.seed, verbose=verbose, state=self.state,
+            mesh=mesh, seed=self.seed, verbose=verbose, state=self.state,
             **trainer_kwargs)
         if self.onpolicy:
             self.trainer = OnpolicyTrainer(self.algo, self.env, self.logger,

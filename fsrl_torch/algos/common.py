@@ -44,23 +44,48 @@ def metrics_of(tr: Transition) -> Tensor:
     return torch.cat([tr.reward[..., None], tr.cost], -1)
 
 
-def _first_true(flags: Tensor, size: int) -> Tensor:
-    """Indices of the first ``size`` true entries of the 1-D ``flags``,
-    padded with ``len(flags)``: ``jnp.nonzero(flags, size=size,
-    fill_value=len(flags))[0]``, without a host sync. Rows past ``size``
-    are dropped."""
-    n = flags.shape[0]
-    pos = torch.cumsum(flags.to(torch.int64), 0) - 1
-    slot = torch.where(flags & (pos < size), pos, torch.full_like(pos, size))
-    out = torch.full((size + 1,), n, dtype=torch.int64, device=flags.device)
-    out.scatter_(0, slot, torch.arange(n, device=flags.device))
-    return out[:size]
+def _bootstrap_values(critic_apply: Callable[[Tensor], Tensor],
+                      tr: Transition, values_next: Tensor, n_boot: int,
+                      dp=None) -> Tensor:
+    """``values_next`` (``v(obs[t+1])``, ``(T, N, K)``) with the value of the
+    true next observation at the truncated rows, where ``obs[t+1]`` is the
+    next episode's first. Those rows' values come from one critic call
+    over ``n_boot`` rows: the truncated rows in time-major flat order,
+    those past ``n_boot`` dropped (JAX's ``nonzero(size=...)`` and
+    ``.at[].set(mode="drop")``), the rest zero. Under data parallelism
+    (``dp``) the gather spans every rank's envs, two ``all_reduce`` (the
+    truncations a step, then the rows), so each row has the place and the
+    batch it has in one process, and its value rounds alike. No host
+    sync."""
+    T, N = tr.reward.shape
+    W, r = (1, 0) if dp is None else (dp.size, dp.rank)
+    trunc = tr.truncated & ~tr.terminated                        # (T, N)
+    per = values_next.new_zeros(T, W)
+    per[:, r] = trunc.sum(1, dtype=per.dtype)
+    if dp is not None:
+        (per,) = dp.all_sum(per)
+    # truncations before this rank's block of each step, in flat order
+    before = (torch.cumsum(per.reshape(-1), 0) - per.reshape(-1)).view(T, W)
+    pos = before[:, r:r + 1].long() + torch.cumsum(trunc.long(), 1) - 1
+    take = trunc & (pos < n_boot)
+    slot = torch.where(take, pos, n_boot).reshape(-1)
+    d = tr.obs_next.shape[2:]
+    # one spare row takes the rows not taken
+    rows = tr.obs_next.new_zeros((n_boot + 1,) + d)
+    rows.index_copy_(0, slot, tr.obs_next.reshape((T * N,) + d))
+    rows = rows[:-1]
+    if dp is not None:
+        (rows,) = dp.all_sum(rows)
+    v = critic_apply(rows)
+    v = torch.cat([v, v.new_zeros(1, v.shape[-1])])[slot]
+    return torch.where(take.reshape(-1, 1), v,
+                       values_next.reshape(T * N, -1)).view(values_next.shape)
 
 
 @torch.no_grad()
 def process_rollout(critic_apply: Callable[[Tensor], Tensor], tr: Transition,
                     gamma: float, lam: float, ret_rms=None,
-                    episode_len: int | None = None):
+                    episode_len: int | None = None, dp=None):
     """GAE over the rollout segment, through kernel K1 on the card.
 
     * bootstrap mask: ``v(s') = 0`` where terminated;
@@ -70,29 +95,28 @@ def process_rollout(critic_apply: Callable[[Tensor], Tensor], tr: Transition,
     With ``episode_len`` (the env's truncation horizon) one pass over the
     ``T + 1`` rows ``obs[0..T-1], obs_next[T-1]`` gives every ``v(obs_next)``
     except at truncations, which are at most ``T // episode_len + 1`` per
-    env; those rows get one small gather, forward and scatter (the first
-    ``n_boot`` truncated rows in flat order, the rest dropped, as JAX's
-    ``nonzero(size=...)`` and ``.at[].set(mode="drop")`` do).
+    env; those rows get one small gather, forward and scatter
+    (:func:`_bootstrap_values`).
 
     Returns the env-major flattened :class:`OnPolicyBatch`, and the updated
-    return statistics when ``ret_rms`` is given."""
+    return statistics when ``ret_rms`` is given. Under data parallelism
+    (``dp``, a :class:`fsrl_torch.parallel.mesh.DPGroup`) ``tr`` holds the
+    rank's block of envs: GAE is per env and needs nothing from the other
+    ranks, the truncated rows' gather spans them, the return statistics
+    merge over them, and the env-major flatten keeps the rank's rows
+    together, rows ``[r*n, (r+1)*n)`` of the global batch."""
     T, N = tr.reward.shape
     m = metrics_of(tr)
     if episode_len is not None and T > 2:
         n_boot = N * (T // int(episode_len) + 1)
+        if dp is not None:
+            n_boot *= dp.size
         ext = torch.cat([tr.obs, tr.obs_next[-1:]], 0)        # (T+1, N, d)
         values_ext = critic_apply(ext)                        # (T+1, N, K)
         values = values_ext[:-1]
-        K = values.shape[-1]
-        trunc = (tr.truncated & ~tr.terminated).reshape(-1)
-        idx = _first_true(trunc, n_boot)
-        obs_next_flat = tr.obs_next.reshape((T * N,) + tr.obs_next.shape[2:])
-        v_boot = critic_apply(obs_next_flat[torch.clamp(idx, max=T * N - 1)])
-        # one spare row takes the dropped (out-of-range) writes
-        vn = torch.cat([values_ext[1:].reshape(T * N, K),
-                        values.new_zeros(1, K)], 0)
-        vn.index_copy_(0, idx, v_boot)
-        values_next = vn[:-1].reshape(T, N, K)
+        values_next = _bootstrap_values(critic_apply, tr,
+                                        values_ext[1:].contiguous(), n_boot,
+                                        dp)
     else:
         values = critic_apply(tr.obs)
         values_next = critic_apply(tr.obs_next)
@@ -108,7 +132,7 @@ def process_rollout(critic_apply: Callable[[Tensor], Tensor], tr: Transition,
             m.contiguous(), (values * scale).contiguous(),
             (values_next * scale).contiguous(), end_flag, gamma, lam)
         ret = ret / scale
-        new_rms = ret_rms.update(ret.reshape(T * N, -1))
+        new_rms = ret_rms.update(ret.reshape(T * N, -1), dp)
     else:
         adv, ret = gae_advantages_fused(
             m.contiguous(), values.contiguous(), values_next.contiguous(),
@@ -160,11 +184,46 @@ def ppo_metrics(auxes: list[dict], resc: Tensor, lam_mult: Tensor,
     return metrics
 
 
-def normalize_adv(adv: Tensor, eps: float = 1e-8) -> Tensor:
-    """Per-batch, per-channel advantage normalization (cost channels too)."""
-    mean = adv.mean(0, keepdim=True)
-    std = adv.std(0, unbiased=False, keepdim=True)
-    return (adv - mean) / (std + eps)
+def normalize_adv(adv: Tensor, eps: float = 1e-8, dp=None,
+                  n_total: int | None = None) -> Tensor:
+    """Per-batch, per-channel advantage normalization (cost channels too).
+    With ``dp`` (a :class:`fsrl_torch.parallel.mesh.DPGroup`) ``adv`` is
+    the rank's rows (any number, none included) of a batch of ``n_total``
+    rows, normalized by the whole batch's mean and standard deviation: one
+    ``all_reduce`` of the sum and the sum of squares. Both are taken in
+    float64, so the mean and the deviation round to the same float32
+    values however many ranks summed them."""
+    a = adv.double()
+    s, sq = a.sum(0, keepdim=True), (a * a).sum(0, keepdim=True)
+    if dp is not None:
+        s, sq = dp.all_sum(s, sq)
+    n = adv.shape[0] if dp is None else n_total
+    mean = s / n
+    std = torch.sqrt(torch.clamp(sq / n - mean * mean, min=0.0))
+    return (adv - mean.to(adv.dtype)) / (std.to(adv.dtype) + eps)
+
+
+def global_mean(dp, weight: float) -> Callable[..., list[Tensor]]:
+    """``fn(*tensors)``: the global means of per-rank means, the weighted
+    ``all_reduce`` of :meth:`DPGroup.weighted_sum` with ``weight = n_r /
+    n``; without ``dp`` the tensors themselves."""
+    if dp is None:
+        return lambda *ts: list(ts)
+    return lambda *ts: dp.weighted_sum(weight, *ts)
+
+
+def reduce_step(dp, weight: float, grads: list[Tensor],
+                scalars: dict[str, Tensor]
+                ) -> tuple[list[Tensor], dict[str, Tensor]]:
+    """The global mean of a grad step's flat gradients and scalar metrics,
+    each a mean over the rank's rows, in one ``all_reduce``: the weighted
+    sum over ranks with ``weight = n_r / n``. Identity without ``dp``."""
+    if dp is None:
+        return grads, scalars
+    names = list(scalars)
+    out = dp.weighted_sum(weight, *grads,
+                          *(scalars[k].float().reshape(()) for k in names))
+    return out[: len(grads)], dict(zip(names, out[len(grads):]))
 
 
 @dataclass
@@ -321,7 +380,9 @@ def critic_loss_grad(critics: nn.Module, names: list[str], flat_c: Tensor,
                      l2_reg: float = 0.0) -> tuple[Tensor, Tensor]:
     """The critic ensemble's loss ``sum_k mean_b (ret - v)^2`` plus
     ``l2_reg`` times the squared norm of every critic parameter (biases
-    included), and its gradient at ``flat_c``."""
+    included), and its gradient at ``flat_c``. Both are linear in the
+    row means, so a weighted sum over data-parallel ranks whose weights sum
+    to 1 gives the global ones."""
     with torch.enable_grad():
         f = flat_c.detach().requires_grad_(True)
         v = apply_flat(critics, names, f, obs)
@@ -334,15 +395,19 @@ def critic_loss_grad(critics: nn.Module, names: list[str], flat_c: Tensor,
 
 def critic_steps(tx: FlatAdam, critics: nn.Module, names: list[str],
                  flat_c: Tensor, opt: AdamState, obs: Tensor, ret: Tensor,
-                 n_iters: int, l2_reg: float = 0.0
+                 n_iters: int, l2_reg: float = 0.0,
+                 reduce: Callable[..., list[Tensor]] | None = None
                  ) -> tuple[AdamState, Tensor]:
     """``n_iters`` whole-batch Adam steps on the critic loss, written into
     ``flat_c`` in place. Returns the optimizer state and the last step's
-    loss (taken before that step)."""
+    loss (taken before that step). ``reduce`` (data parallel,
+    :func:`global_mean`) makes each step's gradient and loss global."""
     loss = None
     for _ in range(n_iters):
         loss, grad = critic_loss_grad(critics, names, flat_c, obs, ret,
                                       l2_reg)
+        if reduce is not None:
+            grad, loss = reduce(grad, loss)
         updates, opt = tx.update(grad, opt)
         flat_c.add_(updates)
     return opt, loss

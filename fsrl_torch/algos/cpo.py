@@ -22,6 +22,15 @@ The line search is an early-exit loop in the JAX package. Here the
 candidates are evaluated ``LS_GROUP`` at a time without reading anything
 back, and the host asks once per group whether one was accepted: the
 accepted index is the same, for one host sync per group.
+
+Data parallel (``update(..., dp=)``): each rank holds its block of the
+batch. The advantages are normalized by the whole batch's statistics; the
+gradients ``g`` and ``b`` with the surrogates, every Fisher-vector product,
+each line-search group's objectives, cost surrogates and KLs, the final KL
+and every critic step are summed over the ranks (weighted by their shares
+of the rows) with one ``all_reduce`` each. Every host decision (the
+accepted backtrack, ``optim_case``, the NaN guard) is then taken on the
+same numbers on every rank.
 """
 
 from __future__ import annotations
@@ -31,9 +40,9 @@ from dataclasses import dataclass
 import torch
 
 from fsrl_torch.algos.common import (ActorCriticAlgo, AdamState, Schedule,
-                                     apply_flat, critic_steps, make_optimizer,
-                                     normalize_adv, process_rollout,
-                                     split_flat)
+                                     apply_flat, critic_steps, global_mean,
+                                     make_optimizer, normalize_adv,
+                                     process_rollout, split_flat)
 from fsrl_torch.device import resolve_device
 from fsrl_torch.nets.mlp import ActorCritic
 from fsrl_torch.ops.cg import conjugate_gradient, make_fvp
@@ -107,9 +116,11 @@ class CPO(ActorCriticAlgo):
     @torch.no_grad()
     def update(self, state: CPOState, tr: Transition, ep_cost_mean: Tensor,
                n_episodes: Tensor, generator: torch.Generator | None = None,
-               cost_limit: Tensor | None = None
+               cost_limit: Tensor | None = None, dp=None
                ) -> tuple[CPOState, dict[str, Tensor]]:
-        """One whole-batch update; draws no random numbers."""
+        """One whole-batch update; draws no random numbers. ``dp`` (a
+        :class:`fsrl_torch.parallel.mesh.DPGroup`) makes ``tr`` this rank's
+        block of the envs of a data-parallel update."""
         hp = self.hp
         model = state.params
         last_ep_cost = torch.where(n_episodes > 0, ep_cost_mean,
@@ -117,8 +128,12 @@ class CPO(ActorCriticAlgo):
         ave_cost = last_ep_cost[0]
         batch = process_rollout(model.critics, tr, hp["gamma"],
                                 hp["gae_lambda"],
-                                episode_len=hp["episode_len"])
-        adv = normalize_adv(batch.adv) if hp["norm_adv"] else batch.adv
+                                episode_len=hp["episode_len"], dp=dp)
+        world = 1 if dp is None else dp.size
+        reduce = None if dp is None else global_mean(dp, 1.0 / world)
+        adv = (normalize_adv(batch.adv, dp=dp,
+                             n_total=batch.adv.shape[0] * world)
+               if hp["norm_adv"] else batch.adv)
         limit = self.cost_limit if cost_limit is None \
             else cost_limit.reshape(())
 
@@ -130,12 +145,12 @@ class CPO(ActorCriticAlgo):
         for _ in range(hp["repeat"]):
             new_flat, info = self.trust_region_step(
                 model, flat_a, batch.obs, batch.act, batch.logp_old,
-                adv[:, 0], adv[:, 1], ave_cost, limit)
+                adv[:, 0], adv[:, 1], ave_cost, limit, reduce)
             flat_a.copy_(new_flat)
             copt, info["loss/vf_total"] = critic_steps(
                 self.critic_tx, model.critics, model.critic_names(), flat_c,
                 copt, batch.obs, batch.ret, hp["optim_critic_iters"],
-                hp["l2_reg"])
+                hp["l2_reg"], reduce)
             infos.append(info)
         metrics = {k: torch.stack([i[k] for i in infos]).mean()
                    for k in infos[0]}
@@ -152,14 +167,18 @@ class CPO(ActorCriticAlgo):
     def trust_region_step(self, model: ActorCritic, flat_a: Tensor,
                           obs: Tensor, act: Tensor, logp_old: Tensor,
                           advR: Tensor, advC: Tensor, ave_cost: Tensor,
-                          limit) -> tuple[Tensor, dict[str, Tensor]]:
+                          limit, reduce=None
+                          ) -> tuple[Tensor, dict[str, Tensor]]:
         """One CPO actor step (dual solve and line search) from the actor
-        vector ``flat_a``. Returns the new actor vector and the metrics."""
+        vector ``flat_a``. Returns the new actor vector and the metrics.
+        ``reduce`` (data parallel, :func:`global_mean`) makes the rank's
+        means over its rows global."""
         hp = self.hp
+        glob = reduce or global_mean(None, 1.0)
         delta = hp["target_kl"]
         actor, names = model.actor, model.actor_names()
         old = apply_flat(actor, names, flat_a, obs)
-        mean_advC = advC.mean()
+        (mean_advC,) = glob(advC.mean())
 
         def dist_of(flat):
             return apply_flat(actor, names, flat, obs)
@@ -178,11 +197,13 @@ class CPO(ActorCriticAlgo):
             objective0, cost_surr0 = surrogates(dist_of(f))
             (grad_g,) = torch.autograd.grad(objective0, f, retain_graph=True)
             (grad_cost,) = torch.autograd.grad(cost_surr0, f)
-        objective0, cost_surr0 = objective0.detach(), cost_surr0.detach()
+        # the surrogates are ave_cost plus means: linear in the ranks' means
+        grad_g, grad_cost, objective0, cost_surr0 = glob(
+            grad_g, grad_cost, objective0.detach(), cost_surr0.detach())
         grad_b = -grad_cost
 
         fvp = make_fvp(lambda flat: kl_of(dist_of(flat)), flat_a,
-                       hp["damping"])
+                       hp["damping"], reduce)
         H_inv_g = conjugate_gradient(fvp, grad_g, hp["cg_iters"])
         H_inv_b = conjugate_gradient(fvp, grad_b, hp["cg_iters"])
         Hg = fvp(H_inv_g)
@@ -243,19 +264,24 @@ class CPO(ActorCriticAlgo):
         max_bt = hp["max_backtracks"]
         max_rise = torch.clamp(-c_value, min=0.0)
 
-        def cand_ok(i: int) -> Tensor:
+        def cand_values(i: int) -> Tensor:
+            """(objective, cost surrogate, KL) of candidate ``i``."""
             dist = dist_of(flat_a + coeff ** float(i) * step_dir)
-            objective, cost_surr = surrogates(dist)
+            return torch.stack([*surrogates(dist), kl_of(dist)])
+
+        def cand_ok(values: Tensor) -> Tensor:
+            objective, cost_surr, kl = values
             obj_ok = torch.where(optim_case > 1, objective > objective0,
                                  torch.ones_like(neg_c))
-            return ((kl_of(dist) <= delta) & obj_ok
+            return ((kl <= delta) & obj_ok
                     & (cost_surr - cost_surr0 <= max_rise))
 
         any_ok = torch.zeros_like(neg_c)
         accept_idx = torch.full_like(optim_case, max_bt - 1)
         for start in range(0, max_bt, LS_GROUP):
             idxs = range(start, min(start + LS_GROUP, max_bt))
-            oks = torch.stack([cand_ok(i) for i in idxs])
+            (values,) = glob(torch.stack([cand_values(i) for i in idxs]))
+            oks = torch.stack([cand_ok(v) for v in values])
             if bool(oks.any()):                       # the host sync
                 any_ok = oks.any()
                 accept_idx = start + torch.argmax(oks.to(torch.int32)).to(
@@ -267,8 +293,9 @@ class CPO(ActorCriticAlgo):
         new_flat = flat_a + beta * step_dir
 
         ok_f = any_ok.float()
+        (kl_new,) = glob(kl_of(dist_of(new_flat)))
         metrics = {
-            "loss/kl": kl_of(dist_of(new_flat)),
+            "loss/kl": kl_new,
             "loss/rew_loss": objective0, "loss/cost_loss": cost_surr0,
             "loss/optim_A": A, "loss/optim_B": B, "loss/optim_C": c_value,
             "loss/optim_Q": q, "loss/optim_R": r, "loss/optim_S": s,

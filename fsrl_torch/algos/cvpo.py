@@ -194,10 +194,12 @@ class CVPO(OffPolicyAlgo):
                     buf_state: ReplayBufferState,
                     generator: torch.Generator | None = None,
                     cost_limit: Tensor | None = None, view=None,
-                    draws: dict | None = None
+                    draws: dict | None = None, dp=None
                     ) -> tuple[CVPOState, dict[str, Tensor]]:
         """One grad step: critics, E-step, M-step, target critics. A
-        ``cost_limit`` given at run time recomputes the qc threshold."""
+        ``cost_limit`` given at run time recomputes the qc threshold.
+        ``dp`` (data parallel) assembles the sampled batch from the ranks'
+        buffers."""
         hp = self.hp
         draws = draws or {}
         model = state.params
@@ -212,7 +214,7 @@ class CVPO(OffPolicyAlgo):
 
         batch, rets = sample_nstep_batch(
             buffer, buf_state, generator, hp["batch_size"], hp["n_step"],
-            hp["gamma"], target_q_fn, view, draws)
+            hp["gamma"], target_q_fn, view, draws, dp)
         rets = clamp_cost_targets(rets)
         flat_a, flat_c = split_flat(model, model.flat)
         obs = batch["obs"]

@@ -18,6 +18,13 @@
 
 Actor and critic vectors are the two halves of one flat parameter vector
 that the module's parameters view; ``update`` writes into it in place.
+
+Data parallel (``update(..., dp=)``) as in PPO-Lag: each grad step takes the
+rows of the global minibatch that the rank holds, and one ``all_reduce``
+sums both gradients and the metrics over the ranks, weighted by their
+shares of the rows (the critic loss's L2 term counts once, the shares
+summing to 1). ``nu`` comes from the merged episode statistics and is the
+same on every rank. ``dp_blocks`` is the block-local shuffle.
 """
 
 from __future__ import annotations
@@ -29,13 +36,13 @@ import torch
 from fsrl_torch.algos.common import (ActorCriticAlgo, AdamState, Schedule,
                                      apply_flat, critic_loss_grad,
                                      make_optimizer, normalize_adv,
-                                     process_rollout, select_state,
-                                     split_flat)
+                                     process_rollout, reduce_step,
+                                     select_state, split_flat)
 from fsrl_torch.device import resolve_device
 from fsrl_torch.nets.distributions import DiagGaussian
 from fsrl_torch.nets.mlp import ActorCritic
 from fsrl_torch.types import (TileLayout, Transition, draw_tile_perms,
-                              is_epoch_end, minibatch_row_index)
+                              is_epoch_end, minibatch_row_index, owned_rows)
 
 Tensor = torch.Tensor
 
@@ -71,7 +78,8 @@ class FOCOPS(ActorCriticAlgo):
                  max_action: float = 1.0, repeat: int = 4,
                  n_minibatches: int = 4, deterministic_eval: bool = True,
                  compute_dtype: torch.dtype | None = None,
-                 episode_len: int | None = None, device=None):
+                 episode_len: int | None = None, dp_blocks: int = 1,
+                 device=None):
         self.device = resolve_device(device)
         self.obs_dim, self.act_dim = obs_dim, act_dim
         self.num_costs = 1
@@ -81,7 +89,8 @@ class FOCOPS(ActorCriticAlgo):
             episode_len=episode_len, nu_max=nu_max, nu_lr=nu_lr,
             l2_reg=l2_reg, delta=delta, eta=eta, tem_lambda=tem_lambda,
             gae_lambda=gae_lambda, norm_adv=advantage_normalization,
-            gamma=gamma, repeat=repeat, n_minibatches=n_minibatches)
+            gamma=gamma, repeat=repeat, n_minibatches=n_minibatches,
+            dp_blocks=dp_blocks)
         self.nu_init = float(nu_init)
         self.hidden_sizes = tuple(hidden_sizes)
         self.deterministic_eval = deterministic_eval
@@ -108,9 +117,10 @@ class FOCOPS(ActorCriticAlgo):
 
     # ---------------- loss ----------------
     def _actor_loss_grad(self, model: ActorCritic, flat_a: Tensor, mb: dict,
-                         nu: Tensor):
+                         nu: Tensor, adv: Tensor):
         """``(loss, mean KL(new || old), mean entropy, flat gradient)`` of
-        the projection loss at the actor vector ``flat_a``."""
+        the projection loss at the actor vector ``flat_a``, with ``adv``
+        the minibatch's (normalized) advantages."""
         hp = self.hp
         with torch.enable_grad():
             f = flat_a.detach().requires_grad_(True)
@@ -118,7 +128,6 @@ class FOCOPS(ActorCriticAlgo):
             ratio = torch.exp(dist.log_prob(mb["act"]) - mb["logp_old"])
             old = DiagGaussian(mb["mean_old"], mb["std_old"])
             kl_new_old = dist.kl(old)
-            adv = normalize_adv(mb["adv"]) if hp["norm_adv"] else mb["adv"]
             inner = kl_new_old - (1.0 / hp["tem_lambda"]) * ratio * (
                 adv[:, 0] - nu * adv[:, 1])
             gate = (kl_new_old.detach() <= hp["eta"]).to(inner.dtype)
@@ -133,11 +142,14 @@ class FOCOPS(ActorCriticAlgo):
                ep_cost_mean: Tensor, n_episodes: Tensor,
                generator: torch.Generator,
                cost_limit: Tensor | None = None,
-               perms: tuple[Tensor, Tensor] | None = None
+               perms: tuple[Tensor, Tensor] | None = None, dp=None
                ) -> tuple[FOCOPSState, dict[str, Tensor]]:
         """One whole-segment update. ``perms`` = ``(tile permutations
-        (repeat, usable), roll offsets (repeat,))`` replaces the shuffle
-        draw (the parity tests pass the ones JAX draws)."""
+        (repeat, usable) or (repeat, dp_blocks, usable), roll offsets
+        (repeat,))`` replaces the shuffle draw (the parity tests pass the
+        ones JAX draws). ``dp`` (a
+        :class:`fsrl_torch.parallel.mesh.DPGroup`) makes ``tr`` this rank's
+        block of the envs of a data-parallel update."""
         hp = self.hp
         dev = self.device
         model = state.params
@@ -152,20 +164,28 @@ class FOCOPS(ActorCriticAlgo):
 
         batch = process_rollout(model.critics, tr, hp["gamma"],
                                 hp["gae_lambda"],
-                                episode_len=hp["episode_len"])
+                                episode_len=hp["episode_len"], dp=dp)
         old_dist = model.actor(batch.obs)
         full = dict(obs=batch.obs, act=batch.act, logp_old=batch.logp_old,
                     adv=batch.adv, ret=batch.ret, mean_old=old_dist.mean,
                     std_old=old_dist.std)
 
         n_mb, repeat = hp["n_minibatches"], hp["repeat"]
-        layout = TileLayout.of(batch.obs.shape[0], n_mb)
+        n_local = batch.obs.shape[0]
+        world = 1 if dp is None else dp.size
+        layout = TileLayout.of(n_local * world, n_mb,
+                               n_blocks=hp["dp_blocks"])
         if perms is None:
             perms = draw_tile_perms(layout, repeat, generator, dev,
                                     roll_per_epoch=True)
         rows = minibatch_row_index(layout, *perms)     # (repeat*n_mb, rows)
-        # one gather per field for all grad steps
-        mbs = {k: v[rows] for k, v in full.items()}
+        if dp is None:
+            # one gather per field for all grad steps
+            mbs = {k: v[rows] for k, v in full.items()}
+            step_rows = [None] * rows.shape[0]
+        else:
+            lo = dp.rank * n_local
+            step_rows, counts = owned_rows(rows, lo, lo + n_local)
 
         flat_a, flat_c = split_flat(model, state.flat)
         aopt, copt = state.actor_opt_state, state.critic_opt_state
@@ -174,13 +194,28 @@ class FOCOPS(ActorCriticAlgo):
         gsteps = state.gradient_steps
         kl_acc = torch.zeros((), device=dev)
         auxes = []
-        for s in range(repeat * n_mb):
-            mb = {k: v[s] for k, v in mbs.items()}
-            closs, cgrad = critic_loss_grad(model.critics, critic_names,
-                                            flat_c, mb["obs"], mb["ret"],
-                                            hp["l2_reg"])
-            aloss, kl, ent, agrad = self._actor_loss_grad(model, flat_a, mb,
-                                                          nu)
+        for s, idx in enumerate(step_rows):
+            if dp is None:
+                mb = {k: v[s] for k, v in mbs.items()}
+            else:
+                mb = {k: v[idx] for k, v in full.items()}
+            adv = (normalize_adv(mb["adv"], dp=dp, n_total=layout.mb_rows)
+                   if hp["norm_adv"] else mb["adv"])
+            if dp is not None and counts[s] == 0:
+                # no rows here: this rank adds zeros to the sums
+                closs = aloss = kl = ent = torch.zeros((), device=dev)
+                cgrad, agrad = torch.zeros_like(flat_c), torch.zeros_like(
+                    flat_a)
+            else:
+                closs, cgrad = critic_loss_grad(
+                    model.critics, critic_names, flat_c, mb["obs"],
+                    mb["ret"], hp["l2_reg"])
+                aloss, kl, ent, agrad = self._actor_loss_grad(
+                    model, flat_a, mb, nu, adv)
+            aux = dict(actor_loss=aloss, vf_total=closs, kl=kl, entropy=ent)
+            if dp is not None:
+                (cgrad, agrad), aux = reduce_step(
+                    dp, counts[s] / layout.mb_rows, [cgrad, agrad], aux)
             cupd, new_copt = self.critic_tx.update(cgrad, copt)
             aupd, new_aopt = self.actor_tx.update(agrad, aopt)
             flat_c.copy_(torch.where(stopped, flat_c, flat_c + cupd))
@@ -188,12 +223,11 @@ class FOCOPS(ActorCriticAlgo):
             copt = select_state(stopped, copt, new_copt)
             aopt = select_state(stopped, aopt, new_aopt)
             gsteps = gsteps + (~stopped).to(gsteps.dtype)
-            kl_acc = kl_acc + kl
+            kl_acc = kl_acc + aux["kl"]
             if is_epoch_end(s, n_mb):
                 stopped = stopped | (kl_acc / n_mb > hp["delta"])
                 kl_acc = torch.zeros_like(kl_acc)
-            auxes.append(dict(actor_loss=aloss, vf_total=closs, kl=kl,
-                              entropy=ent))
+            auxes.append(aux)
 
         metrics = {f"loss/{k}": torch.stack([a[k] for a in auxes]).mean()
                    for k in auxes[0]}

@@ -12,6 +12,16 @@ vectors in place. Random draws come from a ``torch.Generator``, or from a
   ``(B, A)`` (SAC-Lag, CVPO);
 * ``noise_a``: the actor loss's action draw, ``(B, A)`` (SAC-Lag);
 * ``noise_p``: the E-step particles' draw, ``(Kp, B, A)`` (CVPO).
+
+Data parallel (``update_step(..., dp=)``): each rank's buffer holds its
+block of envs. A grad step draws the global ``(rows, envs)`` from the
+generator shared by the ranks; each rank fills the sampled rows that it
+holds (observation, action, the n-step chain's terminal observation and
+flag, discount and partial returns) and leaves zeros elsewhere, and one
+``all_reduce`` assembles the whole batch on every rank. The rest of the
+step runs alike on every rank. The batch is a few tens of KB, SAC's alpha
+step and CVPO's E-step take the whole batch, and ``x + 0`` is exact, so
+the step equals the one-process step bit for bit.
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ from torch import nn
 from fsrl_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from fsrl_torch.device import resolve_device
 from fsrl_torch.ops.lagrange import PIDLagrangianState, pid_controller_step
-from fsrl_torch.ops.nstep import nstep_forward_indices, nstep_targets
+from fsrl_torch.ops.nstep import nstep_forward_indices, nstep_returns
 from fsrl_torch.utils.params import flatten_parameters_
 
 Tensor = torch.Tensor
@@ -56,26 +66,51 @@ def sample_nstep_batch(
     generator: Optional[torch.Generator], batch_size: int, n_step: int,
     gamma: float, target_q_fn: Callable[[dict], Tensor],
     view: Optional[NStepView] = None, draws: Optional[dict] = None,
-) -> tuple[dict[str, Tensor], Tensor]:
+    dp=None) -> tuple[dict[str, Tensor], Tensor]:
     """Sample a batch and its per-channel n-step targets.
 
     Returns ``(batch, rets (B, K))``: ``batch`` holds ``obs`` and ``act`` at
     the sampled indices. ``target_q_fn`` gets ``obs_next`` and
     ``terminated`` at the chain's terminal indices and returns the ``(B, K)``
     target value of ``obs_next`` there; it is zeroed where terminated
-    (the reference's value mask)."""
+    (the reference's value mask). ``dp`` (a
+    :class:`fsrl_torch.parallel.mesh.DPGroup`) assembles the batch from the
+    ranks' buffers."""
     if view is None:
         view = make_nstep_view(buffer, buf_state)
     draws = draws or {}
-    idx = buffer.sample_indices(buf_state, batch_size, generator,
-                                draws.get("rows"), draws.get("envs"))
+    idx, own = buffer.sample_indices(buf_state, batch_size, generator,
+                                     draws.get("rows"), draws.get("envs"))
     chain = nstep_forward_indices(idx, view.next_flat, n_step)
+    batch = buffer.gather(buf_state, idx, ("obs", "act"))
     term = buffer.gather(buf_state, chain[-1], ("obs_next", "terminated"))
+    discount, returns = nstep_returns(view.metrics, view.end_flag, chain,
+                                      gamma)
+    if dp is not None:
+        batch, term, discount, returns = _assemble(
+            own, batch, term, discount, returns, dp)
     with torch.no_grad():
         target_q = target_q_fn(term)
     target_q = target_q * (~term["terminated"]).to(target_q.dtype)[:, None]
-    rets = nstep_targets(view.metrics, view.end_flag, target_q, chain, gamma)
-    return buffer.gather(buf_state, idx, ("obs", "act")), rets
+    return batch, target_q * discount[:, None] + returns
+
+
+def _assemble(own: Tensor, batch: dict, term: dict, discount: Tensor,
+              returns: Tensor, dp):
+    """The whole sampled batch on every rank: each rank's rows where it
+    holds the env (``own``), zeros elsewhere, summed by one
+    ``all_reduce``."""
+    parts = [batch["obs"], batch["act"], term["obs_next"],
+             term["terminated"].to(returns.dtype)[:, None],
+             discount[:, None], returns]
+    packed = torch.cat(parts, 1)
+    packed = torch.where(own[:, None], packed, torch.zeros_like(packed))
+    (full,) = dp.all_sum(packed)
+    obs, act, obs_next, terminated, discount, returns = torch.split(
+        full, [p.shape[1] for p in parts], 1)
+    return (dict(obs=obs, act=act),
+            dict(obs_next=obs_next, terminated=terminated[:, 0] > 0.5),
+            discount[:, 0], returns)
 
 
 def clamp_cost_targets(rets: Tensor) -> Tensor:

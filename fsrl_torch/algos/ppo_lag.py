@@ -22,6 +22,19 @@ switch, and no 128-row rule: the kernel masks a ragged last chunk.
 
 The parameters live in one flat vector that the module's parameters view;
 ``update`` writes the new parameters into it in place.
+
+Data parallel (``update(..., dp=)``): each rank holds its block of the envs,
+rows ``[r*n, (r+1)*n)`` of the env-major batch, and draws the same tile
+permutations. Every grad step takes the global minibatch's rows that the
+rank holds (any number, none included), normalizes their advantages by the
+whole minibatch's statistics, runs K2 (or autograd) on them, and sums the
+flat gradient and the metrics over the ranks, each weighted by the rank's
+share of the rows, in one ``all_reduce``; clipping and Adam then run alike
+on every rank, and so does the KL early stop. ``dp_blocks`` is JAX's
+block-local shuffle: with ``dp_blocks`` = W every minibatch takes the same
+number of rows from every rank; with 1 the global shuffle is kept and the
+shares are uneven. Unlike JAX, which turns its Pallas kernel off when
+``dp_blocks > 1`` (GSPMD cannot partition it), K2 stays on.
 """
 
 from __future__ import annotations
@@ -35,17 +48,20 @@ from fsrl_torch.algos.common import (ActorCriticAlgo, AdamState,
                                      OnPolicyBatch, Schedule, lagrangian_step,
                                      make_optimizer, normalize_adv,
                                      ppo_metrics, process_rollout,
-                                     select_state)
+                                     reduce_step, select_state)
 from fsrl_torch.device import resolve_device
 from fsrl_torch.nets.mlp import ActorCritic
 from fsrl_torch.ops.fused_ppo_grad import GradLayout, ppo_grad_minibatch
 from fsrl_torch.ops.lagrange import PIDLagrangianState
 from fsrl_torch.ops.running_stats import RunningMeanStd
 from fsrl_torch.types import (TileLayout, Transition, draw_tile_perms,
-                              is_epoch_end, minibatch_row_index)
+                              is_epoch_end, minibatch_row_index, owned_rows)
 from fsrl_torch.utils.params import unflatten
 
 Tensor = torch.Tensor
+# a grad step's metrics besides the loss, in the order the kernel gives them
+AUX_NAMES = ("loss_actor_rew", "loss_actor_total", "loss_vf_total", "kl",
+             "entropy")
 
 
 @dataclass
@@ -81,7 +97,8 @@ class PPOLag(ActorCriticAlgo):
                  max_action: float = 1.0, repeat: int = 4,
                  n_minibatches: int = 4, deterministic_eval: bool = True,
                  compute_dtype: torch.dtype | None = None,
-                 episode_len: int | None = None, device=None):
+                 episode_len: int | None = None, dp_blocks: int = 1,
+                 device=None):
         self.device = resolve_device(device)
         self.obs_dim, self.act_dim = obs_dim, act_dim
         self.num_costs = num_costs
@@ -98,7 +115,7 @@ class PPOLag(ActorCriticAlgo):
             use_lagrangian=use_lagrangian, pid=tuple(lagrangian_pid),
             pid_filter=pid_filter, rescaling=rescaling, gamma=gamma,
             repeat=repeat, n_minibatches=n_minibatches,
-            episode_len=episode_len)
+            episode_len=episode_len, dp_blocks=dp_blocks)
         self.hidden_sizes = tuple(hidden_sizes)
         self.deterministic_eval = deterministic_eval
         self.net_kw = dict(max_action=max_action, unbounded=unbounded,
@@ -138,10 +155,13 @@ class PPOLag(ActorCriticAlgo):
 
     # ---------------- loss (autograd path) ----------------
     def _autograd_step(self, state: PPOLagState, mb: OnPolicyBatch,
-                       lam_mult: Tensor, resc: Tensor):
+                       lam_mult: Tensor, resc: Tensor,
+                       adv: Tensor | None = None):
         """Loss, metrics and flat gradient by autograd of the plain loss.
-        The clip is ``minimum(maximum(r, lo), hi)``, whose gradient splits
-        ties 0.5/0.5 as JAX's ``clip`` does."""
+        ``adv`` gives the advantages as the loss takes them (already
+        normalized); by default they are ``mb.adv``, normalized where the
+        config says. The clip is ``minimum(maximum(r, lo), hi)``, whose
+        gradient splits ties 0.5/0.5 as JAX's ``clip`` does."""
         hp = self.hp
         model = state.params
         with torch.enable_grad():
@@ -150,7 +170,8 @@ class PPOLag(ActorCriticAlgo):
             dist, values = functional_call(model, views, (mb.obs,))
             log_p = dist.log_prob(mb.act)
             ratio = torch.exp(log_p - mb.logp_old)
-            adv = normalize_adv(mb.adv) if hp["norm_adv"] else mb.adv
+            if adv is None:
+                adv = normalize_adv(mb.adv) if hp["norm_adv"] else mb.adv
             rew_adv = adv[:, 0]
             eps = hp["eps_clip"]
             surr1 = ratio * rew_adv
@@ -190,11 +211,13 @@ class PPOLag(ActorCriticAlgo):
     def update(self, state: PPOLagState, tr: Transition, ep_cost_mean: Tensor,
                n_episodes: Tensor, generator: torch.Generator,
                cost_limit: Tensor | None = None,
-               perms: tuple[Tensor, Tensor] | None = None
+               perms: tuple[Tensor, Tensor] | None = None, dp=None
                ) -> tuple[PPOLagState, dict[str, Tensor]]:
         """One whole-segment update. ``perms`` = ``(tile permutations
-        (repeat, usable), roll offset)`` replaces the shuffle draw (the
-        parity tests pass the ones JAX draws)."""
+        (repeat, usable) or (repeat, dp_blocks, usable), roll offset)``
+        replaces the shuffle draw (the parity tests pass the ones JAX
+        draws). ``dp`` (a :class:`fsrl_torch.parallel.mesh.DPGroup`) makes
+        ``tr`` this rank's block of the envs of a data-parallel update."""
         hp = self.hp
         dev = self.device
         limit = self.cost_limit if cost_limit is None else cost_limit
@@ -205,20 +228,29 @@ class PPOLag(ActorCriticAlgo):
         if hp["rew_norm"]:
             batch, ret_rms = process_rollout(
                 critic, tr, hp["gamma"], hp["gae_lambda"],
-                ret_rms=state.ret_rms, episode_len=hp["episode_len"])
+                ret_rms=state.ret_rms, episode_len=hp["episode_len"], dp=dp)
         else:
             batch = process_rollout(critic, tr, hp["gamma"],
                                     hp["gae_lambda"],
-                                    episode_len=hp["episode_len"])
+                                    episode_len=hp["episode_len"], dp=dp)
             ret_rms = state.ret_rms
 
         n_mb, repeat = hp["n_minibatches"], hp["repeat"]
-        layout = TileLayout.of(batch.obs.shape[0], n_mb)
+        n_local = batch.obs.shape[0]
+        world = 1 if dp is None else dp.size
+        layout = TileLayout.of(n_local * world, n_mb,
+                               n_blocks=hp["dp_blocks"])
         if perms is None:
             perms = draw_tile_perms(layout, repeat, generator, dev)
         rows = minibatch_row_index(layout, *perms)     # (repeat*n_mb, rows)
-        # one gather per field for all grad steps
-        mbs = [getattr(batch, f.name)[rows] for f in fields(OnPolicyBatch)]
+        fields_ = [getattr(batch, f.name) for f in fields(OnPolicyBatch)]
+        if dp is None:
+            # one gather per field for all grad steps
+            mbs = [x[rows] for x in fields_]
+            step_rows = [None] * rows.shape[0]
+        else:
+            lo = dp.rank * n_local
+            step_rows, counts = owned_rows(rows, lo, lo + n_local)
 
         flat, opt = state.flat, state.opt_state
         stopped = torch.zeros((), dtype=torch.bool, device=dev)
@@ -226,10 +258,19 @@ class PPOLag(ActorCriticAlgo):
         kl_acc = torch.zeros((), device=dev)
         bf16 = self.compute_dtype == torch.bfloat16
         auxes = []
-        for s in range(repeat * n_mb):
-            mb = OnPolicyBatch(*(x[s] for x in mbs))
-            if self.use_grad_kernel:
-                adv_n = normalize_adv(mb.adv) if hp["norm_adv"] else mb.adv
+        for s, idx in enumerate(step_rows):
+            if dp is None:
+                mb = OnPolicyBatch(*(x[s] for x in mbs))
+            else:
+                mb = OnPolicyBatch(*(x[idx] for x in fields_))
+            adv_n = (normalize_adv(mb.adv, dp=dp, n_total=layout.mb_rows)
+                     if hp["norm_adv"] else mb.adv)
+            if dp is not None and counts[s] == 0:
+                # no rows here: this rank adds zeros to the sums
+                loss = torch.zeros((), device=dev)
+                aux = dict.fromkeys(AUX_NAMES, loss)
+                grad = torch.zeros_like(flat)
+            elif self.use_grad_kernel:
                 loss, aux, grad = ppo_grad_minibatch(
                     flat, self.grad_layout, mb.obs, mb.act, mb.logp_old,
                     adv_n.contiguous(), mb.ret, lam_mult, resc,
@@ -237,7 +278,11 @@ class PPOLag(ActorCriticAlgo):
                     bf16=bf16)
             else:
                 loss, aux, grad = self._autograd_step(
-                    state, mb, lam_mult, resc)
+                    state, mb, lam_mult, resc, adv_n)
+            if dp is not None:
+                (grad,), aux = reduce_step(dp, counts[s] / layout.mb_rows,
+                                           [grad], dict(aux, _loss=loss))
+                loss = aux.pop("_loss")
             updates, new_opt = self.tx.update(grad, opt)
             flat.copy_(torch.where(stopped, flat, flat + updates))
             opt = select_state(stopped, opt, new_opt)
@@ -256,4 +301,3 @@ class PPOLag(ActorCriticAlgo):
             last_ep_cost=cost_in, ret_rms=ret_rms,
             update_count=state.update_count + 1, gradient_steps=gsteps)
         return new_state, metrics
-

@@ -14,6 +14,11 @@ truncated BPTT for partially observable safe RL.
   safety term with the ``1 / (sum lambda + 1)`` rescale, joint Adam on one
   flat vector with grad-norm clipping, and the KL early stop at each epoch's
   end kept on the device (frozen parameters and optimizer state after it).
+* Data parallel (``update(..., dp=)``): the segment and the carry are the
+  rank's block of envs; each minibatch takes the envs of the global
+  minibatch that the rank holds, and its gradient and metrics are summed
+  over the ranks, weighted by their shares of the envs, in one
+  ``all_reduce``, as in PPO-Lag.
 """
 
 from __future__ import annotations
@@ -25,15 +30,16 @@ from torch.func import functional_call
 
 from fsrl_torch.algos.common import (AdamState, Schedule, lagrangian_step,
                                      make_optimizer, metrics_of,
-                                     normalize_adv, ppo_metrics,
+                                     normalize_adv, ppo_metrics, reduce_step,
                                      select_state)
+from fsrl_torch.algos.ppo_lag import AUX_NAMES
 from fsrl_torch.device import resolve_device
 from fsrl_torch.nets.distributions import DiagGaussian
 from fsrl_torch.nets.mlp import (RecurrentActorCritic, RecurrentGaussianActor,
                                  VCriticEnsemble, gru_step)
 from fsrl_torch.ops.gae_kernel import gae_advantages_fused
 from fsrl_torch.ops.lagrange import PIDLagrangianState
-from fsrl_torch.types import Transition
+from fsrl_torch.types import Transition, is_epoch_end, owned_rows
 from fsrl_torch.utils.params import flatten_parameters_, unflatten
 
 Tensor = torch.Tensor
@@ -157,9 +163,10 @@ class RecurrentPPOLag:
             views["log_sigma"]).expand(mean.shape))
 
     def _loss_grad(self, state: RecurrentPPOLagState, mb: dict,
-                   lam_mult: Tensor, resc: Tensor):
+                   lam_mult: Tensor, resc: Tensor, adv: Tensor):
         """Loss, metrics and flat gradient of one minibatch of whole
-        sequences, by autograd through the unroll."""
+        sequences, by autograd through the unroll; ``adv`` holds the
+        (normalized) advantages of its ``T * n`` rows."""
         hp = self.hp
         model = state.params
         with torch.enable_grad():
@@ -172,8 +179,6 @@ class RecurrentPPOLag:
             dist = self.unroll(actor, mb["obs"], mb["done"], mb["h0"])
             log_p = dist.log_prob(mb["act"])                 # (T, n)
             ratio = torch.exp(log_p - mb["logp_old"])
-            adv = mb["adv"].reshape(-1, self.K)
-            adv = normalize_adv(adv) if hp["norm_adv"] else adv
             ratio_f = ratio.reshape(-1)
             rew_adv = adv[:, 0]
             eps = hp["eps_clip"]
@@ -204,15 +209,19 @@ class RecurrentPPOLag:
     def update(self, state: RecurrentPPOLagState, tr: Transition,
                init_hidden: Tensor, ep_cost_mean: Tensor, n_episodes: Tensor,
                generator: torch.Generator, cost_limit: Tensor | None = None,
-               perms: Tensor | None = None
+               perms: Tensor | None = None, dp=None
                ) -> tuple[RecurrentPPOLagState, dict[str, Tensor]]:
         """One whole-segment update. ``tr`` is time-major (T, N, ...),
         ``init_hidden`` (N, H) the carry at the segment's start. ``perms``
         (repeat, n_minibatches * (N // n_minibatches)) replaces the per-epoch
-        env shuffle (the parity tests pass the ones JAX draws)."""
+        env shuffle (the parity tests pass the ones JAX draws). ``dp`` (a
+        :class:`fsrl_torch.parallel.mesh.DPGroup`) makes ``tr`` and
+        ``init_hidden`` this rank's block of the envs of a data-parallel
+        update."""
         hp = self.hp
         dev = self.device
-        T, N = tr.reward.shape
+        T, N_local = tr.reward.shape
+        N = N_local * (1 if dp is None else dp.size)
         limit = self.cost_limit if cost_limit is None else cost_limit
         lag, cost_in, lam_mult, resc = lagrangian_step(
             hp, state, ep_cost_mean, n_episodes, limit)
@@ -233,26 +242,47 @@ class RecurrentPPOLag:
             perms = torch.stack([
                 torch.randperm(N, generator=generator, device=dev)
                 for _ in range(repeat)])[:, : n_mb * per_mb]
+        env_idx = perms.reshape(repeat * n_mb, per_mb)
+        if dp is None:
+            step_envs = list(env_idx)
+        else:
+            lo = dp.rank * N_local
+            step_envs, counts = owned_rows(env_idx, lo, lo + N_local)
         flat, opt = state.flat, state.opt_state
         stopped = torch.zeros((), dtype=torch.bool, device=dev)
         gsteps = state.gradient_steps
         auxes = []
-        for e in range(repeat):
-            kl_acc = torch.zeros((), device=dev)
-            for idx in perms[e].reshape(n_mb, per_mb):
-                mb = dict(obs=tr.obs[:, idx], act=tr.act[:, idx],
-                          logp_old=tr.logp[:, idx], adv=adv[:, idx],
-                          ret=ret[:, idx], done=done[:, idx],
-                          h0=init_hidden[idx])
-                loss, aux, grad = self._loss_grad(state, mb, lam_mult, resc)
-                updates, new_opt = self.tx.update(grad, opt)
-                flat.copy_(torch.where(stopped, flat, flat + updates))
-                opt = select_state(stopped, opt, new_opt)
-                gsteps = gsteps + (~stopped).to(gsteps.dtype)
-                kl_acc = kl_acc + aux["kl"]
-                aux["loss_total"] = loss
-                auxes.append(aux)
-            stopped = stopped | (kl_acc / n_mb > 1.5 * hp["target_kl"])
+        kl_acc = torch.zeros((), device=dev)
+        for s, idx in enumerate(step_envs):
+            mb = dict(obs=tr.obs[:, idx], act=tr.act[:, idx],
+                      logp_old=tr.logp[:, idx], adv=adv[:, idx],
+                      ret=ret[:, idx], done=done[:, idx],
+                      h0=init_hidden[idx])
+            adv_mb = mb["adv"].reshape(-1, self.K)
+            if hp["norm_adv"]:
+                adv_mb = normalize_adv(adv_mb, dp=dp, n_total=T * per_mb)
+            if dp is not None and counts[s] == 0:
+                # no envs here: this rank adds zeros to the sums
+                loss = torch.zeros((), device=dev)
+                aux = dict.fromkeys(AUX_NAMES, loss)
+                grad = torch.zeros_like(flat)
+            else:
+                loss, aux, grad = self._loss_grad(state, mb, lam_mult, resc,
+                                                  adv_mb)
+            if dp is not None:
+                (grad,), aux = reduce_step(dp, counts[s] / per_mb, [grad],
+                                           dict(aux, _loss=loss))
+                loss = aux.pop("_loss")
+            updates, new_opt = self.tx.update(grad, opt)
+            flat.copy_(torch.where(stopped, flat, flat + updates))
+            opt = select_state(stopped, opt, new_opt)
+            gsteps = gsteps + (~stopped).to(gsteps.dtype)
+            kl_acc = kl_acc + aux["kl"]
+            aux["loss_total"] = loss
+            auxes.append(aux)
+            if is_epoch_end(s, n_mb):
+                stopped = stopped | (kl_acc / n_mb > 1.5 * hp["target_kl"])
+                kl_acc = torch.zeros_like(kl_acc)
 
         metrics = ppo_metrics(auxes, resc, lam_mult, stopped)
         new_state = RecurrentPPOLagState(

@@ -143,10 +143,11 @@ class SACLag(OffPolicyAlgo):
     def update_step(self, state: SACLagState, buffer: ReplayBuffer,
                     buf_state: ReplayBufferState,
                     generator: torch.Generator | None = None, view=None,
-                    draws: dict | None = None
+                    draws: dict | None = None, dp=None
                     ) -> tuple[SACLagState, dict[str, Tensor]]:
         """One grad step: critics, actor against the updated critics,
-        alpha, then the target critics."""
+        alpha, then the target critics. ``dp`` (data parallel) assembles
+        the sampled batch from the ranks' buffers."""
         hp = self.hp
         draws = draws or {}
         model = state.params
@@ -167,7 +168,7 @@ class SACLag(OffPolicyAlgo):
 
         batch, rets = sample_nstep_batch(
             buffer, buf_state, generator, hp["batch_size"], hp["n_step"],
-            hp["gamma"], target_q_fn, view, draws)
+            hp["gamma"], target_q_fn, view, draws, dp)
         if not ref:
             rets = clamp_cost_targets(rets)
         flat_a, flat_c = split_flat(model, model.flat)

@@ -17,6 +17,13 @@ Per update:
 Only the critics have an optimizer state. Actor and critic vectors are the
 two halves of one flat parameter vector that the module's parameters view;
 ``update`` writes into it in place.
+
+Data parallel (``update(..., dp=)``): each rank holds its block of the
+batch; the advantages are normalized by the whole batch's statistics, and
+the gradient, every Fisher-vector product, the line search's losses and KLs
+and every critic step are summed over the ranks (weighted by their shares
+of the rows) with one ``all_reduce`` each, so every rank takes the same
+backtrack.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from dataclasses import dataclass
 import torch
 
 from fsrl_torch.algos.common import (ActorCriticAlgo, AdamState, Schedule,
-                                     apply_flat, critic_steps,
+                                     apply_flat, critic_steps, global_mean,
                                      lagrangian_step, make_optimizer,
                                      normalize_adv, process_rollout,
                                      split_flat)
@@ -124,13 +131,17 @@ class TRPOLag(ActorCriticAlgo):
     @torch.no_grad()
     def natural_gradient_step(self, model: ActorCritic, flat_a: Tensor,
                               obs: Tensor, act: Tensor, logp_old: Tensor,
-                              adv: Tensor, lam_mult: Tensor, resc: Tensor
+                              adv: Tensor, lam_mult: Tensor, resc: Tensor,
+                              reduce=None
                               ) -> tuple[Tensor, dict[str, Tensor], Tensor]:
         """One trust-region actor step on a batch from the actor vector
         ``flat_a``. Returns the new actor vector, the scalar diagnostics
         JAX's step returns, and the accepted candidate's index (a 0-d
-        device tensor, outside the diagnostics, which JAX's lack it)."""
+        device tensor, outside the diagnostics, which JAX's lack it).
+        ``reduce`` (data parallel, :func:`global_mean`) makes the rank's
+        means over its rows global."""
         hp = self.hp
+        glob = reduce or global_mean(None, 1.0)
         actor, names = model.actor, model.actor_names()
         old = apply_flat(actor, names, flat_a, obs)
 
@@ -148,9 +159,9 @@ class TRPOLag(ActorCriticAlgo):
             f = flat_a.detach().requires_grad_(True)
             loss0 = loss_of(dist_of(f))
             (g,) = torch.autograd.grad(loss0, f)
-        loss0 = loss0.detach()
+        g, loss0 = glob(g, loss0.detach())
         fvp = make_fvp(lambda flat: kl_of(dist_of(flat)), flat_a,
-                       hp["damping"])
+                       hp["damping"], reduce)
         direction = -conjugate_gradient(fvp, g, hp["cg_iters"])
         shs = torch.dot(direction, fvp(direction))
         step_size = torch.sqrt(2 * hp["target_kl"]
@@ -163,7 +174,7 @@ class TRPOLag(ActorCriticAlgo):
             dist = dist_of(flat_a + frac * step_size * direction)
             kls.append(kl_of(dist))
             losses.append(loss_of(dist))
-        kls, losses = torch.stack(kls), torch.stack(losses)
+        kls, losses = glob(torch.stack(kls), torch.stack(losses))
         oks = (kls < hp["target_kl"]) & (losses < loss0)
         any_ok = oks.any()
         first = torch.argmax(oks.to(torch.int32))      # the first maximum
@@ -181,12 +192,14 @@ class TRPOLag(ActorCriticAlgo):
     def update(self, state: TRPOLagState, tr: Transition,
                ep_cost_mean: Tensor, n_episodes: Tensor,
                generator: torch.Generator | None = None,
-               cost_limit: Tensor | None = None
+               cost_limit: Tensor | None = None, dp=None
                ) -> tuple[TRPOLagState, dict[str, Tensor]]:
         """One whole-batch update; draws no random numbers. The accepted
         line-search index of each of its ``repeat`` steps is left in
         ``self.last_backtracks`` (a device tensor), not in the metrics,
-        whose keys are JAX's."""
+        whose keys are JAX's. ``dp`` (a
+        :class:`fsrl_torch.parallel.mesh.DPGroup`) makes ``tr`` this rank's
+        block of the envs of a data-parallel update."""
         hp = self.hp
         model = state.params
         limit = self.cost_limit if cost_limit is None else cost_limit
@@ -195,8 +208,12 @@ class TRPOLag(ActorCriticAlgo):
 
         batch = process_rollout(model.critics, tr, hp["gamma"],
                                 hp["gae_lambda"],
-                                episode_len=hp["episode_len"])
-        adv = normalize_adv(batch.adv) if hp["norm_adv"] else batch.adv
+                                episode_len=hp["episode_len"], dp=dp)
+        world = 1 if dp is None else dp.size
+        reduce = None if dp is None else global_mean(dp, 1.0 / world)
+        adv = (normalize_adv(batch.adv, dp=dp,
+                             n_total=batch.adv.shape[0] * world)
+               if hp["norm_adv"] else batch.adv)
 
         flat_a, flat_c = split_flat(model, state.flat)
         copt = state.critic_opt_state
@@ -204,12 +221,13 @@ class TRPOLag(ActorCriticAlgo):
         for _ in range(hp["repeat"]):
             new_flat, info, idx = self.natural_gradient_step(
                 model, flat_a, batch.obs, batch.act, batch.logp_old, adv,
-                lam_mult, resc)
+                lam_mult, resc, reduce)
             accepted.append(idx)
             flat_a.copy_(new_flat)
             copt, info["loss_vf_total"] = critic_steps(
                 self.critic_tx, model.critics, model.critic_names(), flat_c,
-                copt, batch.obs, batch.ret, hp["optim_critic_iters"])
+                copt, batch.obs, batch.ret, hp["optim_critic_iters"],
+                reduce=reduce)
             infos.append(info)
 
         self.last_backtracks = torch.stack(accepted)

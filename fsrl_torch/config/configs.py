@@ -42,6 +42,10 @@ class TrainCfg:
     # shared net / algo knobs
     hidden_sizes: Tuple[int, ...] = (128, 128)
     gamma: float = 0.99
+    # distributed: data parallel over the ranks torchrun starts
+    use_mesh: bool = False
+    # where the entry points run: "cuda", or "cpu" for the plain versions
+    device: str = "cuda"
 
 
 @dataclass

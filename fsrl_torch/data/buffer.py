@@ -12,6 +12,11 @@ host: they depend only on how many segments were written, so sampling draws
 n-step linkage follows Tianshou's ``buffer.next``: the successor of a row is
 the same env's next row, except at episode ends and at the newest written
 row, where it is the row itself (see ``fsrl_torch/ops/nstep.py``).
+
+Data parallel: a rank's buffer holds the columns of its block of envs,
+``[env_offset, env_offset + n_envs)`` of ``n_envs_total``; it draws the
+global ``(rows, envs)`` and says which of them it holds
+(:meth:`ReplayBuffer.sample_indices`).
 """
 
 from __future__ import annotations
@@ -38,10 +43,14 @@ class ReplayBuffer:
     """Static configuration; the methods take and return the state. Writes
     go into the state's tensors in place."""
 
-    def __init__(self, capacity_per_env: int, n_envs: int, device=None):
+    def __init__(self, capacity_per_env: int, n_envs: int, device=None,
+                 n_envs_total: int | None = None, env_offset: int = 0):
         self.C = int(capacity_per_env)
         self.N = int(n_envs)
         self.device = resolve_device(device)
+        self.n_envs_total = self.N if n_envs_total is None else int(
+            n_envs_total)
+        self.env_offset = int(env_offset)
 
     def init(self, obs_dim: int, act_dim: int, num_costs: int = 1,
              dtype=torch.float32) -> ReplayBufferState:
@@ -74,21 +83,27 @@ class ReplayBuffer:
     # ------------------------------------------------------------------
     def sample_indices(self, state: ReplayBufferState, batch_size: int,
                        generator: torch.Generator | None = None,
-                       rows: Tensor | None = None,
-                       envs: Tensor | None = None) -> Tensor:
-        """Uniform flat indices ``row * N + env`` over the valid rows.
-        ``rows`` (logical, 0 = oldest) and ``envs`` inject the draws
-        (tests); otherwise they come from ``generator``."""
+                       rows: Tensor | None = None, envs: Tensor | None = None
+                       ) -> tuple[Tensor, Tensor]:
+        """Uniform draws over the valid rows of all ``n_envs_total`` envs:
+        ``(flat indices row * N + env into this buffer, which of the B
+        draws it holds)``. A draw of another shard's env points at this
+        buffer's row 0 of the drawn row; one buffer holds every draw.
+        ``rows`` (logical, 0 = oldest) and ``envs`` (global) inject the
+        draws (tests); otherwise they come from ``generator``."""
         dev = self.device
         if rows is None:
             rows = torch.randint(0, state.filled, (batch_size,),
                                  generator=generator, device=dev)
         if envs is None:
-            envs = torch.randint(0, self.N, (batch_size,),
+            envs = torch.randint(0, self.n_envs_total, (batch_size,),
                                  generator=generator, device=dev)
+        local = envs - self.env_offset
+        own = (local >= 0) & (local < self.N)
+        local = torch.where(own, local, torch.zeros_like(local))
         # logical row r (0 = oldest) -> physical ring row
         phys = rows if state.filled < self.C else (state.pos + rows) % self.C
-        return phys * self.N + envs
+        return phys * self.N + local, own
 
     def gather(self, state: ReplayBufferState, flat_idx: Tensor,
                fields: tuple[str, ...] | None = None) -> dict[str, Tensor]:

@@ -12,6 +12,12 @@ device, and nothing is read back to the host inside the loop.
   masked after done.
 * Recurrent policies (``init_hidden`` given): the hidden state threads
   through the steps and is reset per env where an episode ended.
+* Data parallel: given an :class:`fsrl_torch.parallel.mesh.EnvRows` in the
+  place of the generator, a rank steps its block of the envs, runs the
+  policy on the global batch (the other ranks' rows zero) and makes every
+  draw of a step (the actions' noise, the env's draws, the reset states)
+  at the global size, keeping its rows: the segment is the rank's columns
+  of the one-process segment.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from fsrl_torch.device import resolve_device
 from fsrl_torch.envs.base import EnvState, SafeEnv
+from fsrl_torch.parallel.mesh import EnvRows
 from fsrl_torch.types import EpisodeStats, Transition
 
 Tensor = torch.Tensor
@@ -66,7 +73,9 @@ def make_rollout_fn(env: SafeEnv, act_fn: ActFn, num_steps: int,
     without CUDA) and refuses env states elsewhere. ``generator`` draws the
     actions, the steps' draws and the auto-reset states there.
     ``reset_states``, a sequence of ``num_steps`` env states, replaces the
-    reset draws (the parity tests pass JAX's).
+    reset draws (the parity tests pass JAX's). An ``EnvRows`` generator
+    (data parallel) draws each step's randomness for every env and keeps
+    the rank's rows.
 
     Recurrent policies: ``init_hidden(n_envs)`` gives the fresh carry and
     ``act_fn`` takes and returns the hidden state; ``hidden`` is the carry
@@ -87,16 +96,31 @@ def make_rollout_fn(env: SafeEnv, act_fn: ActFn, num_steps: int,
             hidden = init_hidden(env_state.obs.shape[0])
         hidden0 = hidden
         steps = []
+        rows = generator if isinstance(generator, EnvRows) else None
+        g = generator if rows is None else rows.generator
         for t in range(num_steps):
             obs = env_state.obs
+            act_in = (obs, hidden) if recurrent else (obs,)
+            if rows is not None:
+                act_in = tuple(rows.pad(x) for x in act_in)
+            out = act_fn(params, *act_in, g)
+            if rows is not None:
+                out = rows.cut(out)
+            act, logp, *carry = out
             if recurrent:
-                act, logp, hidden = act_fn(params, obs, hidden, generator)
-            else:
-                act, logp = act_fn(params, obs, generator)
+                hidden = carry[0]
             env_act = map_action(act, env.action_low, env.action_high)
+            fresh = None if reset_states is None else reset_states[t]
+            draws = None
+            if rows is not None:
+                # one process's draw order: actions, the step's draws,
+                # the reset states
+                if env.draws_in_step:
+                    draws = rows.cut(env._draw_step(rows.n_total, g))
+                if fresh is None:
+                    fresh = rows.cut(env.reset(rows.n_total, g))
             env_state, ts = env.step_autoreset(
-                env_state, env_act, generator,
-                fresh=None if reset_states is None else reset_states[t])
+                env_state, env_act, g, fresh=fresh, draws=draws)
             if recurrent:
                 hidden = _reset_hidden(hidden, init_hidden(obs.shape[0]),
                                        ts.done)

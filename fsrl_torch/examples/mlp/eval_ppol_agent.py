@@ -1,0 +1,11 @@
+"""Evaluate a trained PPO-Lagrangian run directory (port of
+``examples/mlp/eval_ppol_agent.py``).
+
+    python -m fsrl_torch.examples.mlp.eval_ppol_agent --path <run directory>
+"""
+
+from fsrl_torch.agent import PPOLagAgent
+from fsrl_torch.examples.mlp.common import eval_main
+
+if __name__ == "__main__":
+    eval_main(PPOLagAgent)

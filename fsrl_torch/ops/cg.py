@@ -38,17 +38,23 @@ def flatten(tensors: dict[str, Tensor]
 
 
 def make_fvp(kl_fn: Callable[[Tensor], Tensor], flat0: Tensor,
-             damping: float = 0.1) -> Callable[[Tensor], Tensor]:
+             damping: float = 0.1,
+             reduce: Callable | None = None) -> Callable[[Tensor], Tensor]:
     """``fvp(v) = (H_kl + damping * I) v`` at ``flat0``, where
     ``kl_fn(flat) -> scalar`` is the mean KL(old || new) at the flat
     parameters ``flat``. Works under ``torch.no_grad()``: the graph is built
-    here with grad enabled and kept for the products."""
+    here with grad enabled and kept for the products. ``reduce`` (data
+    parallel: the weighted ``all_reduce`` of
+    :func:`fsrl_torch.algos.common.global_mean`) turns the rank's product,
+    from its mean KL, into the global one, once a product."""
     with torch.enable_grad():
         f = flat0.detach().clone().requires_grad_(True)
         (grad_kl,) = torch.autograd.grad(kl_fn(f), f, create_graph=True)
 
     def fvp(v: Tensor) -> Tensor:
         (hv,) = torch.autograd.grad(grad_kl, f, v, retain_graph=True)
+        if reduce is not None:
+            (hv,) = reduce(hv)
         return hv + damping * v
 
     return fvp

@@ -38,6 +38,14 @@ def nstep_targets(metrics: Tensor, end_flag: Tensor, target_q: Tensor,
     then ``target = gamma^gammas * Q_terminal + returns``, shape ``(B, K)``.
     ``metrics`` is ``(C*N, K)``, ``end_flag`` ``(C*N,)``, ``target_q``
     ``(B, K)`` (already masked), ``indices`` the chain."""
+    discount, returns = nstep_returns(metrics, end_flag, indices, gamma)
+    return target_q * discount[:, None] + returns
+
+
+def nstep_returns(metrics: Tensor, end_flag: Tensor, indices: Tensor,
+                  gamma: float) -> tuple[Tensor, Tensor]:
+    """The parts of :func:`nstep_targets` that the buffer alone gives:
+    ``(gamma^gammas (B,), returns (B, K))``."""
     n_step, B = indices.shape
     returns = torch.zeros(B, metrics.shape[-1], dtype=metrics.dtype,
                           device=metrics.device)
@@ -49,5 +57,4 @@ def nstep_targets(metrics: Tensor, end_flag: Tensor, target_q: Tensor,
         gammas = torch.where(ended, n + 1, gammas)
         returns = torch.where(ended[:, None], 0.0, returns)
         returns = metrics[now] + gamma * returns
-    discount = torch.pow(gamma, gammas.to(metrics.dtype))
-    return target_q * discount[:, None] + returns
+    return torch.pow(gamma, gammas.to(metrics.dtype)), returns

@@ -22,11 +22,23 @@ class RunningMeanStd:
                    var=torch.ones(shape, device=device),
                    count=torch.tensor(1e-4, device=device))
 
-    def update(self, batch: torch.Tensor) -> "RunningMeanStd":
-        """Merge a batch whose leading axis is samples."""
-        b_mean = batch.mean(0)
-        b_var = batch.var(0, unbiased=False)
-        b_count = torch.tensor(float(batch.shape[0]), device=batch.device)
+    def update(self, batch: torch.Tensor, dp=None) -> "RunningMeanStd":
+        """Merge a batch whose leading axis is samples. With ``dp`` (a
+        :class:`fsrl_torch.parallel.mesh.DPGroup`) the batch is the rank's
+        part of a global batch (equal parts), whose mean and variance come
+        from the ranks' by Chan's merge (two ``all_reduce``)."""
+        if dp is None:
+            b_mean = batch.mean(0)
+            b_var = batch.var(0, unbiased=False)
+            n = batch.shape[0]
+        else:
+            n = batch.shape[0] * dp.size
+            r_mean = batch.mean(0)
+            (b_mean,) = dp.weighted_sum(1.0 / dp.size, r_mean)
+            m2 = (batch.var(0, unbiased=False) * batch.shape[0]
+                  + batch.shape[0] * (r_mean - b_mean) ** 2)
+            (b_var,) = dp.weighted_sum(1.0 / n, m2)
+        b_count = torch.tensor(float(n), device=batch.device)
         delta = b_mean - self.mean
         tot = self.count + b_count
         new_mean = self.mean + delta * b_count / tot

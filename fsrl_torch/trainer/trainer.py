@@ -20,7 +20,21 @@ A recurrent algorithm (one with ``init_hidden``, e.g.
 state across collects, and its update gets the carry at the segment's
 start.
 
-Not ported yet: the device mesh, ``fuse_iters`` and ``rollout_unroll``.
+Data parallel (``mesh=``, a ``DeviceMesh`` from
+:func:`fsrl_torch.parallel.mesh.make_mesh`, one process per card): each
+rank steps its block of the ``n_envs`` envs (global, divisible by the
+ranks) with its share of the recurrent carry and of the replay buffer,
+draws everything from a generator seeded alike on every rank, merges the
+collect's episode statistics over the ranks before the update reads them,
+and passes ``dp`` to the update, which sums gradients over the ranks
+(:mod:`fsrl_torch.parallel.mesh`). The episode-exact test runs on rank 0,
+whose results and generator state are broadcast before the best result and
+``stop_fn`` are decided, so every rank leaves the loop together; rank 0
+alone writes the logger and the checkpoints; ``resume_from`` loads on every
+rank, and the step counters come from rank 0's logger.
+
+Not ported yet: ``fuse_iters``, ``rollout_unroll`` and a working
+``update_chunk``.
 """
 
 from __future__ import annotations
@@ -36,6 +50,9 @@ from fsrl_torch.algos.offpolicy_base import make_nstep_view
 from fsrl_torch.data.buffer import ReplayBuffer
 from fsrl_torch.data.collector import evaluate, make_rollout_fn
 from fsrl_torch.envs.base import SafeEnv
+from fsrl_torch.parallel.mesh import (DPGroup, EnvRows, check_rank_device,
+                                      make_mesh, replicate_tree,
+                                      shard_env_state)
 from fsrl_torch.types import EpisodeStats
 from fsrl_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from fsrl_torch.utils.logger import BaseLogger, DummyLogger
@@ -66,7 +83,8 @@ class BaseTrainer:
     """Epoch iterator: train iterations up to ``step_per_epoch``, then the
     episode-exact test, best-result tracking, ``stop_fn`` and speed
     counters. ``state`` may be passed in (the agent does); otherwise it is
-    ``algo.init(seed)``."""
+    ``algo.init(seed)``. ``mesh`` (or ``use_default_mesh``, which builds
+    :func:`make_mesh`) trains data parallel over its ranks."""
 
     def __init__(self, algo, env: SafeEnv,
                  logger: Optional[BaseLogger] = None, *, epochs: int = 100,
@@ -74,11 +92,15 @@ class BaseTrainer:
                  steps_per_collect: int = 125, episode_per_test: int = 10,
                  cost_limit: float = 10.0, save_model_interval: int = 1,
                  stop_fn: Optional[Callable[[float, float], bool]] = None,
+                 mesh=None, use_default_mesh: bool = False,
                  seed: int = 0, verbose: bool = True,
                  resume_from: Optional[str] = None, log_every: int = 1,
                  state=None):
         self.algo, self.env = algo, env
         self.device = algo.device
+        self.mesh = mesh or (make_mesh() if use_default_mesh else None)
+        self.dp = None if self.mesh is None else DPGroup.of(self.mesh)
+        self.rank0 = self.dp is None or self.dp.rank == 0
         self.logger = logger or DummyLogger()
         self.epochs, self.step_per_epoch = epochs, step_per_epoch
         self.n_envs, self.T = n_envs, steps_per_collect
@@ -95,14 +117,32 @@ class BaseTrainer:
         # staggered episode clocks: a steady stream of finished episodes
         # for the PID multiplier instead of lockstep truncation bursts
         self.env_state = env.reset_vec(n_envs, self.generator, stagger=True)
-        self.stats = EpisodeStats.init(n_envs, env.num_costs, self.device)
+        # what the rollout draws from: the generator, or under a mesh the
+        # generator cut to this rank's envs
+        self.draw = self.generator
+        self.n_local = n_envs
+        if self.dp is not None:
+            lo, hi = self.dp.block(n_envs)
+            self.n_local = hi - lo
+            check_rank_device(self.state)
+            self.env_state = shard_env_state(self.mesh, self.env_state)
+            self.state = replicate_tree(self.mesh, self.state)
+            self.draw = EnvRows(self.generator, n_envs, lo, hi)
+        self.stats = EpisodeStats.init(self.n_local, env.num_costs,
+                                       self.device)
 
         self.epoch = 0
         self.env_step = 0
         if resume_from:
             # the whole training state, and the step counters from the log
             self.state = load_checkpoint(resume_from, self.state)
-            self.epoch, self.env_step, _ = self.logger.restore_data()
+            counters = list(self.logger.restore_data()[:2])
+            if self.dp is not None:
+                counters = self.dp.share_from_rank0(
+                    counters, self.generator, self.device)
+            self.epoch, self.env_step = (int(c) for c in counters)
+        if not self.rank0:
+            self.logger = DummyLogger()
         self.best_rew, self.best_cost = -np.inf, np.inf
         self.has_best = False
         self.start_time = time.time()
@@ -114,16 +154,25 @@ class BaseTrainer:
         raise NotImplementedError
 
     def test_step(self) -> tuple[float, float, float]:
-        out = evaluate(self.env, self.algo.act_fn_eval, self.state.params,
-                       self.generator, self.episode_per_test,
-                       init_hidden=getattr(self.algo, "init_hidden", None))
-        host = {k: float(v) for k, v in out.items()
-                if k in ("reward", "cost", "length")}
-        self.logger.store(tab="test", **host)
-        return host["reward"], host["cost"], host["length"]
+        """The episode-exact test; under a mesh on rank 0, whose results
+        and generator state every rank then takes."""
+        vals = [0.0] * 3
+        if self.rank0:
+            out = evaluate(
+                self.env, self.algo.act_fn_eval, self.state.params,
+                self.generator, self.episode_per_test,
+                init_hidden=getattr(self.algo, "init_hidden", None))
+            vals = torch.stack([out["reward"], out["cost"],
+                                out["length"]]).tolist()
+        if self.dp is not None:
+            vals = self.dp.share_from_rank0(vals, self.generator,
+                                            self.device)
+        rew, cost, length = vals
+        self.logger.store(tab="test", reward=rew, cost=cost, length=length)
+        return rew, cost, length
 
     def _save(self, name: str) -> None:
-        if self.logger.log_dir:
+        if self.logger.log_dir and self.rank0:
             save_checkpoint(
                 osp.join(self.logger.log_dir, "checkpoint", name), self.state)
 
@@ -212,22 +261,27 @@ class OnpolicyTrainer(BaseTrainer):
         self.recurrent = init_hidden is not None
         self.rollout = make_rollout_fn(self.env, self.algo.act_fn, self.T,
                                        self.device, init_hidden=init_hidden)
-        self.hidden = init_hidden(self.n_envs) if self.recurrent else None
+        # the fresh carry is zeros, so the rank's block of it is its own
+        self.hidden = init_hidden(self.n_local) if self.recurrent else None
 
     def _run_iter(self) -> dict:
         res = self.rollout(self.state.params, self.env_state,
-                           self.stats.reset_aggregates(), self.generator,
+                           self.stats.reset_aggregates(), self.draw,
                            hidden=self.hidden)
+        stats = res.stats
+        if self.dp is not None:
+            stats = stats.merge_across(self.dp)
+        dp = {} if self.dp is None else dict(dp=self.dp)
         if self.recurrent:
             self.state, metrics = self.algo.update(
                 self.state, res.transitions, res.init_hidden,
-                res.stats.mean_cost, res.stats.n_episodes, self.generator)
+                stats.mean_cost, stats.n_episodes, self.generator, **dp)
             self.hidden = res.hidden
         else:
             self.state, metrics = self.algo.update(
-                self.state, res.transitions, res.stats.mean_cost,
-                res.stats.n_episodes, self.generator)
-        self.env_state, self.stats = res.env_state, res.stats
+                self.state, res.transitions, stats.mean_cost,
+                stats.n_episodes, self.generator, **dp)
+        self.env_state, self.stats = res.env_state, stats
         self._log_train(self.stats, metrics)
         return metrics
 
@@ -241,19 +295,23 @@ class OffpolicyTrainer(BaseTrainer):
     the n-step view, the grad steps, ``post_update``. The train metrics are
     the last grad step's.
 
-    The buffer holds ``max(buffer_size // n_envs, T)`` rows per env. It is
-    not checkpointed (neither is JAX's). ``update_chunk`` is accepted for
-    the JAX package's signature: there it groups grad steps into one XLA
-    dispatch, here every grad step is issued on its own and the value
-    changes nothing. ``fuse_iters`` and the mesh are not ported."""
+    The buffer holds ``max(buffer_size // n_envs, T)`` rows per env (under
+    a mesh each rank the columns of its envs). It is not checkpointed
+    (neither is JAX's). ``update_chunk`` is accepted for the JAX package's
+    signature: there it groups grad steps into one XLA dispatch, here every
+    grad step is issued on its own and the value changes nothing.
+    ``fuse_iters`` is not ported."""
 
     def __init__(self, *args, buffer_size: int = 100000,
                  update_per_step: float = 0.2, update_chunk: int = 32,
                  **kwargs):
         super().__init__(*args, **kwargs)
         algo, env = self.algo, self.env
-        self.buffer = ReplayBuffer(max(buffer_size // self.n_envs, self.T),
-                                   self.n_envs, self.device)
+        self.buffer = ReplayBuffer(
+            max(buffer_size // self.n_envs, self.T), self.n_local,
+            self.device, n_envs_total=self.n_envs,
+            env_offset=0 if self.dp is None else self.dp.block(
+                self.n_envs)[0])
         self.buf_state = self.buffer.init(env.observation_size,
                                           env.action_size, env.num_costs)
         self.n_updates = max(1, int(round(update_per_step * self.T
@@ -266,12 +324,15 @@ class OffpolicyTrainer(BaseTrainer):
         view."""
         algo = self.algo
         res = self.rollout(self.state.params, self.env_state,
-                           self.stats.reset_aggregates(), self.generator)
-        self.env_state, self.stats = res.env_state, res.stats
+                           self.stats.reset_aggregates(), self.draw)
+        stats = res.stats
+        if self.dp is not None:
+            stats = stats.merge_across(self.dp)
+        self.env_state, self.stats = res.env_state, stats
         self.buf_state = self.buffer.add_segment(self.buf_state,
                                                  res.transitions)
-        self.state = algo.update_lagrangian(self.state, res.stats.mean_cost,
-                                            res.stats.n_episodes)
+        self.state = algo.update_lagrangian(self.state, stats.mean_cost,
+                                            stats.n_episodes)
         if hasattr(algo, "pre_update"):
             self.state = algo.pre_update(self.state)
         self.view = make_nstep_view(self.buffer, self.buf_state)
@@ -280,10 +341,11 @@ class OffpolicyTrainer(BaseTrainer):
         """The collect's grad steps, then ``post_update``; the last step's
         metrics, as tensors."""
         metrics = {}
+        dp = {} if self.dp is None else dict(dp=self.dp)
         for _ in range(self.n_updates):
             self.state, metrics = self.algo.update_step(
                 self.state, self.buffer, self.buf_state, self.generator,
-                view=self.view)
+                view=self.view, **dp)
         if hasattr(self.algo, "post_update"):
             self.state = self.algo.post_update(self.state)
         return metrics

@@ -23,7 +23,7 @@ def seed_all(seed: int = 1029) -> None:
 DEFAULT_SKIP_KEYS = {
     "task", "logdir", "project", "group", "name", "prefix", "suffix",
     "verbose", "use_default_cfg", "save_interval", "episode_per_test",
-    "reward_threshold",
+    "reward_threshold", "device",
 }
 
 

@@ -102,7 +102,9 @@ def test_wraparound_overwrites_oldest():
                                       make_segment(8, 4, 2)])
     assert ts.filled == 8 and ts.pos == 4
     assert float(tbuf.gather(ts, torch.tensor([0]))["reward"][0]) == 800.0
-    idx = tbuf.sample_indices(ts, 256, torch.Generator().manual_seed(0))
+    idx, own = tbuf.sample_indices(ts, 256,
+                                   torch.Generator().manual_seed(0))
+    assert bool(own.all())                  # one buffer holds every env
     got_t = n(tbuf.gather(ts, idx)["reward"]) // 100
     assert set(got_t.astype(int)) <= set(range(4, 12))   # live rows only
 
@@ -121,8 +123,9 @@ def test_sample_indices_match_jax_with_its_draws(segments):
         rows = jax.random.randint(rng, (B,), 0, js.filled)
         envs = jax.random.randint(jax.random.fold_in(rng, 1), (B,), 0, 3)
         want = np.asarray(jbuf.sample_indices(js, rng, B))
-        got = tbuf.sample_indices(ts, B, rows=t(rows).long(),
-                                  envs=t(envs).long())
+        got, own = tbuf.sample_indices(ts, B, rows=t(rows).long(),
+                                       envs=t(envs).long())
+        assert bool(own.all())
         np.testing.assert_array_equal(n(got), want)
         jb = jbuf.gather(js, jnp.asarray(want))
         tb = tbuf.gather(ts, got)
@@ -133,7 +136,8 @@ def test_sample_indices_match_jax_with_its_draws(segments):
 
 def test_generator_draws_cover_valid_rows_and_envs():
     _, _, tbuf, ts = _both(8, 3, [make_segment(0, 5, 3)])
-    idx = tbuf.sample_indices(ts, 4096, torch.Generator().manual_seed(1))
+    idx, _ = tbuf.sample_indices(ts, 4096,
+                                 torch.Generator().manual_seed(1))
     assert idx.dtype == torch.int64
     assert set(n(idx // 3).tolist()) == set(range(5))
     assert set(n(idx % 3).tolist()) == {0, 1, 2}

@@ -304,4 +304,6 @@ def test_runtime_cost_limit_override():
 def test_config_dataclasses_have_no_unused_device_fields():
     names = {f.name for f in dataclasses.fields(PPOLagCfg)}
     assert {"task", "cost_limit", "lr", "repeat"} <= names
-    assert not {"use_mesh", "buffer_size", "update_per_step"} & names
+    # the command lines read use_mesh (data parallel) and device
+    assert {"use_mesh", "device"} <= names
+    assert not {"buffer_size", "update_per_step"} & names

@@ -172,11 +172,11 @@ OFFPOLICY_CFGS = [("DDPGLagCfg", DDPGLag), ("SACLagCfg", SACLag),
 @pytest.mark.parametrize("name,algo_cls", OFFPOLICY_CFGS,
                          ids=[n for n, _ in OFFPOLICY_CFGS])
 def test_offpolicy_configs_match_jax(name, algo_cls):
-    """Fields and defaults equal the JAX package's, apart from what the
-    port does not have (the mesh switch) and its own logger names; the
-    config builds its algorithm; flags parse."""
+    """Fields and defaults equal the JAX package's (the mesh switch
+    included), apart from the port's own ``device`` field and logger
+    names; the config builds its algorithm; flags parse."""
     tc, jc = getattr(tcfg, name)(), getattr(jcfg, name)()
-    skip = {"use_mesh", "project", "prefix"}
+    skip = {"device", "project", "prefix"}
     want = {f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)
             if f.name not in skip}
     got = {f.name: getattr(tc, f.name) for f in dataclasses.fields(tc)
