@@ -10,6 +10,9 @@ Phases, each of which must pass:
    its largest over the whole envelope (D <= 64, A <= 8, K <= 6; fails above
    a block's 232,448 bytes); ptxas' registers and spills of every K2
    instance (fails if an instance that a training path launches spills);
+   K2's generic form (``csrc/fused_ppo_grad_any.cu``): every kernel's
+   registers and spills, its static shared memory, its scratch at the
+   largest cases;
 1. train: first one critic loss and gradient in the ensemble's form (a
    plain matmul chain per tower) against one matmul batched over the towers,
    at the whole batch and at one minibatch; then PPO-Lagrangian through the
@@ -35,12 +38,20 @@ Phases, each of which must pass:
    fallback), then 3 iterations with collect and update timed; and
    recurrent PPO-Lag (GRU 128, critics (128, 128)) on SafetyPointGoal1-v0
    at 4096 envs x 64 steps: one iteration counted (1 K1, no K2), 3 timed;
+   then K2's generic form on the main path: PPO-Lag on SafetyCarCircle-v0
+   at the same shape with hidden (256, 256) in f32 and bf16 and (64, 64)
+   in f32 (``[train ppo_lag h256 ...]``, ``[train ppo_lag h64 f32]``):
+   3 iterations plus the test counted (exactly 3 K1 and 96 launches of
+   the generic form of the dtype, none of another K2 form), 3 timed;
    then the host path at the JAX package's velocity protocol over a numpy
    stand-in for HalfCheetah (the card's machine has no gymnasium or
    mujoco): PPO-Lag through ``HostOnpolicyTrainer`` (10 envs x 2000 steps,
    repeat 4 x 78 minibatches of 256 rows, D 17, A 6) in f32 and bf16, one
    epoch counted (exactly 1 K1 and 312 K2 of the matching form), 3
    iterations timed with the collect split into env, policy and transfer;
+   the same at Humanoid's observation width with 40 actions (``[train
+   host a40 f32|bf16]``: the generic form, 312 launches an epoch), one
+   epoch and one timed iteration;
    SAC-Lag through ``HostOffpolicyTrainer`` (4 envs x 100 steps, 80 grad
    steps a collect), one epoch counted (no kernel), 3 timed; the same on
    the real SafetyHalfCheetahVelocity-v1, and a raw-MuJoCo PointGoal1
@@ -51,7 +62,8 @@ Phases, each of which must pass:
    the card against the same update on the CPU (plain versions; PPO-Lag's
    4 grad steps through the f32 K2 kernel, counted), and one f32 PPO-Lag
    update on rows of SafetyPointGoal1-v0 (D 21, through the wide f32
-   kernel); then a
+   kernel), and one at hidden (64, 32) (``[update parity h64x32]``, 4
+   launches of the generic f32 form); then a
    checkpoint of the FOCOPS state trained on the card is loaded into a fresh
    agent, compared tensor by tensor, and trained one more iteration;
 3. K1: the GAE kernel against its plain version, bit for bit, at
@@ -87,6 +99,13 @@ Phases, each of which must pass:
    256 and 32,768 rows with their shared memory and registers, the f32
    kernel on Humanoid's natural rows against float64 with its float64
    retakes counted, and the autograd step those widths took before;
+   the generic form (``[K2 any ...]``) in both dtypes at ``K2_ANY_CASES``
+   (hidden (256, 256), (64, 64), (512, 512) and uneven widths, 33 to 128
+   actions, K 1 to 6, D 1 to 348, 100 to 32,768 rows), at the same
+   tolerances, two launches bit for bit, timed at (9, 256, 256, 2, 2,
+   32768), (9, 64, 64, 2, 2, 32768) and (348, 128, 128, 40, 2, 256); and
+   the autograd step the hidden (256, 256) path ran before it
+   (``[autograd step h256]``);
 5. off-policy: DDPG-Lagrangian, SAC-Lagrangian and CVPO through the agent
    API at the JAX package's off-policy benchmark shape
    (SafetyBallCircle-v0, 32 envs x 100 steps, 0.2 grad steps per env step,
@@ -127,8 +146,9 @@ Phases, each of which must pass:
    then one SAC-Lag collect and the first 32 of its 640 grad steps under it
    (device busy share, device ops and host ms per grad step); last, because
    the profiler leaves every later launch slower for the host;
-9. summary: one JSON line of kernels (K1, K2 bf16, K2 f32; their
-   launches by path, the data-parallel ranks' among them), the card's
+9. summary: one JSON line of kernels (K1, K2 bf16, K2 f32, and K2's
+   generic form in bf16 and f32; their launches by path, the
+   data-parallel ranks' among them), the card's
    name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -212,9 +232,24 @@ SMEM_LIMIT = 232448
 
 
 def ptxas_report(log: str) -> dict:
-    """ptxas' registers and spill bytes of each K2 instance in a build's
-    output: ``{(form, KD or WIDE, AM): (registers, spill stores, spill
-    loads)}``, form "bf16" (template <KD, AM>) or "f32" (<WIDE, AM>)."""
+    """ptxas' registers and spill bytes of each tuned K2 instance in a
+    build's output: ``{(form, KD or WIDE, AM): (registers, spill stores,
+    spill loads)}``, form "bf16" (template <KD, AM>) or "f32" (<WIDE,
+    AM>)."""
+    import re
+    out = {}
+    for name, v in ptxas_entries(log).items():
+        k = (re.search(r"ppo_grad_bf16_kernelILi(\d+)ELi(\d+)E", name)
+             or re.search(r"ppo_grad_f32_kernelILb(\d)ELi(\d+)E", name))
+        if k:
+            form = "bf16" if "bf16" in name else "f32"
+            out[form, int(k.group(1)), int(k.group(2))] = v
+    return out
+
+
+def ptxas_entries(log: str) -> dict:
+    """ptxas' registers and spill bytes of every entry function in a
+    build's output: ``{name: (registers, spill stores, spill loads)}``."""
     import re
     out, name, spill = {}, None, (0, 0)
     for line in log.splitlines():
@@ -229,14 +264,22 @@ def ptxas_report(log: str) -> dict:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = (re.search(r"ppo_grad_bf16_kernelILi(\d+)ELi(\d+)E", name)
-                 or re.search(r"ppo_grad_f32_kernelILb(\d)ELi(\d+)E", name))
-            if k:
-                form = "bf16" if "bf16" in name else "f32"
-                out[form, int(k.group(1)), int(k.group(2))] = (
-                    int(m.group(1)), *spill)
+            out[name] = (int(m.group(1)), *spill)
             name, spill = None, (0, 0)
     return out
+
+
+# every K2 launch counter: the tuned bf16 and f32 kernels and the generic
+# form's two dtypes
+K2_NAMES = ("fused_ppo_grad", "fused_ppo_grad_f32", "fused_ppo_grad_any",
+            "fused_ppo_grad_any_f32")
+
+
+def k2_only(launches: dict, form: str, n: int) -> bool:
+    """Whether ``launches`` holds exactly ``n`` launches of the K2 counter
+    ``form`` and none of the other K2 counters."""
+    return all(launches.get(k, 0) == (n if k == form else 0)
+               for k in K2_NAMES)
 
 
 # The K2 instances the training paths launch, (form, KD or WIDE, AM): bf16
@@ -292,6 +335,24 @@ def phase_build():
               f"spill stores {st} bytes, loads {ld} bytes"
               f"{' (on a training path)' if key in PATH_INSTANCES else ''}",
               flush=True)
+    # the generic form (csrc/fused_ppo_grad_any.cu): every kernel's
+    # registers and spills, its static shared memory (the same at every
+    # shape) and its scratch at the largest case the script runs
+    for name, (regs, st, ld) in sorted(ptxas_entries(
+            kernels.BUILD_LOG.get("fused_ppo_grad_any.cu", "")).items()):
+        print(f"[build] K2 any {name}: {regs} registers, spill stores {st} "
+              f"bytes, loads {ld} bytes", flush=True)
+    any_smem = lib.fsrl_ppo_grad_any_smem_bytes()
+    print(f"[build] K2 any shared memory: {any_smem} bytes at every shape "
+          f"(static; limit {SMEM_LIMIT})", flush=True)
+    if not 0 < any_smem <= SMEM_LIMIT:
+        fail(f"K2 any: shared memory {any_smem} bytes")
+    for dims in ((32768, 9, 256, 256, 2, 2), (4096, 105, 512, 512, 8, 2),
+                 (32768, 348, 128, 128, 40, 2)):
+        n = lib.fsrl_ppo_grad_any_scratch_floats(*dims)
+        print(f"[build] K2 any scratch at (B, D, H1, H2, A, K) = {dims}: "
+              f"{4 * n} bytes in {lib.fsrl_ppo_grad_any_splits(dims[0])} "
+              f"row slices", flush=True)
     if not PATH_INSTANCES <= set(report):
         fail(f"ptxas reported no K2 instance {PATH_INSTANCES - set(report)}"
              f" (a library built without its .log.json: delete "
@@ -340,7 +401,8 @@ def phase_train():
         fail(f"non-finite or missing losses: {metrics}")
     if launches.get("gae", 0) < iters:
         fail(f"GAE kernel launched {launches.get('gae', 0)} < {iters} times")
-    if launches.get("fused_ppo_grad", 0) < iters * 32:
+    if launches.get("fused_ppo_grad", 0) < iters * 32 or any(
+            launches.get(k, 0) for k in K2_NAMES[1:]):
         fail(f"grad kernel launched {launches.get('fused_ppo_grad', 0)} < "
              f"{iters * 32} times")
 
@@ -409,8 +471,7 @@ def phase_train_ppo_f32():
           f"launches {launches}", flush=True)
     if not metrics or not all(math.isfinite(v) for v in metrics.values()):
         fail(f"ppo_lag f32: non-finite or missing losses: {metrics}")
-    if launches.get("fused_ppo_grad_f32", 0) != 32 or \
-            launches.get("fused_ppo_grad", 0):
+    if not k2_only(launches, "fused_ppo_grad_f32", 32):
         fail(f"ppo_lag f32: expected 32 launches of the f32 grad kernel "
              f"and none of the bf16 one, got {launches}")
     kernels.reset_launch_counts()
@@ -422,7 +483,7 @@ def phase_train_ppo_f32():
           f"{[round(u, 2) for u in update]}), "
           f"{N * T / ((c_ms + u_ms) / 1e3):.0f} env-steps/s; launches in "
           f"the 3 iterations {timed}", flush=True)
-    if timed.get("fused_ppo_grad_f32", 0) != 96 or not all(
+    if not k2_only(timed, "fused_ppo_grad_f32", 96) or not all(
             math.isfinite(float(v)) for _, m, _ in steps for v in m.values()):
         fail(f"ppo_lag f32: the timed iterations launched {timed}")
     return launches["fused_ppo_grad_f32"]
@@ -445,8 +506,7 @@ def phase_train_nav():
     N, T = N_ENVS, T_STEPS
     counts = {}
     for dtype in (None, torch.bfloat16):
-        form, other = (("fused_ppo_grad", "fused_ppo_grad_f32") if dtype
-                       else ("fused_ppo_grad_f32", "fused_ppo_grad"))
+        form = "fused_ppo_grad" if dtype else "fused_ppo_grad_f32"
         tag = f"train ppo_lag nav {'bf16' if dtype else 'f32'}"
         agent = PPOLagAgent(NAV_TASK, cost_limit=25.0, repeat=4,
                             n_minibatches=8, compute_dtype=dtype)
@@ -464,10 +524,9 @@ def phase_train_nav():
               flush=True)
         if not metrics or not all(math.isfinite(v) for v in metrics.values()):
             fail(f"[{tag}] non-finite or missing losses: {metrics}")
-        if (launches.get("gae", 0), launches.get(form, 0),
-                launches.get(other, 0)) != (1, 32, 0):
-            fail(f"[{tag}] expected 1 launch of K1 and 32 of {form} (none "
-                 f"of {other}), got {launches}")
+        if launches.get("gae", 0) != 1 or not k2_only(launches, form, 32):
+            fail(f"[{tag}] expected 1 launch of K1 and 32 of {form} (no "
+                 f"other K2 form), got {launches}")
         counts[tag] = launches
         kernels.reset_launch_counts()
         collect, update, steps = _timed_iterations(agent)
@@ -511,8 +570,8 @@ def phase_train_rnn():
     print(f"[{tag}] last metrics {metrics}", flush=True)
     if not metrics or not all(math.isfinite(v) for v in metrics.values()):
         fail(f"[{tag}] non-finite or missing losses: {metrics}")
-    if launches.get("gae", 0) != 1 or launches.get("fused_ppo_grad", 0) \
-            or launches.get("fused_ppo_grad_f32", 0):
+    if launches.get("gae", 0) != 1 or any(launches.get(k, 0)
+                                          for k in K2_NAMES):
         fail(f"[{tag}] expected 1 launch of K1 and none of K2, got "
              f"{launches}")
     kernels.reset_launch_counts()
@@ -530,6 +589,70 @@ def phase_train_rnn():
     return launches
 
 
+def phase_train_width(hidden, dtypes=(None, "bf16")):
+    """PPO-Lag on SafetyCarCircle-v0 at the benchmark shape (4096 envs x 64
+    steps, repeat 4 x 8 minibatches of 32,768 rows) at hidden ``hidden``,
+    where K2 takes its generic form: ``learn`` for 3 iterations plus the
+    test with the launch counters zeroed before and read after (exactly 3
+    K1 and 96 launches of the generic form of the dtype, none of any other
+    K2 form: 0 would be the autograd step), then 3 iterations with collect
+    and update timed apart. Returns the launch counts and timings by tag."""
+    import torch
+    from fsrl_torch.agent import PPOLagAgent
+    from fsrl_torch.ops import kernels
+    from fsrl_torch.ops.fused_ppo_grad import kernel_form, launch_name
+
+    N, T, iters = N_ENVS, T_STEPS, 3
+    out = {}
+    for dtype in dtypes:
+        tdt = torch.bfloat16 if dtype else None
+        widths = "x".join(map(str, hidden[:1] if len(set(hidden)) == 1
+                              else hidden))
+        tag = f"train ppo_lag h{widths} {'bf16' if dtype else 'f32'}"
+        agent = PPOLagAgent("SafetyCarCircle-v0", cost_limit=10.0, repeat=4,
+                            n_minibatches=8, compute_dtype=tdt,
+                            hidden_sizes=hidden)
+        layout = agent.algo.grad_layout
+        if not agent.algo.use_grad_kernel or kernel_form(layout) != "any":
+            fail(f"[{tag}] {layout} is not on the generic K2 form's path")
+        form = launch_name(layout, tdt is not None)
+        kernels.reset_launch_counts()
+        info, ms = _timed(lambda: agent.learn(
+            epochs=1, step_per_epoch=iters * N * T, n_envs=N,
+            steps_per_collect=T, episode_per_test=10))
+        launches = dict(kernels.LAUNCHES)
+        metrics = agent.trainer.last_metrics
+        print(f"[{tag}] SafetyCarCircle-v0, hidden {hidden}, {N} envs x {T} "
+              f"steps: learn({iters} iterations + test) {ms / 1e3:.2f} s; "
+              f"launches {launches}; info {info}", flush=True)
+        print(f"[{tag}] last metrics {metrics}", flush=True)
+        if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"[{tag}] non-finite or missing losses: {metrics}")
+        if not all(math.isfinite(float(info[k])) for k in
+                   ("test_reward", "test_cost")):
+            fail(f"[{tag}] non-finite test result {info}")
+        if launches.get("gae", 0) != iters or not k2_only(launches, form,
+                                                          32 * iters):
+            fail(f"[{tag}] expected {iters} launches of K1 and {32 * iters} "
+                 f"of {form} (no other K2 form), got {launches}")
+        kernels.reset_launch_counts()
+        collect, update, steps = _timed_iterations(agent)
+        timed = dict(kernels.LAUNCHES)
+        c_ms, u_ms = statistics.median(collect), statistics.median(update)
+        print(f"[{tag}] iteration {c_ms + u_ms:.2f} ms = collect "
+              f"{c_ms:.2f} + update {u_ms:.2f} (medians of 3; collects "
+              f"{[round(c, 2) for c in collect]}, updates "
+              f"{[round(u, 2) for u in update]}), "
+              f"{N * T / ((c_ms + u_ms) / 1e3):.0f} env-steps/s; launches "
+              f"in the 3 iterations {timed}", flush=True)
+        if not k2_only(timed, form, 96) or not all(
+                math.isfinite(float(v)) for _, m, _ in steps
+                for v in m.values()):
+            fail(f"[{tag}] the timed iterations launched {timed}")
+        out[tag] = dict(launches=launches, collect_ms=c_ms, update_ms=u_ms)
+    return out
+
+
 # The host path at the JAX package's velocity protocol
 # (benchmarks/run_velocity.py:28-46, 64-110): 10 host envs x 2000 steps a
 # collect, episodes of 1000 steps, PPO-Lag with repeat 4 x (20000 // 256 =
@@ -545,10 +668,14 @@ HOST_OFF_ENVS, HOST_OFF_T = 4, 100
 # terminates or None, healthy reward a step), from the gymnasium env's
 # widths and observation layout (x velocity after the positions that
 # exclude x and y) and its termination (Ant and Humanoid fall; HalfCheetah
-# never terminates)
+# never terminates). "<task>:a40" is Humanoid's stand-in with 40 actions:
+# no task of the repo has more than 17, and this width is what drives K2's
+# generic form above 32 actions on the host path
 STAND_IN = {"SafetyHalfCheetahVelocity-v1": (17, 6, 8, None, 0.0),
             "SafetyAntVelocity-v1": (105, 8, 13, 3.0, 1.0),
-            "SafetyHumanoidVelocity-v1": (348, 17, 22, 5.0, 5.0)}
+            "SafetyHumanoidVelocity-v1": (348, 17, 22, 5.0, 5.0),
+            "SafetyHumanoidVelocity-v1:a40": (348, 40, 22, 5.0, 5.0)}
+HOST_A40 = "SafetyHumanoidVelocity-v1:a40"
 # terminated episodes of each task's stand-in envs, over the process
 TERMINATED = dict.fromkeys(STAND_IN, 0)
 
@@ -574,7 +701,7 @@ class StandInVelocity:
         self.np = np
         self.task = task
         D, A, self.vx, self.bound, self.healthy = STAND_IN[task]
-        self.limit = VELOCITY_LIMITS[task][1]
+        self.limit = VELOCITY_LIMITS[task.split(":")[0]][1]
         g = np.random.default_rng(1000 + seed)
         self.A = 0.9 * np.eye(D) + 0.01 * math.sqrt(17 / D) * g.normal(
             size=(D, D))
@@ -650,27 +777,27 @@ def _host_iterations(tr, n: int = 3):
 
 
 def phase_train_host(make_venv=None, label="stand-in", iters=1,
-                     task=HOST_TASK, name=""):
+                     task=HOST_TASK, name="", tag_name=None):
     """PPO-Lag through ``HostOnpolicyTrainer`` at the velocity protocol on
     ``task``'s widths, f32 and bf16: one epoch (one collect and update, and
     the episode-exact test) with the launch counters zeroed before and
-    read after (exactly 1 K1 and 312 K2 of the matching form, at 256 rows),
-    then ``iters`` iterations timed. ``make_venv(n)`` defaults to the
-    task's stand-in; ``name`` goes into the phase's tag ("train host
-    ppo_lag <name> f32"). Returns the launch counts and timings."""
+    read after (exactly 1 K1 and 312 K2 of the form the widths take, at
+    256 rows, and none of the others), then ``iters`` iterations timed.
+    ``make_venv(n)`` defaults to the task's stand-in; ``name`` goes into
+    the phase's tag ("train host ppo_lag <name> f32"), or ``tag_name``
+    replaces "ppo_lag <name>". Returns the launch counts and timings."""
     import torch
     from fsrl_torch.algos.ppo_lag import PPOLag
     from fsrl_torch.ops import kernels
+    from fsrl_torch.ops.fused_ppo_grad import launch_name
     from fsrl_torch.trainer.host_trainer import HostOnpolicyTrainer
 
     out = {}
     n_mb = HOST_ENVS * HOST_T // 256
     widths = STAND_IN[task][:2]
     for dtype in (None, torch.bfloat16):
-        form, other = (("fused_ppo_grad", "fused_ppo_grad_f32") if dtype
-                       else ("fused_ppo_grad_f32", "fused_ppo_grad"))
-        tag = (f"train host ppo_lag {name + ' ' if name else ''}"
-               f"{'bf16' if dtype else 'f32'}")
+        what = tag_name or f"ppo_lag{' ' + name if name else ''}"
+        tag = f"train host {what} {'bf16' if dtype else 'f32'}"
         venv = (make_venv or (lambda n: _standin_venv(n, task)))(HOST_ENVS)
         algo = PPOLag(venv.observation_size, venv.action_size,
                       cost_limit=25.0, lagrangian_pid=(0.05, 0.0005, 0.1),
@@ -679,6 +806,7 @@ def phase_train_host(make_venv=None, label="stand-in", iters=1,
         layout = algo.grad_layout
         if not algo.use_grad_kernel or (layout.D, layout.A) != widths:
             fail(f"[{tag}] {layout} is not on the grad kernel's path")
+        form = launch_name(layout, dtype is not None)
         tr = HostOnpolicyTrainer(algo, venv, epochs=1,
                                  step_per_epoch=HOST_ENVS * HOST_T,
                                  steps_per_collect=HOST_T,
@@ -699,10 +827,10 @@ def phase_train_host(make_venv=None, label="stand-in", iters=1,
               f"{launches}; info {info}", flush=True)
         if not tr.state.flat.is_cuda:
             fail(f"[{tag}] the update's state is not on the card")
-        if (launches.get("gae", 0), launches.get(form, 0),
-                launches.get(other, 0)) != (1, 4 * n_mb, 0):
+        if launches.get("gae", 0) != 1 or not k2_only(launches, form,
+                                                      4 * n_mb):
             fail(f"[{tag}] expected 1 launch of K1 and {4 * n_mb} of {form} "
-                 f"(none of {other}), got {launches}")
+                 f"(no other K2 form), got {launches}")
         if not all(math.isfinite(float(info[k])) for k in
                    ("test_reward", "test_cost")):
             fail(f"[{tag}] non-finite test result {info}")
@@ -958,7 +1086,7 @@ def phase_train_algo(name, agent_cls, task, dtype, **algo_kw):
     if launches.get("gae", 0) < iters:
         fail(f"{tag}: GAE kernel launched {launches.get('gae', 0)} < "
              f"{iters} times")
-    if launches.get("fused_ppo_grad", 0):
+    if any(launches.get(k, 0) for k in K2_NAMES):
         fail(f"{tag}: the PPO-Lag grad kernel is not on this path")
 
     collect, update, steps = _timed_iterations(agent)
@@ -1287,6 +1415,44 @@ def phase_update_parity():
                  "update")
 
 
+def phase_update_parity_widths(hidden=(64, 32)):
+    """One small f32 PPO-Lag update at hidden ``hidden`` (K2's generic
+    form) on the card against the same update on the CPU, as
+    ``phase_update_parity``: 4 grad steps through the generic form's f32
+    dtype and none through any other K2 form, weights within 1e-5, losses
+    within 1e-5 relative."""
+    import numpy as np
+    from fsrl_torch.algos.ppo_lag import PPOLag
+    from fsrl_torch.ops import kernels
+
+    rng = np.random.default_rng(0)
+    T, N, D, A = 32, 64, 9, 2
+    rows = {
+        "obs": rng.normal(size=(T, N, D)), "act": rng.normal(size=(T, N, A)),
+        "obs_next": rng.normal(size=(T, N, D)),
+        "reward": rng.normal(size=(T, N)), "cost": rng.random((T, N, 1)),
+        "terminated": rng.random((T, N)) < 0.02,
+        "truncated": rng.random((T, N)) < 0.02,
+        "logp": rng.normal(size=(T, N)) - 2.0}
+    kw = dict(repeat=2, n_minibatches=2, hidden_sizes=hidden)
+    tag = f"update parity h{'x'.join(map(str, hidden))}"
+    _, _, _, fc, mc = _update_on("cpu", PPOLag, rows, **kw)
+    kernels.reset_launch_counts()
+    _, _, _, fg, mg = _update_on("cuda", PPOLag, rows, **kw)
+    launches = dict(kernels.LAUNCHES)
+    param_err = float((fc - fg).abs().max())
+    loss_err, worst = max(
+        (abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])), k) for k in mc)
+    print(f"[{tag}] max |param cpu - cuda| {param_err:.3e} (tol 1e-5); max "
+          f"loss rel err {loss_err:.3e} at {worst} (tol 1e-5); launches "
+          f"{launches}", flush=True)
+    if not k2_only(launches, "fused_ppo_grad_any_f32", 4):
+        fail(f"[{tag}] expected 4 launches of the generic f32 form, got "
+             f"{launches}")
+    if not (param_err <= 1e-5 and loss_err <= 1e-5):
+        fail(f"[{tag}] the CUDA update disagrees with the CPU update")
+
+
 def phase_update_parity_nav():
     """One f32 PPO-Lag update on rows of the navigation task (observation
     21: the wide f32 kernel) on the card against the same update on the
@@ -1390,7 +1556,8 @@ def phase_gae():
 
 
 def _k2_inputs(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2,
-               off_kinks: bool = True, seed: int | None = None):
+               off_kinks: bool = True, seed: int | None = None,
+               hidden=(128, 128)):
     """Arguments of K2 at one shape, drawn from ``seed`` (default ``K``),
     half the rows with ratio == 1 exactly in the plain version: the tie
     case of every epoch's first grad step. For f32 (``off_kinks``) no row
@@ -1402,7 +1569,7 @@ def _k2_inputs(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2,
     from fsrl_torch.ops.fused_ppo_grad import policy_logp
 
     algo = PPOLag(D, A, num_costs=K - 1, cost_limit=[10.0] * (K - 1),
-                  device="cuda")
+                  hidden_sizes=hidden, device="cuda")
     state = algo.init(seed=3)
     flat, layout = state.flat, algo.grad_layout
     g = torch.Generator(device="cuda").manual_seed(K if seed is None else seed)
@@ -1463,16 +1630,24 @@ def _aux_excess(a, ap, a64, B: int):
 
 
 def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2,
-             timed: bool = True):
+             timed: bool = True, hidden=(128, 128)):
+    """K2 at one shape against its plain version (two launches bit for bit)
+    and, if ``timed``, its time, the plain version's and its bound. The
+    generic form's cases are tagged "K2 any" and carry their widths."""
     import torch
-    from fsrl_torch.ops.fused_ppo_grad import (ppo_grad_plain, ppo_grad_rows,
+    from fsrl_torch.ops import kernels
+    from fsrl_torch.ops.fused_ppo_grad import (kernel_form, launch_name,
+                                               ppo_grad_plain, ppo_grad_rows,
                                                reduce_launch)
 
-    args = _k2_inputs(K, bf16, B, D, A)
+    args = _k2_inputs(K, bf16, B, D, A, hidden=hidden)
     layout = args[1]
     kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=bf16)
+    name = launch_name(layout, bf16)
+    before = kernels.LAUNCHES[name]
     gk, ak = ppo_grad_rows(*args, **kw)
     g2, a2 = ppo_grad_rows(*args, **kw)
+    counted = kernels.LAUNCHES[name] - before
     gp, ap = ppo_grad_plain(*args, **kw)
     torch.cuda.synchronize()
     # bf16: both round the same f32 values to bf16, but f32 sums taken in
@@ -1504,22 +1679,25 @@ def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2,
                  f"{_aux_err(ak, a64):.3e} / {_aux_err(ap, a64):.3e}, kernel "
                  f"beyond plain {excess:.3e} (tol {rel_tol:.0e})")
     same = torch.equal(gk, g2) and torch.equal(ak, a2)
-    tag = f"B={B} D={D} A={A} K={K} {'bf16' if bf16 else 'f32'}"
-    print(f"[K2 {tag}] max abs err {max_abs:.3e}, worst err / max|ref| "
+    generic = kernel_form(layout) == "any"
+    widths = f" H={layout.H}x{layout.H2}" if generic else ""
+    tag = (f"{'K2 any' if generic else 'K2'} B={B} D={D}{widths} A={A} "
+           f"K={K} {'bf16' if bf16 else 'f32'}")
+    print(f"[{tag}] max abs err {max_abs:.3e}, worst err / max|ref| "
           f"{worst:.3e} (tol {rel_tol:.0e}), aux rel err {aux_err:.3e}"
           f"{f' (tol {rel_tol:.0e})' if bf16 else ''}{extra}; two launches "
-          f"identical: {same}", flush=True)
-    if not (worst <= rel_tol and aux_ok and same):
+          f"identical: {same}; launches of {name}: {counted}", flush=True)
+    if not (worst <= rel_tol and aux_ok and same and counted == 2):
         fail(f"fused grad kernel disagrees with its plain version ({tag})")
     if not timed:
         return None
     ms = time_ms(lambda: ppo_grad_rows(*args, **kw))
     plain_ms = time_ms(lambda: ppo_grad_plain(*args, **kw))
     reduce_ms = time_ms(lambda: reduce_launch(layout, B))
-    H = layout.H
+    H1, H2 = layout.H, layout.H2
     outs = [A] + [1] * K                    # head widths of the towers
-    mm_flop = B * sum(6 * H * H + 4 * D * H for _ in outs)
-    head_flop = B * sum(6 * H * o for o in outs)
+    mm_flop = B * sum(6 * H1 * H2 + 4 * D * H1 for _ in outs)
+    head_flop = B * sum(6 * H2 * o for o in outs)
     flops = mm_flop + head_flop
     nbytes = 4 * (B * (D + A + 1 + 2 * K) + 2 * layout.size + 8)
     fp32_s = flops / F32_FLOP_PER_S
@@ -1530,7 +1708,7 @@ def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2,
     bound_ms = 1e3 * max(ops_s, nbytes / HBM_BYTES_PER_S)
     bound_by = "operations" if ops_s > nbytes / HBM_BYTES_PER_S else "bytes"
     extra = "" if bf16 else f", {1e3 * fp32_s:.4f} on the FP32 pipes alone"
-    print(f"[K2 {tag}] kernel_ms {ms:.4f} (of which the reduce launch "
+    print(f"[{tag}] kernel_ms {ms:.4f} (of which the reduce launch "
           f"{reduce_ms:.4f}) plain_ms {plain_ms:.4f} bound_ms "
           f"{bound_ms:.4f}{extra} ({flops} FLOP, {nbytes} bytes)", flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
@@ -1662,18 +1840,53 @@ def phase_k2_edges():
             _k2_case(bf16=bf16, timed=False, **kw)
 
 
+# K2's generic form, (D, H1, H2, A, K, B, timed): the width phases'
+# minibatch at hidden (256, 256) and (64, 64); the 40-action host path's
+# minibatch and the same width at 32,768 rows; above 32 actions at the
+# default width; uneven widths; the most value channels with uneven widths
+# and a ragged count; the narrowest case (D 1, A 1, K 1, 100 rows); hidden
+# (512, 512) at Ant-v5's widths
+K2_ANY_CASES = [(9, 256, 256, 2, 2, 32768, True),
+                (9, 64, 64, 2, 2, 32768, True),
+                (348, 128, 128, 40, 2, 256, True),
+                (348, 128, 128, 40, 2, 32768, False),
+                (9, 128, 128, 33, 2, 4096, False),
+                (9, 128, 128, 128, 2, 4096, False),
+                (21, 256, 128, 3, 3, 4096, False),
+                (17, 32, 48, 33, 6, 1000, False),
+                (1, 16, 16, 1, 1, 100, False),
+                (105, 512, 512, 8, 2, 4096, False)]
+
+
+def phase_k2_any():
+    """K2's generic form against its plain version in both dtypes at every
+    case of ``K2_ANY_CASES`` (``_k2_case``: half the rows with ratio == 1,
+    f32 rows drawn clear of the ReLU kinks, the tuned forms' tolerances,
+    two launches bit for bit), the timed ones also timed. Returns the
+    timed cases' results by (D, H1, H2, A, B, bf16)."""
+    out = {}
+    for bf16 in (True, False):
+        for D, H1, H2, A, K, B, timed in K2_ANY_CASES:
+            r = _k2_case(K, bf16, B=B, D=D, A=A, timed=timed,
+                         hidden=(H1, H2))
+            if timed:
+                out[D, H1, H2, A, B, bf16] = r
+    return out
+
+
 def phase_autograd(B: int = 32768, D: int = 21, A: int = 2,
-                   name: str = "nav"):
+                   name: str = "nav", hidden=(128, 128)):
     """The autograd step PPO-Lag took outside K2's earlier envelopes (D >
-    12, then D > 64 or A > 8), timed once at a path's width:
-    host-clock ms a call, the device drained before and after, median of 5
-    after 2 warm-up calls."""
+    12, then D > 64 or A > 8, then other hidden widths), timed once at a
+    path's width: host-clock ms a call, the device drained before and
+    after, median of 5 after 2 warm-up calls."""
     import torch
     from fsrl_torch.algos.common import OnPolicyBatch
     from fsrl_torch.algos.ppo_lag import PPOLag
 
-    args = _k2_inputs(2, False, B, D, A)
-    algo = PPOLag(D, A, cost_limit=[10.0], device="cuda")
+    args = _k2_inputs(2, False, B, D, A, hidden=hidden)
+    algo = PPOLag(D, A, cost_limit=[10.0], hidden_sizes=hidden,
+                  device="cuda")
     state = algo.init(seed=3)
     obs, act, logp_old, adv, ret, lam, resc = args[2:]
     mb = OnPolicyBatch(obs, act, logp_old, adv, ret, torch.zeros_like(ret))
@@ -1683,8 +1896,9 @@ def phase_autograd(B: int = 32768, D: int = 21, A: int = 2,
         if i >= 2:
             times.append(ms)
     ms = statistics.median(times)
-    print(f"[autograd step {name}] B={B} D={D} A={A} K=2 f32: {ms:.3f} ms "
-          f"a grad step (host clock, median of 5)", flush=True)
+    print(f"[autograd step {name}] B={B} D={D} hidden {hidden} A={A} K=2 "
+          f"f32: {ms:.3f} ms a grad step (host clock, median of 5)",
+          flush=True)
     return ms
 
 
@@ -1726,9 +1940,8 @@ def phase_train_offpolicy(name, dtype=None, iters=3):
             times[k].append(ms)
             if k == "update":
                 launch_log.append((kernels.LAUNCHES.get("gae", 0),
-                                   kernels.LAUNCHES.get("fused_ppo_grad", 0)
-                                   + kernels.LAUNCHES.get(
-                                       "fused_ppo_grad_f32", 0)))
+                                   sum(kernels.LAUNCHES.get(k, 0)
+                                       for k in K2_NAMES)))
             return out
         return run
 
@@ -2520,6 +2733,10 @@ def main() -> int:
     nav_counts = phase_train_nav()
     rnn_counts = phase_train_rnn()
     mark("navigation paths")
+    # K2's generic form on the main path at other hidden widths
+    width_runs = {**phase_train_width((256, 256)),
+                  **phase_train_width((64, 64), dtypes=(None,))}
+    mark("width paths")
     host = phase_train_host()
     # the velocity suite's widest tasks, above K2's old envelope: one epoch
     # each of Ant and Humanoid, then the host command line at Humanoid's
@@ -2528,6 +2745,8 @@ def main() -> int:
                                 iters=0)
     host_hum = phase_train_host(task="SafetyHumanoidVelocity-v1",
                                 name="humanoid", iters=0)
+    # above 32 actions: the generic form on the host path
+    host_a40 = phase_train_host(task=HOST_A40, tag_name="a40")
     host_cli = phase_train_host_cli()
     host_sac = phase_train_host_sac()
     phase_host_real()
@@ -2535,6 +2754,7 @@ def main() -> int:
     mark("host paths")
     phase_update_parity()
     phase_update_parity_nav()
+    phase_update_parity_widths()
     mark("update parity")
     phase_checkpoint(
         f32_agents["focops"], lambda: FOCOPSAgent(
@@ -2579,6 +2799,10 @@ def main() -> int:
     retakes = phase_k2_f32_natural_rows(seeds=(0,), D=348, A=17)
     autograd_hum = {B: phase_autograd(B, 348, 17, "humanoid")
                     for B in (256, 32768)}
+    # the generic form at its cases, and the autograd step the hidden
+    # (256, 256) path ran before it
+    k2_any = phase_k2_any()
+    autograd_h256 = phase_autograd(32768, 9, 2, "h256", hidden=(256, 256))
     lib = fsrl_kernels.library()
     for (D, A, B, bf16), r in vel_k2.items():
         key = k2_instance(D, A, bf16)
@@ -2619,6 +2843,32 @@ def main() -> int:
     wide_ms = lambda bf16: {f"D{D}": {k: wide[D, bf16][k] for k in
                                       ("ms", "bound_ms", "plain_ms")}
                             for D in (21, 54)}
+    def any_entry(bf16):
+        t = "bf16" if bf16 else "f32"
+        name = "fused_ppo_grad_any" if bf16 else "fused_ppo_grad_any_f32"
+        main = k2_any[9, 256, 256, 2, 32768, bf16]
+        h64 = width_runs.get(f"train ppo_lag h64 {t}")
+        return dict(
+            name=name, route="cuda",
+            source="fsrl_torch/csrc/fused_ppo_grad_any.cu",
+            replaces="fsrl_tpu/ops/fused_ppo_grad.py:68",
+            launches=width_runs[f"train ppo_lag h256 {t}"]["launches"].get(
+                name, 0), library_ms=None,
+            launches_by_path={
+                f"ppo_lag_h256_{t}": width_runs[f"train ppo_lag h256 {t}"][
+                    "launches"].get(name, 0),
+                **({f"ppo_lag_h64_{t}": h64["launches"].get(name, 0)}
+                   if h64 else {}),
+                f"host_ppo_lag_a40_{t}": host_a40[f"train host a40 {t}"][
+                    "launches"].get(name, 0)},
+            by_case={f"B{B}_D{D}_H{H1}x{H2}_A{A}": {
+                k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                  "max_abs_err")}
+                for (D, H1, H2, A, B, b), r in k2_any.items() if b == bf16},
+            autograd_step_ms_h256=autograd_h256,
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")})
+
     kernels = [
         dict(name="gae", route="cuda", source="fsrl_torch/csrc/gae.cu",
              replaces="fsrl_tpu/ops/pallas_gae.py:27",
@@ -2633,6 +2883,12 @@ def main() -> int:
                  **wide_launches("gae", "f32"),
                  **wide_launches("gae", "bf16"),
                  host_cli=host_cli["launches"].get("gae", 0),
+                 **{k.replace("train ", "").replace(" ", "_"):
+                    v["launches"].get("gae", 0)
+                    for k, v in width_runs.items()},
+                 **{f"host_ppo_lag_a40_{t}":
+                    host_a40[f"train host a40 {t}"]["launches"].get("gae", 0)
+                    for t in ("f32", "bf16")},
                  host_sac_lag=host_sac["launches"].get("gae", 0),
                  **{f"{k}_per_iteration": v.get("gae", 0)
                     for k, v in dp_counts.items()}), **k1),
@@ -2668,6 +2924,8 @@ def main() -> int:
              autograd_step_ms_humanoid={f"B{B}": v
                                         for B, v in autograd_hum.items()},
              **k2_f32),
+        any_entry(True),
+        any_entry(False),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

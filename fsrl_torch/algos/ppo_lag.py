@@ -11,10 +11,11 @@
   still report their metrics, as the JAX scan does;
 * PID multiplier update from the collect's mean episodic cost.
 
-Where the config is inside kernel K2's envelope (two hidden layers of the
-kernel's width, any observation width, up to 32 actions, no dual or value
-clip, advantage normalization on, bounded mean with ``max_action`` 1, f32
-or bf16 compute; JAX's ``_pallas_ok`` gate) every grad step goes through
+Where the config is inside kernel K2's envelope (two hidden layers of any
+widths, any observation width and number of actions, up to 5 constraints,
+no dual or value clip, advantage normalization on, bounded mean with
+``max_action`` 1, f32 or bf16 compute; JAX's ``_pallas_ok`` gate) every
+grad step goes through
 :func:`fsrl_torch.ops.fused_ppo_grad.ppo_grad_minibatch`: the CUDA kernel on
 the card, its plain version on the CPU. Outside it, autograd of the plain
 loss, as in JAX. The port has no ``gae_impl`` and no ``use_pallas_grad``
@@ -123,9 +124,10 @@ class PPOLag(ActorCriticAlgo):
                            sigma_init=sigma_init)
         self.compute_dtype = compute_dtype
         hs = self.hidden_sizes
-        self.grad_layout = GradLayout(D=obs_dim, H=hs[0], A=act_dim, K=self.K)
+        self.grad_layout = GradLayout(D=obs_dim, H=hs[0], A=act_dim, K=self.K,
+                                      H2=hs[-1])
         self.use_grad_kernel = (
-            len(hs) == 2 and hs[0] == hs[1]
+            len(hs) == 2
             and dual_clip is None and not value_clip
             and advantage_normalization and not unbounded
             and max_action == 1.0

@@ -273,11 +273,10 @@ class ActorCritic(nn.Module):
         super().__init__()
         self.actor, self.critics = actor, critics
         widths = [layer.weight.shape[0] for layer in actor.trunk.layers]
-        # the stacked chain needs the PPO recipe: two hidden layers of one
-        # width in both nets
-        self.fused = (len(widths) == 2 and widths[0] == widths[1]
-                      and len(critics.w) == 3
-                      and critics.w[0].shape[1] == widths[0])
+        # the stacked chain needs the PPO recipe: two hidden layers, of the
+        # same widths in both nets
+        self.fused = (len(widths) == 2 and len(critics.w) == 3
+                      and [w.shape[1] for w in critics.w[:2]] == widths)
 
     def forward(self, obs: torch.Tensor):
         """``(DiagGaussian, values (B, K))``, through the stacked chain
@@ -405,11 +404,11 @@ def fused_pi_v_apply(actor: GaussianActor, critics: VCriticEnsemble,
     (``nets/mlp.py:224-276``): the K+1 towers share input and hidden shape,
     so layer 1 is one matmul over the stacked output axis and layer 2 one
     batched matmul. Same parameters and cast points as the separate
-    forwards. Requires two hidden layers of equal width in both nets.
+    forwards. Requires two hidden layers, of the same widths in both nets.
     Returns ``(DiagGaussian, values (B, K))``."""
     dt = critics.compute_dtype or obs.dtype
     a1, a2 = actor.trunk.layers
-    w1 = torch.cat([a1.weight[None], critics.w[0]]).to(dt)     # (K+1, H, D)
+    w1 = torch.cat([a1.weight[None], critics.w[0]]).to(dt)    # (K+1, H1, D)
     b1 = torch.cat([a1.bias[None], critics.b[0]]).to(dt)
     w2 = torch.cat([a2.weight[None], critics.w[1]]).to(dt)
     b2 = torch.cat([a2.bias[None], critics.b[1]]).to(dt)

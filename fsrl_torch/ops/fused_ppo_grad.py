@@ -1,20 +1,26 @@
 """Kernel K2: the whole PPO-Lagrangian minibatch loss and its hand-derived
-gradient in one fused CUDA launch plus a fixed-order reduce launch. With
-``bf16=True`` (the main path) the kernel is ``csrc/fused_ppo_grad.cu``: every
-product of a 128-row chunk runs on Hopper's tensor cores (``wgmma``) from
-bf16 tiles that the kernel writes into shared memory itself
-(:func:`tile_offset` mirrors their layout). With ``bf16=False`` it is
-``csrc/fused_ppo_grad_f32.cu``: the same products on the tensor cores with
+gradient, in one of three CUDA forms that the layout's shape alone picks
+(:func:`kernel_form`). At hidden (128, 128) and up to 32 actions, the tuned
+forms, one fused launch plus a fixed-order reduce launch: with
+``bf16=True`` ``csrc/fused_ppo_grad.cu``, every product of a 128-row chunk on
+Hopper's tensor cores (``wgmma``) from bf16 tiles that the kernel writes into
+shared memory itself (:func:`tile_offset` mirrors their layout); with
+``bf16=False`` ``csrc/fused_ppo_grad_f32.cu``, the same products with
 ``mma.sync``, each float32 product taken as three TF32 products of the
 operands' high and low parts (:func:`tf32_split` mirrors the split), which
 keeps the gradient within a few 1e-6 of each tensor's largest entry of the
-plain float32 version.
+plain float32 version. At every other shape of the gate, hidden widths
+(H1, H2) and any number of actions, the generic form
+``csrc/fused_ppo_grad_any.cu``: a sequence of tiled float32 FMA products
+(operands rounded to bf16 where ``bf16``) and row kernels over global
+scratch, counted apart (``fused_ppo_grad_any``, ``fused_ppo_grad_any_f32``).
 
 Replaces ``fsrl_tpu/ops/fused_ppo_grad.py::ppo_grad_minibatch``. The math is
 the Pallas kernel's (``fused_ppo_grad.py:68-165``):
 
-* actor: two ReLU layers, ``tanh`` mean, free log-sigma, Gaussian log-prob,
-  ratio, clipped surrogate plus ``sum_m lam_m * mean(ratio * advC_m)``,
+* actor: two ReLU layers (widths H1, H2), ``tanh`` mean, free log-sigma,
+  Gaussian log-prob, ratio, clipped surrogate plus
+  ``sum_m lam_m * mean(ratio * advC_m)``,
   all scaled by ``resc`` (the ``1 / (sum lam + 1)`` rescale);
 * K critic towers with ``vf_coef * mean((v - ret)^2)`` each;
 * JAX's tie conventions: d min(s1, s2) splits 0.5/0.5 at s1 == s2, and the
@@ -43,37 +49,42 @@ from fsrl_torch.ops import kernels
 
 LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 AUX_WIDTH = 8
-KERNEL_H = 128       # the kernels' tiling is written for width 128
-KERNEL_A_MAX = 32    # the f32 kernel's shared memory: 200 KB of float32
-                     # tiles, and 580 bytes an action of head weights and
-                     # sums, fill a block's 232,448 bytes at A 32, K 6
+KERNEL_H = 128       # the tuned forms' tiling is written for width 128
+KERNEL_A_MAX = 32    # the tuned f32 kernel's shared memory: 200 KB of
+                     # float32 tiles, and 580 bytes an action of head weights
+                     # and sums, fill a block's 232,448 bytes at A 32, K 6
 KERNEL_M_MAX = 5     # the aux row holds 3 + M sums in 8 slots
 
 
 @dataclass(frozen=True)
 class GradLayout:
     """Shapes of the flat parameter vector for a two-hidden-layer
-    ActorCritic of widths H: observation D, action A, K critics. The order
-    is ``ActorCritic.flat_names()``."""
+    ActorCritic of widths (H, H2) (``H2`` defaults to ``H``): observation
+    D, action A, K critics. The order is ``ActorCritic.flat_names()``."""
 
     D: int
     H: int
     A: int
     K: int
+    H2: int | None = None
+
+    def __post_init__(self):
+        if self.H2 is None:
+            object.__setattr__(self, "H2", self.H)
 
     def shapes(self) -> list[tuple[str, tuple[int, ...]]]:
-        D, H, A, K = self.D, self.H, self.A, self.K
+        D, H1, H2, A, K = self.D, self.H, self.H2, self.A, self.K
         return [
-            ("actor.trunk.layers.0.weight", (H, D)),
-            ("actor.trunk.layers.0.bias", (H,)),
-            ("actor.trunk.layers.1.weight", (H, H)),
-            ("actor.trunk.layers.1.bias", (H,)),
-            ("actor.mu.weight", (A, H)),
+            ("actor.trunk.layers.0.weight", (H1, D)),
+            ("actor.trunk.layers.0.bias", (H1,)),
+            ("actor.trunk.layers.1.weight", (H2, H1)),
+            ("actor.trunk.layers.1.bias", (H2,)),
+            ("actor.mu.weight", (A, H2)),
             ("actor.mu.bias", (A,)),
             ("actor.log_sigma", (A,)),
-            ("critics.w.0", (K, H, D)), ("critics.b.0", (K, H)),
-            ("critics.w.1", (K, H, H)), ("critics.b.1", (K, H)),
-            ("critics.w.2", (K, 1, H)), ("critics.b.2", (K, 1)),
+            ("critics.w.0", (K, H1, D)), ("critics.b.0", (K, H1)),
+            ("critics.w.1", (K, H2, H1)), ("critics.b.1", (K, H2)),
+            ("critics.w.2", (K, 1, H2)), ("critics.b.2", (K, 1)),
         ]
 
     @property
@@ -89,16 +100,31 @@ class GradLayout:
         return out
 
     def kernel_fits(self) -> bool:
-        """Shapes the CUDA kernels take, the Pallas kernel's gate: hidden
-        width 128, any observation width D (the bf16 kernel takes x and W1
-        in 64-wide slices above 64, the f32 kernel reads them from L2), up
-        to ``KERNEL_A_MAX`` actions and ``KERNEL_M_MAX`` constraints. Every
-        (D, A, K) here fits a block's shared memory in both forms, which
-        does not grow with D above 64 (``chip_smoke.py``'s build phase
-        checks the corners)."""
-        return (self.H == KERNEL_H and self.D >= 1
-                and 1 <= self.A <= KERNEL_A_MAX
+        """Shapes K2 takes, the shape part of the Pallas kernel's gate (it
+        reads the widths from the weights and holds each weight whole): any
+        hidden widths, observation width and number of actions, and up to
+        ``KERNEL_M_MAX`` constraints (the aux row's 8 slots hold 3 + M
+        sums, in the Pallas kernel too)."""
+        return (min(self.D, self.H, self.H2, self.A) >= 1
                 and 1 <= self.K <= KERNEL_M_MAX + 1)
+
+
+def kernel_form(layout: GradLayout) -> str:
+    """The CUDA form of K2 that a layout inside the gate takes: "tuned"
+    (``csrc/fused_ppo_grad.cu`` / ``fused_ppo_grad_f32.cu``) at hidden
+    (128, 128) with up to ``KERNEL_A_MAX`` actions, at any D and K; "any"
+    (``csrc/fused_ppo_grad_any.cu``) at every other shape."""
+    return ("tuned" if layout.H == layout.H2 == KERNEL_H
+            and layout.A <= KERNEL_A_MAX else "any")
+
+
+def launch_name(layout: GradLayout, bf16: bool) -> str:
+    """The ``kernels.LAUNCHES`` key of the form and dtype K2 launches at
+    ``layout``: the tuned bf16 and f32 kernels and the generic form's two
+    dtypes are counted apart."""
+    name = "fused_ppo_grad" + ("" if kernel_form(layout) == "tuned"
+                               else "_any")
+    return name if bf16 else name + "_f32"
 
 
 def tile_offset(r: int, c: int, n_col_groups: int) -> int:
@@ -289,8 +315,8 @@ def _launch(flat, layout: GradLayout, obs, act, logp_old, adv, ret, lam,
     K, A = layout.K, layout.A
     req = kernels.require
     req(layout.kernel_fits(),
-        f"fused PPO grad kernel takes H={KERNEL_H}, any D >= 1, "
-        f"A<={KERNEL_A_MAX}, K-1<={KERNEL_M_MAX}; got {layout}")
+        f"fused PPO grad kernel takes any widths and K-1<={KERNEL_M_MAX}; "
+        f"got {layout}")
     expect = {"flat": (flat, (layout.size,)), "obs": (obs, (B, layout.D)),
               "act": (act, (B, A)), "logp_old": (logp_old, (B,)),
               "adv": (adv, (B, K)), "ret": (ret, (B, K)),
@@ -305,35 +331,50 @@ def _launch(flat, layout: GradLayout, obs, act, logp_old, adv, ret, lam,
     lib = kernels.library()
     grad = torch.empty(layout.size, device=flat.device)
     aux = torch.empty(AUX_WIDTH, device=flat.device)
+    tensors = (flat, obs, act, logp_old, adv, ret, lam, resc, grad, aux)
+    tail = (1.0 - eps_clip, 1.0 + eps_clip, vf_coef, kernels.stream_ptr())
     with torch.cuda.device(flat.device):
-        n_scratch = lib.fsrl_ppo_grad_scratch_floats(B, D, layout.H, A, K)
-        scratch = torch.empty(n_scratch, device=flat.device)
-        rc = lib.fsrl_ppo_grad(
-            flat.data_ptr(), obs.data_ptr(), act.data_ptr(),
-            logp_old.data_ptr(), adv.data_ptr(), ret.data_ptr(),
-            lam.data_ptr(), resc.data_ptr(), grad.data_ptr(), aux.data_ptr(),
-            scratch.data_ptr(), B, D, layout.H, A, K, int(bf16), n_scratch,
-            1.0 - eps_clip, 1.0 + eps_clip, vf_coef, kernels.stream_ptr())
+        if kernel_form(layout) == "tuned":
+            n_scratch = lib.fsrl_ppo_grad_scratch_floats(B, D, layout.H, A, K)
+            scratch = torch.empty(n_scratch, device=flat.device)
+            rc = lib.fsrl_ppo_grad(
+                *(x.data_ptr() for x in tensors), scratch.data_ptr(), B, D,
+                layout.H, A, K, int(bf16), n_scratch, *tail)
+        else:
+            dims = (B, D, layout.H, layout.H2, A, K)
+            n_scratch = lib.fsrl_ppo_grad_any_scratch_floats(*dims)
+            scratch = torch.empty(n_scratch, device=flat.device)
+            rc = lib.fsrl_ppo_grad_any(
+                *(x.data_ptr() for x in tensors), scratch.data_ptr(), *dims,
+                int(bf16), n_scratch, *tail)
     kernels.check(rc, "fused PPO grad kernel")
-    # the bf16 (tensor-core) and f32 kernels are two kernels, counted apart
-    kernels.LAUNCHES["fused_ppo_grad" if bf16 else "fused_ppo_grad_f32"] += 1
+    kernels.LAUNCHES[launch_name(layout, bf16)] += 1
     return grad, aux
 
 
 def reduce_launch(layout: GradLayout, B: int, device="cuda"):
-    """The kernel's second launch alone (the fixed-order sum of the block
-    partials) on scratch of the size a batch of ``B`` rows takes, so that it
-    can be timed on its own. The scratch is not initialised, so the sums
-    mean nothing; not counted as a launch of the kernel."""
+    """The form's last launch alone (the fixed-order sum of the block or
+    row-slice partials) on scratch of the size a batch of ``B`` rows takes,
+    so that it can be timed on its own. The scratch is not initialised, so
+    the sums mean nothing; not counted as a launch of the kernel."""
     lib = kernels.library()
     grad = torch.empty(layout.size, device=device)
     aux = torch.empty(AUX_WIDTH, device=device)
+    ptrs = lambda scratch: (scratch.data_ptr(), grad.data_ptr(),
+                            aux.data_ptr())
     with torch.cuda.device(grad.device):
-        scratch = torch.empty(lib.fsrl_ppo_grad_scratch_floats(
-            B, layout.D, layout.H, layout.A, layout.K), device=device)
-        rc = lib.fsrl_ppo_grad_reduce_only(
-            scratch.data_ptr(), grad.data_ptr(), aux.data_ptr(), B, layout.D,
-            layout.A, layout.K, kernels.stream_ptr())
+        if kernel_form(layout) == "tuned":
+            scratch = torch.empty(lib.fsrl_ppo_grad_scratch_floats(
+                B, layout.D, layout.H, layout.A, layout.K), device=device)
+            rc = lib.fsrl_ppo_grad_reduce_only(
+                *ptrs(scratch), B, layout.D, layout.A, layout.K,
+                kernels.stream_ptr())
+        else:
+            dims = (B, layout.D, layout.H, layout.H2, layout.A, layout.K)
+            scratch = torch.empty(lib.fsrl_ppo_grad_any_scratch_floats(*dims),
+                                  device=device)
+            rc = lib.fsrl_ppo_grad_any_reduce_only(*ptrs(scratch), *dims,
+                                                   kernels.stream_ptr())
     kernels.check(rc, "fused PPO grad reduce launch")
     return grad, aux
 

@@ -32,7 +32,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("gae.cu", "fused_ppo_grad.cu", "fused_ppo_grad_f32.cu")
+SOURCES = ("gae.cu", "fused_ppo_grad.cu", "fused_ppo_grad_f32.cu",
+           "fused_ppo_grad_any.cu")
 HEADERS = ("wgmma.cuh", "ppo_grad_common.cuh", "mma_tf32.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -116,6 +117,16 @@ def library() -> ctypes.CDLL:
     lib.fsrl_ppo_grad_smem_bytes.argtypes = [I, I, I, I]
     lib.fsrl_ppo_grad_smem_bytes.restype = ctypes.c_long
     lib.fsrl_ppo_grad_tile_offset.argtypes = [I, I, I]
+    lib.fsrl_ppo_grad_any.argtypes = [P] * 11 + [I] * 7 + [ctypes.c_long,
+                                                          F, F, F, P]
+    lib.fsrl_ppo_grad_any.restype = I
+    lib.fsrl_ppo_grad_any_scratch_floats.argtypes = [I] * 6
+    lib.fsrl_ppo_grad_any_scratch_floats.restype = ctypes.c_long
+    lib.fsrl_ppo_grad_any_reduce_only.argtypes = [P, P, P] + [I] * 6 + [P]
+    lib.fsrl_ppo_grad_any_reduce_only.restype = I
+    lib.fsrl_ppo_grad_any_splits.argtypes = [I]
+    lib.fsrl_ppo_grad_any_smem_bytes.argtypes = []
+    lib.fsrl_ppo_grad_any_smem_bytes.restype = ctypes.c_long
     lib.fsrl_ppo_grad_f32_retakes.argtypes = [P]
     lib.fsrl_ppo_grad_f32_retakes.restype = I
     lib.fsrl_gae_strip.argtypes = []

@@ -121,7 +121,8 @@ def _assert_aux_no_farther(ak, ap, a64, B):
     assert ((ak.double() - a64).abs() <= bound).all(), (ak, ap, a64)
 
 
-def _grad_case(cuda, B, D, A, K, bf16, seed=1, off_kinks=True):
+def _grad_case(cuda, B, D, A, K, bf16, seed=1, off_kinks=True,
+               hidden=(128, 128)):
     """Arguments of the fused grad kernel at one shape, half the rows with
     ratio == 1 exactly in the plain version (f32 with ``off_kinks``: no row
     on a ReLU kink)."""
@@ -129,7 +130,7 @@ def _grad_case(cuda, B, D, A, K, bf16, seed=1, off_kinks=True):
     from fsrl_torch.algos.ppo_lag import PPOLag
     from fsrl_torch.ops.fused_ppo_grad import policy_logp
     algo = PPOLag(D, A, num_costs=K - 1, cost_limit=[10.0] * (K - 1),
-                  device=cuda)
+                  hidden_sizes=hidden, device=cuda)
     state = algo.init(seed=seed)
     g = torch.Generator(device=cuda).manual_seed(seed)
     obs = torch.randn(B, D, device=cuda, generator=g)
@@ -185,11 +186,11 @@ ENVELOPE_EDGES = [
     (4096, 376, 24, 2)]
 
 
-def _check_at_shape(cuda, B, D, A, K, bf16):
-    from fsrl_torch.ops.fused_ppo_grad import ppo_grad_rows
-    args = _grad_case(cuda, B, D, A, K, bf16=bf16)
+def _check_at_shape(cuda, B, D, A, K, bf16, hidden=(128, 128)):
+    from fsrl_torch.ops.fused_ppo_grad import launch_name, ppo_grad_rows
+    args = _grad_case(cuda, B, D, A, K, bf16=bf16, hidden=hidden)
     kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=bf16)
-    name = "fused_ppo_grad" if bf16 else "fused_ppo_grad_f32"
+    name = launch_name(args[1], bf16)
     before = kernels.LAUNCHES[name]
     gk, ak = ppo_grad_rows(*args, **kw)
     g2, a2 = ppo_grad_rows(*args, **kw)
@@ -209,6 +210,27 @@ def test_fused_grad_kernel_at_envelope_edges(cuda, B, D, A, K):
 def test_fused_grad_f32_kernel_at_envelope_edges(cuda, B, D, A, K):
     """The f32 kernel (three TF32 products for each product)."""
     _check_at_shape(cuda, B, D, A, K, bf16=False)
+
+
+# the generic form (csrc/fused_ppo_grad_any.cu): (B, D, H1, H2, A, K) at
+# hidden (256, 256) and (64, 64), uneven widths, above 32 actions at the
+# default width, the most value channels, K 1 and D 1, ragged row counts
+ANY_SHAPES = [(4096, 9, 256, 256, 2, 2), (4096, 9, 64, 64, 2, 2),
+              (4096, 9, 128, 128, 33, 2), (256, 348, 128, 128, 40, 2),
+              (4096, 21, 256, 128, 3, 3), (1000, 17, 32, 48, 33, 6),
+              (100, 1, 16, 16, 1, 1), (1000, 105, 512, 512, 8, 2)]
+
+
+@pytest.mark.parametrize("B,D,H1,H2,A,K", ANY_SHAPES)
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_fused_grad_any_kernel_matches_plain(cuda, bf16, B, D, H1, H2, A,
+                                             K):
+    """The generic form against the plain version, at the tuned forms'
+    tolerances, counted under its own name, two launches bit for bit."""
+    from fsrl_torch.ops.fused_ppo_grad import kernel_form
+    assert kernel_form(_grad_case(cuda, 1, D, A, K, bf16,
+                                  hidden=(H1, H2))[1]) == "any"
+    _check_at_shape(cuda, B, D, A, K, bf16, hidden=(H1, H2))
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3])
@@ -274,11 +296,11 @@ def test_fused_grad_wrapper_raises_rather_than_falling_back(cuda, bf16, D,
     with pytest.raises(ValueError):
         ppo_grad_rows(*bad, bf16=bf16)
     bad = list(args)
-    bad[1] = GradLayout(D=D, H=64, A=A, K=2)             # outside the envelope
+    bad[1] = GradLayout(D=D, H=128, A=A, K=7)            # outside the envelope
     with pytest.raises(ValueError):
         ppo_grad_rows(*bad, bf16=bf16)
-    bad = list(args)                                     # above the action cap
-    bad[1] = GradLayout(D=D, H=128, A=KERNEL_A_MAX + 1, K=2)
+    bad = list(args)                                     # outside, generic form
+    bad[1] = GradLayout(D=D, H=64, A=KERNEL_A_MAX + 1, K=7)
     with pytest.raises(ValueError):
         ppo_grad_rows(*bad, bf16=bf16)
     assert sum(kernels.LAUNCHES.values()) == before
@@ -357,13 +379,15 @@ def _one_update(cls, dev, D=9, A=2, act_scale=1.0, logp_mean=-2.0, **kw):
     return algo, state.flat.cpu(), m, launched
 
 
-@pytest.mark.parametrize("name", ["ppo_lag", "ppo_lag_humanoid", "focops",
-                                  "trpo_lag", "cpo"])
+@pytest.mark.parametrize("name", ["ppo_lag", "ppo_lag_humanoid",
+                                  "ppo_lag_h64x32", "focops", "trpo_lag",
+                                  "cpo"])
 def test_update_on_the_card_matches_the_cpu(cuda, name):
     """One update of each on-policy algorithm on the card (GAE through
     kernel K1; PPO-Lag's 2 x 2 grad steps through the f32 K2 kernel, also
-    at Humanoid-v5's widths, D 348 and A 17) against the same update on
-    the CPU."""
+    at Humanoid-v5's widths, D 348 and A 17, and through the generic form
+    at hidden (64, 32)) against the same update on the CPU."""
+    from fsrl_torch.ops.fused_ppo_grad import launch_name
     from fsrl_torch.algos.common import split_flat
     from fsrl_torch.algos.cpo import CPO
     from fsrl_torch.algos.focops import FOCOPS
@@ -376,14 +400,15 @@ def test_update_on_the_card_matches_the_cpu(cuda, name):
                "ppo_lag_humanoid": (PPOLag, dict(mb, D=348, A=17,
                                                  act_scale=0.3,
                                                  logp_mean=-9.0)),
+               "ppo_lag_h64x32": (PPOLag, dict(mb, hidden_sizes=(64, 32))),
                "focops": (FOCOPS, mb),
                "trpo_lag": (TRPOLag, dict(target_kl=0.01)),
                "cpo": (CPO, dict())}[name]
     algo, fc, mc, n_cpu = _one_update(cls, "cpu", **kw)
     _, fg, mg, n_gpu = _one_update(cls, cuda, **kw)
     assert n_cpu == {}
-    assert n_gpu == ({"gae": 1, "fused_ppo_grad_f32": 4} if cls is PPOLag
-                     else {"gae": 1})
+    assert n_gpu == ({"gae": 1, launch_name(algo.grad_layout, False): 4}
+                     if cls is PPOLag else {"gae": 1})
     start = algo.init(seed=1)
     model = start.params
     if cls in (PPOLag, FOCOPS):

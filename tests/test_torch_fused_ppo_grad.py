@@ -20,7 +20,7 @@ from fsrl_torch.algos.common import OnPolicyBatch, normalize_adv
 from fsrl_torch.algos.ppo_lag import PPOLag
 from fsrl_torch.ops import kernels
 from fsrl_torch.ops.fused_ppo_grad import (KERNEL_A_MAX, KINK_MARGIN,
-                                           GradLayout, _launch,
+                                           GradLayout, _launch, kernel_form,
                                            policy_logp, ppo_grad_minibatch,
                                            ppo_grad_plain, ppo_grad_rows,
                                            redraw_near_kinks, relu_margin,
@@ -111,7 +111,10 @@ def test_cpu_tensors_take_the_plain_version():
 
 def test_kernel_envelope():
     assert GradLayout(D=9, H=128, A=2, K=2).kernel_fits()
-    assert not GradLayout(D=9, H=64, A=2, K=2).kernel_fits()
+    # any hidden width, as the Pallas kernel's gate (the generic form)
+    assert GradLayout(D=9, H=64, A=2, K=2).kernel_fits()
+    assert kernel_form(GradLayout(D=9, H=64, A=2, K=2)) == "any"
+    assert kernel_form(GradLayout(D=9, H=128, A=2, K=2)) == "tuned"
     # both kernel forms take every navigation task's observation (D <= 64)
     assert GradLayout(D=64, H=128, A=4, K=6).kernel_fits()
     # and, as the Pallas kernel's gate, any wider one: the velocity suite's
@@ -122,9 +125,14 @@ def test_kernel_envelope():
     assert GradLayout(D=17, H=128, A=6, K=2).kernel_fits()
     assert GradLayout(D=64, H=128, A=8, K=6).kernel_fits()
     assert GradLayout(D=9, H=128, A=9, K=2).kernel_fits()
-    # up to KERNEL_A_MAX actions, which the f32 kernel's shared memory sets
+    # the tuned forms up to KERNEL_A_MAX actions, which the f32 kernel's
+    # shared memory sets; the generic form above
     assert GradLayout(D=9, H=128, A=KERNEL_A_MAX, K=6).kernel_fits()
-    assert not GradLayout(D=9, H=128, A=KERNEL_A_MAX + 1, K=2).kernel_fits()
+    assert kernel_form(GradLayout(D=9, H=128, A=KERNEL_A_MAX, K=6)) == "tuned"
+    assert GradLayout(D=9, H=128, A=KERNEL_A_MAX + 1, K=2).kernel_fits()
+    assert kernel_form(GradLayout(D=9, H=128, A=KERNEL_A_MAX + 1,
+                                  K=2)) == "any"
+    # the aux row's 8 slots: at most 5 constraints
     assert not GradLayout(D=9, H=128, A=2, K=7).kernel_fits()
     assert PPOLag(17, 6, device="cpu").use_grad_kernel
     assert PPOLag(17, 9, device="cpu").use_grad_kernel
@@ -133,7 +141,8 @@ def test_kernel_envelope():
     assert PPOLag(9, 2, device="cpu").use_grad_kernel
     assert not PPOLag(9, 2, dual_clip=3.0, device="cpu").use_grad_kernel
     assert not PPOLag(9, 2, value_clip=True, device="cpu").use_grad_kernel
-    assert not PPOLag(9, 2, hidden_sizes=(64, 64),
+    assert PPOLag(9, 2, hidden_sizes=(64, 64), device="cpu").use_grad_kernel
+    assert not PPOLag(9, 2, num_costs=6, cost_limit=[1.0] * 6,
                       device="cpu").use_grad_kernel
 
 
