@@ -342,17 +342,29 @@ def phase_build():
             kernels.BUILD_LOG.get("fused_ppo_grad_any.cu", "")).items()):
         print(f"[build] K2 any {name}: {regs} registers, spill stores {st} "
               f"bytes, loads {ld} bytes", flush=True)
-    any_smem = lib.fsrl_ppo_grad_any_smem_bytes()
-    print(f"[build] K2 any shared memory: {any_smem} bytes at every shape "
-          f"(static; limit {SMEM_LIMIT})", flush=True)
-    if not 0 < any_smem <= SMEM_LIMIT:
-        fail(f"K2 any: shared memory {any_smem} bytes")
-    for dims in ((32768, 9, 256, 256, 2, 2), (4096, 105, 512, 512, 8, 2),
+    # the generic form's shared memory: static, and the row block's h2
+    # (64 x H2 floats, dynamic) where it fits, device memory above
+    any_smem = {H2: lib.fsrl_ppo_grad_any_smem_bytes(H2)
+                for H2 in (16, 64, 128, 256, 512, 744, 768, 1024)}
+    print(f"[build] K2 any shared memory by H2: {any_smem} bytes (limit "
+          f"{SMEM_LIMIT})", flush=True)
+    if not all(0 < b <= SMEM_LIMIT for b in any_smem.values()):
+        fail(f"K2 any: shared memory {any_smem}")
+    for dims in ((32768, 9, 256, 256, 2, 2), (32768, 9, 64, 64, 2, 2),
+                 (256, 348, 128, 128, 40, 2), (4096, 105, 512, 512, 8, 2),
                  (32768, 348, 128, 128, 40, 2)):
         n = lib.fsrl_ppo_grad_any_scratch_floats(*dims)
-        print(f"[build] K2 any scratch at (B, D, H1, H2, A, K) = {dims}: "
-              f"{4 * n} bytes in {lib.fsrl_ppo_grad_any_splits(dims[0])} "
-              f"row slices", flush=True)
+        blocks, slices = ([fn(*dims, bf16) for bf16 in (1, 0)] for fn in (
+            lib.fsrl_ppo_grad_any_row_blocks, lib.fsrl_ppo_grad_any_splits))
+        print(f"[build] K2 any at (B, D, H1, H2, A, K) = {dims}: scratch "
+              f"{4 * n} bytes; row kernel {blocks[0]} / {blocks[1]} blocks "
+              f"a tower, weight-gradient products in {slices[0]} / "
+              f"{slices[1]} row slices (bf16 / f32)", flush=True)
+    any_spills = [name for name, (_, st, ld) in ptxas_entries(
+        kernels.BUILD_LOG.get("fused_ppo_grad_any.cu", "")).items()
+        if st or ld]
+    if any_spills:
+        fail(f"K2 any: kernels spill: {any_spills}")
     if not PATH_INSTANCES <= set(report):
         fail(f"ptxas reported no K2 instance {PATH_INSTANCES - set(report)}"
              f" (a library built without its .log.json: delete "
@@ -1716,7 +1728,7 @@ def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2,
 
 
 def phase_k2_f32_natural_rows(seeds=(0, 1, 2), B: int = 32768, K: int = 2,
-                              D: int = 9, A: int = 2):
+                              D: int = 9, A: int = 2, hidden=(128, 128)):
     """The f32 kernel on the main path's rows as they are drawn, ReLU kinks
     included. A pre-activation within rounding of 0 lets two float32
     computations take different sides of the ReLU, and that row's whole
@@ -1729,23 +1741,29 @@ def phase_k2_f32_natural_rows(seeds=(0, 1, 2), B: int = 32768, K: int = 2,
     beside them: the rows with a pre-activation within 1e-6 of a kink, the
     kernel's distance from the plain version, and the pre-activations the
     kernel took again in float64 in the launch (first layer, second
-    layer). Returns the last seed's retake counts."""
-    from fsrl_torch.ops.fused_ppo_grad import (ppo_grad_plain, ppo_grad_rows,
-                                               relu_margin, retake_counts)
+    layer). At hidden widths other than (128, 128) the generic form, with
+    its own retake counts. Returns the last seed's retake counts."""
+    from fsrl_torch.ops.fused_ppo_grad import (kernel_form, ppo_grad_plain,
+                                               ppo_grad_rows, relu_margin,
+                                               retake_counts)
     kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=False)
     for seed in seeds:
-        args = _k2_inputs(K, False, B, D, A, off_kinks=False, seed=seed)
+        args = _k2_inputs(K, False, B, D, A, off_kinks=False, seed=seed,
+                          hidden=hidden)
         flat, layout, obs = args[:3]
-        retake_counts()
+        form = kernel_form(layout)
+        retake_counts(form)
         gk, ak = ppo_grad_rows(*args, **kw)
-        retakes = retake_counts()
+        retakes = retake_counts(form)
         gp, ap = ppo_grad_plain(*args, **kw)
         g64, a64 = _plain64(args, **kw)
         ek, ep = _tensor_errs(layout, gk, g64), _tensor_errs(layout, gp, g64)
         name = max(ek, key=lambda n: ek[n] - ep[n])
         excess = _aux_excess(ak, ap, a64, B)
         near = int((relu_margin(flat, layout, obs) < 1e-6).sum())
-        tag = f"K2 B={B} D={D} A={A} K={K} f32 natural rows seed {seed}"
+        widths = (f" H={layout.H}x{layout.H2}" if form == "any" else "")
+        tag = (f"{'K2 any' if form == 'any' else 'K2'} B={B} D={D}{widths} "
+               f"A={A} K={K} f32 natural rows seed {seed}")
         print(f"[{tag}] vs float64, kernel / plain f32: worst tensor "
               f"{max(ek.values()):.3e} / {max(ep.values()):.3e}, nearest "
               f"the bound {name} {ek[name]:.3e} / {ep[name]:.3e} (tol: plain "
@@ -1755,7 +1773,8 @@ def phase_k2_f32_natural_rows(seeds=(0, 1, 2), B: int = 32768, K: int = 2,
               f"{max(_tensor_errs(layout, gk, gp).values()):.3e} (aux "
               f"{_aux_err(ak, ap):.3e}); rows within 1e-6 of a kink {near}; "
               f"float64 retakes {retakes[0]} first layer, {retakes[1]} "
-              f"second, of {B * 2 * layout.H * (K + 1)} pre-activations",
+              f"second, of {B * (layout.H + layout.H2) * (K + 1)} "
+              f"pre-activations",
               flush=True)
         if ek[name] > ep[name] + 1e-5 or excess > 1e-5:
             fail(f"[{tag}] the f32 kernel is farther from float64 than the "
@@ -1845,7 +1864,8 @@ def phase_k2_edges():
 # minibatch and the same width at 32,768 rows; above 32 actions at the
 # default width; uneven widths; the most value channels with uneven widths
 # and a ragged count; the narrowest case (D 1, A 1, K 1, 100 rows); hidden
-# (512, 512) at Ant-v5's widths
+# (512, 512) at Ant-v5's widths (W2 in float32 is 1 MB: streamed); rows
+# below one 64-row block of the row kernel (1 and 63) and one row past it
 K2_ANY_CASES = [(9, 256, 256, 2, 2, 32768, True),
                 (9, 64, 64, 2, 2, 32768, True),
                 (348, 128, 128, 40, 2, 256, True),
@@ -1855,7 +1875,11 @@ K2_ANY_CASES = [(9, 256, 256, 2, 2, 32768, True),
                 (21, 256, 128, 3, 3, 4096, False),
                 (17, 32, 48, 33, 6, 1000, False),
                 (1, 16, 16, 1, 1, 100, False),
-                (105, 512, 512, 8, 2, 4096, False)]
+                (105, 512, 512, 8, 2, 4096, False),
+                (9, 256, 256, 2, 2, 1, False),
+                (9, 256, 256, 2, 2, 63, False),
+                (348, 128, 128, 40, 2, 65, False),
+                (105, 512, 512, 8, 2, 63, False)]
 
 
 def phase_k2_any():
@@ -1871,6 +1895,46 @@ def phase_k2_any():
                          hidden=(H1, H2))
             if timed:
                 out[D, H1, H2, A, B, bf16] = r
+    return out
+
+
+# The row kernel's stages timed alone: the skip mask that leaves all but
+# one stage out (bit s: stage A, B, C, D), and all of them
+ANY_STAGES = {"A": 14, "B": 13, "C": 11, "D": 7, "none": 15}
+
+
+def phase_k2_any_split(k2_any: dict) -> dict:
+    """Each of the generic form's three launches alone (``any_launches``),
+    timed as the whole form is, at the timed cases of ``K2_ANY_CASES``, with
+    its share of the three launches' sum and the whole form's time beside
+    it; then the row kernel with one stage alone (``ANY_STAGES``; its
+    results mean nothing then), which says which stage holds its time.
+    Returns the launches' and stages' ms by the case's key."""
+    from fsrl_torch.ops.fused_ppo_grad import ANY_LAUNCHES, any_launches
+    out = {}
+    for bf16 in (True, False):
+        for D, H1, H2, A, K, B, timed in K2_ANY_CASES:
+            if not timed:
+                continue
+            args = _k2_inputs(K, bf16, B, D, A, hidden=(H1, H2))
+            fns = any_launches(*args, eps_clip=0.2, vf_coef=0.25, bf16=bf16)
+            ms = [time_ms(fn) for fn in fns]
+            whole = k2_any[D, H1, H2, A, B, bf16]["ms"]
+            tag = (f"K2 any split B={B} D={D} H={H1}x{H2} A={A} K={K} "
+                   f"{'bf16' if bf16 else 'f32'}")
+            print(f"[{tag}] " + ", ".join(
+                f"{name} {t:.4f} ms ({100 * t / sum(ms):.1f}%)"
+                for name, t in zip(ANY_LAUNCHES, ms))
+                + f"; sum {sum(ms):.4f}, the whole form {whole:.4f} ms",
+                flush=True)
+            stages = {name: time_ms(any_launches(
+                *args, eps_clip=0.2, vf_coef=0.25, bf16=bf16, skip=skip)[0])
+                for name, skip in ANY_STAGES.items()}
+            print(f"[{tag}] row kernel with one stage alone: " + ", ".join(
+                f"{name} {t:.4f} ms" for name, t in stages.items()),
+                flush=True)
+            out[D, H1, H2, A, B, bf16] = dict(
+                zip(ANY_LAUNCHES, ms), row_stages_alone=stages)
     return out
 
 
@@ -2802,6 +2866,10 @@ def main() -> int:
     # the generic form at its cases, and the autograd step the hidden
     # (256, 256) path ran before it
     k2_any = phase_k2_any()
+    any_split = phase_k2_any_split(k2_any)
+    # the generic f32 form on natural rows at hidden (256, 256), with its
+    # float64 retakes
+    any_retakes = phase_k2_f32_natural_rows(hidden=(256, 256))
     autograd_h256 = phase_autograd(32768, 9, 2, "h256", hidden=(256, 256))
     lib = fsrl_kernels.library()
     for (D, A, B, bf16), r in vel_k2.items():
@@ -2862,9 +2930,13 @@ def main() -> int:
                 f"host_ppo_lag_a40_{t}": host_a40[f"train host a40 {t}"][
                     "launches"].get(name, 0)},
             by_case={f"B{B}_D{D}_H{H1}x{H2}_A{A}": {
-                k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                  "max_abs_err")}
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "max_abs_err")},
+                **({"launch_ms": any_split[D, H1, H2, A, B, b]}
+                   if (D, H1, H2, A, B, b) in any_split else {})}
                 for (D, H1, H2, A, B, b), r in k2_any.items() if b == bf16},
+            **({} if bf16 else {
+                "retakes_h256_natural_rows": list(any_retakes)}),
             autograd_step_ms_h256=autograd_h256,
             **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by")})

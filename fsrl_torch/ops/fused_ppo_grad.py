@@ -11,9 +11,12 @@ operands' high and low parts (:func:`tf32_split` mirrors the split), which
 keeps the gradient within a few 1e-6 of each tensor's largest entry of the
 plain float32 version. At every other shape of the gate, hidden widths
 (H1, H2) and any number of actions, the generic form
-``csrc/fused_ppo_grad_any.cu``: a sequence of tiled float32 FMA products
-(operands rounded to bf16 where ``bf16``) and row kernels over global
-scratch, counted apart (``fused_ppo_grad_any``, ``fused_ppo_grad_any_f32``).
+``csrc/fused_ppo_grad_any.cu``: three launches (a row kernel that runs
+both layers, the heads, the row loss and the backward pass to g_h1 for a
+block of 64 rows, a kernel of the weight-gradient products over slices of
+the rows, and the fixed-order reduce), its products on ``wgmma`` (bf16) or
+as three TF32 ``mma.sync`` products (f32), counted apart
+(``fused_ppo_grad_any``, ``fused_ppo_grad_any_f32``).
 
 Replaces ``fsrl_tpu/ops/fused_ppo_grad.py::ppo_grad_minibatch``. The math is
 the Pallas kernel's (``fused_ppo_grad.py:68-165``):
@@ -158,10 +161,21 @@ def _bf(x: torch.Tensor, bf16: bool) -> torch.Tensor:
     return x.to(torch.bfloat16).float() if bf16 else x
 
 
-def _actor_forward(p, x, act, A: int, bf16: bool):
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the f32 kernels take a product: three TF32 products of
+    the operands' :func:`tf32_split` parts, ``hi_a hi_b + hi_a lo_b +
+    lo_a hi_b``, each exact in float32 and summed in float32. A mirror for
+    the tests, used by nothing on the main path."""
+    ha, la = tf32_split(a)
+    hb, lb = tf32_split(b)
+    return ha @ lb + la @ hb + ha @ hb
+
+
+def _actor_forward(p, x, act, A: int, bf16: bool, mm=None):
     """The kernel's actor forward: trunk matmuls on bf16-rounded operands
-    (when ``bf16``), f32 mean head, ``tanh`` mean and the log-prob."""
-    mm = lambda a, b: _bf(a, bf16) @ _bf(b, bf16)
+    (when ``bf16``; ``mm`` takes them instead where given), f32 mean head,
+    ``tanh`` mean and the log-prob."""
+    mm = mm or (lambda a, b: _bf(a, bf16) @ _bf(b, bf16))
     W1, b1 = p["actor.trunk.layers.0.weight"], p["actor.trunk.layers.0.bias"]
     W2, b2 = p["actor.trunk.layers.1.weight"], p["actor.trunk.layers.1.bias"]
     Wmu, bmu = p["actor.mu.weight"], p["actor.mu.bias"]
@@ -229,16 +243,20 @@ def redraw_near_kinks(flat, layout: GradLayout, obs, draw):
 
 def ppo_grad_plain(flat, layout: GradLayout, obs, act, logp_old, adv, ret,
                    lam, resc, *, eps_clip: float, vf_coef: float,
-                   bf16: bool):
+                   bf16: bool, mm=None):
     """Plain PyTorch version of the kernel: returns ``(grad, aux_row)`` with
     ``grad`` in the layout of ``flat`` and ``aux_row`` (8,) holding
     [sum(logp_old - logp), sum(min surrogate), sum_k sum(diff^2),
-    sum(ratio * advC_m) for m < M, zeros]."""
+    sum(ratio * advC_m) for m < M, zeros]. ``mm``, where given, takes the
+    trunk and weight-gradient products (z1, z2, g_h2 W2, g_h2^T h1,
+    g_h1^T x) in place of the plain matmul (the tests pass
+    :func:`tf32x3_matmul`)."""
     p = layout.views(flat)
     B = obs.shape[0]
     K = layout.K
     M = K - 1
-    mm = lambda a, b: _bf(a, bf16) @ _bf(b, bf16)
+    hm = lambda a, b: _bf(a, bf16) @ _bf(b, bf16)
+    mm = mm or hm
     x = obs
     grads: dict[str, torch.Tensor] = {}
 
@@ -246,7 +264,7 @@ def ppo_grad_plain(flat, layout: GradLayout, obs, act, logp_old, adv, ret,
     W2 = p["actor.trunk.layers.1.weight"]
     Wmu = p["actor.mu.weight"]
     sig = torch.exp(p["actor.log_sigma"])
-    h1, h2, mu, z, logp = _actor_forward(p, x, act, layout.A, bf16)
+    h1, h2, mu, z, logp = _actor_forward(p, x, act, layout.A, bf16, mm)
     ratio = torch.exp(logp - logp_old)
     lo_b, hi_b = 1.0 - eps_clip, 1.0 + eps_clip
     advr = adv[:, 0]
@@ -284,13 +302,13 @@ def ppo_grad_plain(flat, layout: GradLayout, obs, act, logp_old, adv, ret,
     for k in range(K):
         h1k = torch.relu(mm(x, cw1[k].T) + cb1[k])
         h2k = torch.relu(mm(h1k, cw2[k].T) + cb2[k])
-        v = (mm(h2k, cwv[k].T) + cbv[k])[:, 0]
+        v = (hm(h2k, cwv[k].T) + cbv[k])[:, 0]
         diff = v - ret[:, k]
         vf = vf + (diff * diff).sum()
         g_v = (2.0 * vf_coef / B) * diff
-        gc["w.2"].append(mm(g_v[None], h2k))
+        gc["w.2"].append(hm(g_v[None], h2k))
         gc["b.2"].append(g_v.sum(0, keepdim=True))
-        g_h2k = mm(g_v[:, None], cwv[k]) * (h2k > 0)
+        g_h2k = hm(g_v[:, None], cwv[k]) * (h2k > 0)
         gc["w.1"].append(mm(g_h2k.T, h1k))
         gc["b.1"].append(g_h2k.sum(0))
         g_h1k = mm(g_h2k, cw2[k]) * (h1k > 0)
@@ -352,6 +370,47 @@ def _launch(flat, layout: GradLayout, obs, act, logp_old, adv, ret, lam,
     return grad, aux
 
 
+ANY_LAUNCHES = ("row kernel", "weight-gradient products", "reduce")
+
+
+def any_launches(flat, layout: GradLayout, obs, act, logp_old, adv, ret,
+                 lam, resc, *, eps_clip: float = 0.2, vf_coef: float = 0.25,
+                 bf16: bool = False, skip: int = 0):
+    """The generic form's three launches (:data:`ANY_LAUNCHES`), each as a
+    function that runs it alone on the scratch of one whole launch made
+    here at the same arguments, for timing them apart; ``skip`` leaves the
+    row kernel's stages out (bit s: stage A, B, C, D; its results then mean
+    nothing). Not counted as launches of the kernel; used by nothing on the
+    main path."""
+    B, D = obs.shape
+    lib = kernels.library()
+    grad = torch.empty(layout.size, device=flat.device)
+    aux = torch.empty(AUX_WIDTH, device=flat.device)
+    dims = (B, D, layout.H, layout.H2, layout.A, layout.K)
+    n_scratch = lib.fsrl_ppo_grad_any_scratch_floats(*dims)
+    scratch = torch.empty(n_scratch, device=flat.device)
+    tensors = (flat, obs, act, logp_old, adv, ret, lam, resc, grad, aux,
+               scratch)
+    ptrs = [x.data_ptr() for x in tensors]
+
+    def one(which):
+        def run(keep=tensors):   # the launches' memory lives with them
+            with torch.cuda.device(flat.device):
+                rc = lib.fsrl_ppo_grad_any_one(
+                    *ptrs, *dims, int(bf16), n_scratch, 1.0 - eps_clip,
+                    1.0 + eps_clip, vf_coef, kernels.stream_ptr(), which,
+                    skip if which == 0 else 0)
+            kernels.check(rc, f"generic K2 launch {which}")
+        return run
+    for which in range(3):
+        with torch.cuda.device(flat.device):
+            kernels.check(lib.fsrl_ppo_grad_any_one(
+                *ptrs, *dims, int(bf16), n_scratch, 1.0 - eps_clip,
+                1.0 + eps_clip, vf_coef, kernels.stream_ptr(), which, 0),
+                f"generic K2 launch {which}")
+    return [one(which) for which in range(3)]
+
+
 def reduce_launch(layout: GradLayout, B: int, device="cuda"):
     """The form's last launch alone (the fixed-order sum of the block or
     row-slice partials) on scratch of the size a batch of ``B`` rows takes,
@@ -379,14 +438,17 @@ def reduce_launch(layout: GradLayout, B: int, device="cuda"):
     return grad, aux
 
 
-def retake_counts() -> tuple[int, int]:
-    """Pre-activations the f32 kernel took again in float64 (first layer,
+def retake_counts(form: str = "tuned") -> tuple[int, int]:
+    """Pre-activations the f32 kernel of ``form`` ("tuned" or "any", as
+    :func:`kernel_form` names them) took again in float64 (first layer,
     second layer) since the last call, which clears them; synchronises the
     card. For the card checks, used by nothing on the main path."""
     import ctypes
     out = (ctypes.c_ulonglong * 2)()
-    kernels.check(kernels.library().fsrl_ppo_grad_f32_retakes(out),
-                  "f32 retake count")
+    lib = kernels.library()
+    fn = (lib.fsrl_ppo_grad_f32_retakes if form == "tuned"
+          else lib.fsrl_ppo_grad_any_retakes)
+    kernels.check(fn(out), f"f32 retake count ({form})")
     return int(out[0]), int(out[1])
 
 

@@ -124,8 +124,14 @@ def library() -> ctypes.CDLL:
     lib.fsrl_ppo_grad_any_scratch_floats.restype = ctypes.c_long
     lib.fsrl_ppo_grad_any_reduce_only.argtypes = [P, P, P] + [I] * 6 + [P]
     lib.fsrl_ppo_grad_any_reduce_only.restype = I
-    lib.fsrl_ppo_grad_any_splits.argtypes = [I]
-    lib.fsrl_ppo_grad_any_smem_bytes.argtypes = []
+    lib.fsrl_ppo_grad_any_one.argtypes = [P] * 11 + [I] * 7 + [
+        ctypes.c_long, F, F, F, P, I, I]
+    lib.fsrl_ppo_grad_any_one.restype = I
+    lib.fsrl_ppo_grad_any_splits.argtypes = [I] * 7
+    lib.fsrl_ppo_grad_any_row_blocks.argtypes = [I] * 7
+    lib.fsrl_ppo_grad_any_retakes.argtypes = [P]
+    lib.fsrl_ppo_grad_any_retakes.restype = I
+    lib.fsrl_ppo_grad_any_smem_bytes.argtypes = [I]
     lib.fsrl_ppo_grad_any_smem_bytes.restype = ctypes.c_long
     lib.fsrl_ppo_grad_f32_retakes.argtypes = [P]
     lib.fsrl_ppo_grad_f32_retakes.restype = I

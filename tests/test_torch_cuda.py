@@ -214,11 +214,14 @@ def test_fused_grad_f32_kernel_at_envelope_edges(cuda, B, D, A, K):
 
 # the generic form (csrc/fused_ppo_grad_any.cu): (B, D, H1, H2, A, K) at
 # hidden (256, 256) and (64, 64), uneven widths, above 32 actions at the
-# default width, the most value channels, K 1 and D 1, ragged row counts
+# default width, the most value channels, K 1 and D 1, ragged row counts,
+# rows below one 64-row block of the row kernel and one row past it
 ANY_SHAPES = [(4096, 9, 256, 256, 2, 2), (4096, 9, 64, 64, 2, 2),
               (4096, 9, 128, 128, 33, 2), (256, 348, 128, 128, 40, 2),
               (4096, 21, 256, 128, 3, 3), (1000, 17, 32, 48, 33, 6),
-              (100, 1, 16, 16, 1, 1), (1000, 105, 512, 512, 8, 2)]
+              (100, 1, 16, 16, 1, 1), (1000, 105, 512, 512, 8, 2),
+              (1, 9, 256, 256, 2, 2), (63, 9, 256, 256, 2, 2),
+              (65, 348, 128, 128, 40, 2), (63, 105, 512, 512, 8, 2)]
 
 
 @pytest.mark.parametrize("B,D,H1,H2,A,K", ANY_SHAPES)
@@ -243,10 +246,24 @@ def test_fused_grad_f32_kernel_on_natural_rows(cuda, seed):
     gradient tensor must be no farther from it than the plain f32 version
     plus 1e-5 of its largest entry, and each aux entry within the bound of
     :func:`_assert_aux_no_farther`."""
-    from fsrl_torch.ops.fused_ppo_grad import ppo_grad_plain, ppo_grad_rows
+    _check_natural_rows(cuda, seed)
+
+
+@pytest.mark.parametrize("seed", [1])
+def test_fused_grad_any_f32_kernel_on_natural_rows(cuda, seed):
+    """The generic form's f32 products (three TF32 products, float64
+    retakes near a kink) at hidden (256, 256) on natural rows, held as the
+    tuned f32 kernel is."""
+    _check_natural_rows(cuda, seed, hidden=(256, 256), form="any")
+
+
+def _check_natural_rows(cuda, seed, hidden=(128, 128), form="tuned"):
+    from fsrl_torch.ops.fused_ppo_grad import (kernel_form, ppo_grad_plain,
+                                               ppo_grad_rows)
     args = _grad_case(cuda, 32768, 9, 2, 2, bf16=False, seed=seed,
-                      off_kinks=False)
+                      off_kinks=False, hidden=hidden)
     layout = args[1]
+    assert kernel_form(layout) == form
     kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=False)
     gk, ak = ppo_grad_rows(*args, **kw)
     gp, ap = ppo_grad_plain(*args, **kw)
