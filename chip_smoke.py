@@ -1705,7 +1705,10 @@ def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2,
         return None
     ms = time_ms(lambda: ppo_grad_rows(*args, **kw))
     plain_ms = time_ms(lambda: ppo_grad_plain(*args, **kw))
-    reduce_ms = time_ms(lambda: reduce_launch(layout, B))
+    # the generic form's launches are timed apart in phase_k2_any_split
+    reduce = "" if generic else (
+        f" (of which the reduce launch "
+        f"{time_ms(lambda: reduce_launch(layout, B)):.4f})")
     H1, H2 = layout.H, layout.H2
     outs = [A] + [1] * K                    # head widths of the towers
     mm_flop = B * sum(6 * H1 * H2 + 4 * D * H1 for _ in outs)
@@ -1720,9 +1723,9 @@ def _k2_case(K: int, bf16: bool, B: int = 32768, D: int = 9, A: int = 2,
     bound_ms = 1e3 * max(ops_s, nbytes / HBM_BYTES_PER_S)
     bound_by = "operations" if ops_s > nbytes / HBM_BYTES_PER_S else "bytes"
     extra = "" if bf16 else f", {1e3 * fp32_s:.4f} on the FP32 pipes alone"
-    print(f"[{tag}] kernel_ms {ms:.4f} (of which the reduce launch "
-          f"{reduce_ms:.4f}) plain_ms {plain_ms:.4f} bound_ms "
-          f"{bound_ms:.4f}{extra} ({flops} FLOP, {nbytes} bytes)", flush=True)
+    print(f"[{tag}] kernel_ms {ms:.4f}{reduce} plain_ms {plain_ms:.4f} "
+          f"bound_ms {bound_ms:.4f}{extra} ({flops} FLOP, {nbytes} bytes)",
+          flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1898,18 +1901,11 @@ def phase_k2_any():
     return out
 
 
-# The row kernel's stages timed alone: the skip mask that leaves all but
-# one stage out (bit s: stage A, B, C, D), and all of them
-ANY_STAGES = {"A": 14, "B": 13, "C": 11, "D": 7, "none": 15}
-
-
 def phase_k2_any_split(k2_any: dict) -> dict:
     """Each of the generic form's three launches alone (``any_launches``),
     timed as the whole form is, at the timed cases of ``K2_ANY_CASES``, with
     its share of the three launches' sum and the whole form's time beside
-    it; then the row kernel with one stage alone (``ANY_STAGES``; its
-    results mean nothing then), which says which stage holds its time.
-    Returns the launches' and stages' ms by the case's key."""
+    it. Returns the launches' ms by the case's key."""
     from fsrl_torch.ops.fused_ppo_grad import ANY_LAUNCHES, any_launches
     out = {}
     for bf16 in (True, False):
@@ -1927,14 +1923,7 @@ def phase_k2_any_split(k2_any: dict) -> dict:
                 for name, t in zip(ANY_LAUNCHES, ms))
                 + f"; sum {sum(ms):.4f}, the whole form {whole:.4f} ms",
                 flush=True)
-            stages = {name: time_ms(any_launches(
-                *args, eps_clip=0.2, vf_coef=0.25, bf16=bf16, skip=skip)[0])
-                for name, skip in ANY_STAGES.items()}
-            print(f"[{tag}] row kernel with one stage alone: " + ", ".join(
-                f"{name} {t:.4f} ms" for name, t in stages.items()),
-                flush=True)
-            out[D, H1, H2, A, B, bf16] = dict(
-                zip(ANY_LAUNCHES, ms), row_stages_alone=stages)
+            out[D, H1, H2, A, B, bf16] = dict(zip(ANY_LAUNCHES, ms))
     return out
 
 
@@ -3012,9 +3001,210 @@ def main() -> int:
     return 0
 
 
+# ------------------------------------------------ readings of the generic K2
+# Readings of K2's generic form that PERF.md compares with another tree's
+# form (not run by main()):
+#   python3 chip_smoke.py --k2-any-readings times <label>
+#   python3 chip_smoke.py --k2-any-readings bf16 <file> [--against]
+#   python3 chip_smoke.py --k2-any-readings host <label>
+# To read another tree (a git archive of a parent commit), copy this script
+# into its root under another name and run it there: it imports the
+# fsrl_torch beside it.
+
+def reading_times(label: str):
+    """The three timed shapes of ``K2_ANY_CASES`` in both dtypes on rows
+    clear of the kinks (``_k2_case``), then f32 at the host minibatch on
+    natural rows: its time and its float64 retakes a launch."""
+    from fsrl_torch.ops import fused_ppo_grad as fpg
+    for bf16 in (True, False):
+        for D, H1, H2, A, K, B, timed in K2_ANY_CASES:
+            if timed:
+                r = _k2_case(K, bf16, B=B, D=D, A=A, hidden=(H1, H2))
+                print(f"[reading {label}] ({D}, {H1}, {H2}, {A}, {K}, {B}) "
+                      f"{'bf16' if bf16 else 'f32'} ms {r['ms']:.4f}",
+                      flush=True)
+    kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=False)
+    for seed in (0, 1):
+        args = _k2_inputs(2, False, 256, 348, 40, off_kinks=False, seed=seed,
+                          hidden=(128, 128))
+        try:
+            fpg.retake_counts("any")
+            fpg.ppo_grad_rows(*args, **kw)
+            retakes = fpg.retake_counts("any")
+        except TypeError:   # a form without float64 retakes
+            retakes = None
+        ms = time_ms(lambda: fpg.ppo_grad_rows(*args, **kw))
+        print(f"[reading {label}] (348, 128, 128, 40, 2, 256) f32 natural "
+              f"rows seed {seed} ms {ms:.4f}, retakes a launch {retakes}",
+              flush=True)
+
+
+def _plain64_bf16(args, **kw):
+    """The bf16 plain version in float64: the same operands rounded to
+    bf16, every product and sum in float64."""
+    import torch
+    from fsrl_torch.ops import fused_ppo_grad as fpg
+    keep = fpg._bf
+    fpg._bf = lambda x, bf16: x.to(torch.bfloat16).to(x.dtype) if bf16 else x
+    try:
+        return _plain64(args, **kw)
+    finally:
+        fpg._bf = keep
+
+
+def reading_bf16(path: str, against: bool = False):
+    """The bf16 form at (348, 128, 128, 40, 2, 32768), where its error is
+    largest: each tensor's error against the plain version and against the
+    float64 evaluation of the bf16 function, on natural rows and on rows
+    drawn clear of the (unrounded) kinks; then, from the form's scratch, the
+    entries of h1 whose bf16 value differs from the plain version's and the
+    float64 evaluation's, and the ReLU sides of h2 (g_h2 != 0) that differ
+    from float64's. Saves the inputs and gradients to ``path``; with
+    ``against``, reads them and holds this tree's form to them instead."""
+    import torch
+    from fsrl_torch.ops import fused_ppo_grad as fpg, kernels
+    kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=True)
+    D, A, K, B, H = 348, 40, 2, 32768, 128
+    if against:
+        d = torch.load(path, weights_only=False)
+        g, _ = fpg.ppo_grad_rows(*d["args"], **kw)
+        for ref in ("plain", "float64", "kernel"):
+            e = _tensor_errs(d["args"][1], g, d[ref].to(g.device))
+            print(f"[reading bf16] this form vs the saved {ref}: " + ", ".join(
+                f"{n} {v:.3e}" for n, v in e.items()), flush=True)
+        return
+    args = _k2_inputs(K, True, B, D, A, hidden=(H, H))
+    flat, layout, obs = args[:3]
+    gen = torch.Generator(device="cuda").manual_seed(K)
+    clear = fpg.redraw_near_kinks(flat, layout, obs, lambda n: torch.randn(
+        n, D, device="cuda", generator=gen))
+    even = torch.arange(B, device="cuda") % 2 == 0
+    logp = fpg.policy_logp(flat, layout, clear, args[3], bf16=True)
+    args_clear = (flat, layout, clear, args[3],
+                  torch.where(even, logp, args[4]).contiguous()) + args[5:]
+    for rows, a in (("natural", args), ("clear", args_clear)):
+        gk, gp, g64 = (fpg.ppo_grad_rows(*a, **kw)[0],
+                       fpg.ppo_grad_plain(*a, **kw)[0], _plain64_bf16(a, **kw)[0])
+        e, ek, ep = (_tensor_errs(layout, gk, gp),
+                     _tensor_errs(layout, gk, g64),
+                     _tensor_errs(layout, gp, g64))
+        for n in e:
+            print(f"[reading bf16 {rows}] {n}: kernel vs plain {e[n]:.3e}; "
+                  f"vs float64 kernel {ek[n]:.3e}, plain {ep[n]:.3e}",
+                  flush=True)
+        if rows == "natural":
+            torch.save(dict(args=args, kernel=gk.cpu(), plain=gp.cpu(),
+                            float64=g64.cpu()), path)
+    # h1 and g_h2 from the scratch of one launch (its layout: carve() in
+    # csrc/fused_ppo_grad_any.cu)
+    lib = kernels.library()
+    dims = (B, D, H, H, A, K)
+    n = lib.fsrl_ppo_grad_any_scratch_floats(*dims)
+    scratch = torch.zeros(n, device="cuda")
+    grad, aux = torch.empty(layout.size, device="cuda"), torch.empty(
+        8, device="cuda")
+    ts = args[:1] + args[2:] + (grad, aux)
+    kernels.check(lib.fsrl_ppo_grad_any(
+        *(x.data_ptr() for x in ts), scratch.data_ptr(), *dims, 1, n, 0.8,
+        1.2, 0.25, kernels.stream_ptr()), "generic K2")
+    torch.cuda.synchronize()
+    T = K + 1
+    G = max(lib.fsrl_ppo_grad_any_row_blocks(*dims, b) for b in (0, 1))
+    S = max(lib.fsrl_ppo_grad_any_splits(*dims, b) for b in (0, 1))
+    sizes = [8 * G * T * (2 * H + A * H + 2 * A + 8),
+             4 * S * T * (H * D + H * H), 4 * T * B * (2 * A + 2 + K)]
+    sizes += [4 * T * B * H] * 4
+    offs = [sum((x + 255) // 256 * 256 for x in sizes[:i])
+            for i in range(len(sizes) + 1)]
+    if offs[-1] // 4 != n:
+        fail("the generic form's scratch layout changed")
+    part = lambda i: scratch.view(torch.uint8)[offs[i]: offs[i] + 2 * T * B
+                                               * H].view(torch.bfloat16) \
+        .view(T, B, H).double()
+    h1k, g2k = part(4), part(5)
+    p = layout.views(flat)
+    rb = lambda x: x.to(torch.bfloat16).to(x.dtype)
+    towers = [tuple(p[f"actor.trunk.layers.{i}.{w}"] for i in (0, 1)
+                    for w in ("weight", "bias"))]
+    towers += [(p["critics.w.0"][k], p["critics.b.0"][k], p["critics.w.1"][k],
+                p["critics.b.1"][k]) for k in range(K)]
+    for t, (W1, b1, W2, b2) in enumerate(towers):
+        h1p = rb(torch.relu(rb(obs) @ rb(W1).T + b1)).double()
+        W1, b1, W2, b2 = (v.double() for v in (W1, b1, W2, b2))
+        h1e = rb(torch.relu(rb(obs.double()) @ rb(W1).T + b1))
+        z2e = h1e @ rb(W2).T + b2
+        flip = (g2k[t] != 0) != (z2e > 0)
+        own = (g2k[t] != 0) != (h1k[t] @ rb(W2).T + b2 > 0)
+        differs = (h1k[t] != h1e).any(1)
+        print(f"[reading bf16 h1] tower {t}: entries of h1 (of {B * H}) "
+              f"whose bf16 value differs, kernel / plain "
+              f"{int((h1k[t] != h1p).sum())}, kernel / float64 "
+              f"{int((h1k[t] != h1e).sum())}, plain / float64 "
+              f"{int((h1p != h1e).sum())}; ReLU sides of h2 unlike "
+              f"float64's {int(flip.sum())} (|z2| at most "
+              f"{float(z2e[flip].abs().max()) if flip.any() else 0.0:.2e}; "
+              f"in rows whose h1 differs {int((flip & differs[:, None]).sum())}"
+              f"), unlike a float64 product of the kernel's own h1 "
+              f"{int(own.sum())}", flush=True)
+
+
+def reading_host(label: str):
+    """One host a40 PPO-Lag update (78 minibatches of 256 rows, repeat 4:
+    312 launches of the generic form) on one collected segment, bf16 then
+    f32: six updates on the host clock (the first a warm-up), then one
+    under ``torch.profiler``: device time, kernel launches, the row
+    kernel's device time a launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fsrl_torch.algos.ppo_lag import PPOLag
+    from fsrl_torch.trainer.host_trainer import HostOnpolicyTrainer
+    n_mb = HOST_ENVS * HOST_T // 256
+    for dtype in (torch.bfloat16, None):
+        tag = f"reading host {label} {'bf16' if dtype else 'f32'}"
+        venv = _standin_venv(HOST_ENVS, HOST_A40)
+        algo = PPOLag(venv.observation_size, venv.action_size,
+                      cost_limit=25.0, lagrangian_pid=(0.05, 0.0005, 0.1),
+                      repeat=4, n_minibatches=n_mb, episode_len=HOST_EP,
+                      compute_dtype=dtype)
+        tr = HostOnpolicyTrainer(algo, venv, epochs=1,
+                                 step_per_epoch=HOST_ENVS * HOST_T,
+                                 steps_per_collect=HOST_T,
+                                 episode_per_test=HOST_ENVS, cost_limit=25.0,
+                                 seed=0, verbose=False)
+        seg = tr.collect_segment()
+
+        def update():
+            tr.state, _ = tr.algo.update(tr.state, *seg, tr.generator)
+        times = [_timed(update)[1] for _ in range(6)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            update()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        dev = lambda e: (getattr(e, "self_device_time_total", None)
+                         or getattr(e, "self_cuda_time_total", 0))
+        rows = [e for e in ev if "row_kernel" in e.key]
+        print(f"[{tag}] update ms {[round(x, 2) for x in times]}, median of "
+              f"the last 5 {statistics.median(times[1:]):.2f}; profiled: "
+              f"device time {sum(dev(e) for e in ev) / 1e3:.2f} ms, "
+              f"cudaLaunchKernel {sum(e.count for e in ev if e.key == 'cudaLaunchKernel')}"
+              + (f", row kernel {dev(rows[0]) / rows[0].count:.1f} us a "
+                 f"launch" if rows else ""), flush=True)
+        venv.close()
+
+
 if __name__ == "__main__":
     os.chdir(ROOT)
     if sys.argv[1:2] == ["--dp-rank"]:
         r, w, port, lib, out = sys.argv[2:7]
         sys.exit(dp_rank_main(int(r), int(w), port, lib, out))
+    if sys.argv[1:2] == ["--k2-any-readings"]:
+        import torch
+        if not torch.cuda.is_available():
+            fail("no CUDA device")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mode, arg = sys.argv[2:4]
+        {"times": reading_times, "host": reading_host}.get(
+            mode, lambda a: reading_bf16(a, "--against" in sys.argv))(arg)
+        sys.exit(0)
     sys.exit(main())

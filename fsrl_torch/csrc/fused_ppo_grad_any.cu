@@ -643,7 +643,6 @@ struct RowArgs {
   Layout L;
   int B;
   float clip_lo, clip_hi, gv_scale, a_log_sqrt_2pi;
-  int skip;   // stages left out (bit s: stage A, B, C, D), for timing only
   int h2_smem;   // the row block's h2 in dynamic shared memory
 };
 
@@ -1078,29 +1077,56 @@ __device__ void stage_d(const Ctx<BF>& c, int n0) {
                    c.nr, c.H1, c.red, c.pd);
 }
 
-// The largest row norm of a row-major (n x len) weight, over the block: a
-// warp four rows at a time, its lanes along the rows.
-__device__ float max_row_norm(const float* w, int n, int len, float* stage) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float most = 0.f;
-  for (int r = warp; r < n; r += 4 * NW) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = lane; k < len; k += 32) {
+// The sums of squares of the rows r + u NW (u < RN, those below n) of a
+// row-major source of rows of len floats, in every lane of the warp: its
+// lanes along the rows, RN x KB loads of a lane issued before their sums,
+// so that a row's length takes len / (32 KB) trips to L2, not len / 32.
+template <int RN>
+__device__ __forceinline__ void rows_sumsq(const float* src, int r, int n,
+                                           int len, float (&s)[RN]) {
+  constexpr int KB = 4;
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (r + u * NW < n) {
-          const float v = w[(long)(r + u * NW) * len + k];
-          s[u] = fmaf(v, v, s[u]);
-        }
+  for (int u = 0; u < RN; ++u) s[u] = 0.f;
+  for (int k0 = lane; k0 < len; k0 += 32 * KB) {
+    float v[RN][KB];
+#pragma unroll
+    for (int u = 0; u < RN; ++u) {
+#pragma unroll
+      for (int j = 0; j < KB; ++j) {
+        const int k = k0 + 32 * j;
+        v[u][j] = r + u * NW < n && k < len
+                      ? src[(long)(r + u * NW) * len + k]
+                      : 0.f;
       }
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < RN; ++u) {
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        s[u] += __shfl_xor_sync(FULL, s[u], o);
-      most = fmaxf(most, s[u]);
+      for (int j = 0; j < KB; ++j) s[u] = fmaf(v[u][j], v[u][j], s[u]);
     }
+  }
+#pragma unroll
+  for (int u = 0; u < RN; ++u) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s[u] += __shfl_xor_sync(FULL, s[u], o);
+  }
+}
+
+// Rows a warp takes at once in rows_sumsq: the weights' rows at the start of
+// the kernel, x's rows in each row block (where more of them spill).
+constexpr int WRN = 16, XRN = 4;
+
+// The largest row norm of a row-major (n x len) weight, over the block.
+__device__ float max_row_norm(const float* w, int n, int len, float* stage) {
+  constexpr int RN = WRN;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float most = 0.f;
+  for (int r = warp; r < n; r += RN * NW) {
+    float s[RN];
+    rows_sumsq<RN>(w, r, n, len, s);
+#pragma unroll
+    for (int u = 0; u < RN; ++u) most = fmaxf(most, s[u]);
   }
   if (lane == 0) stage[warp] = most;
   __syncthreads();
@@ -1195,95 +1221,80 @@ __global__ void __launch_bounds__(NT)
     }
     __syncthreads();
     if constexpr (!BF) {
-      // the rows' norms of x, a warp four rows at a time
-      for (int r = warp; r < BR; r += 4 * NW) {
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int d = lane; d < c.D; d += 32) {
+      // the rows' norms of x
+      for (int r = warp; r < BR; r += XRN * NW) {
+        float s[XRN];
+        rows_sumsq<XRN>(p.obs + c.r0 * c.D, r, c.nr, c.D, s);
+        if (lane == 0) {
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int rr = r + u * NW;
-            if (rr < c.nr) {
-              const float v = p.obs[(c.r0 + rr) * c.D + d];
-              s[u] = fmaf(v, v, s[u]);
+          for (int u = 0; u < XRN; ++u) {
+            if (r + u * NW < BR) {
+              xn[r + u * NW] = sqrtf(s[u]);
+              hn[r + u * NW] = 0.f;
             }
           }
         }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1)
-            s[u] += __shfl_xor_sync(FULL, s[u], o);
-          if (lane == 0 && r + u * NW < BR) {
-            xn[r + u * NW] = sqrtf(s[u]);
-            hn[r + u * NW] = 0.f;
-          }
-        }
       }
       __syncthreads();
     }
-    if (!(p.skip & 1))
-      for (int n0 = 0; n0 < c.H1; n0 += NCR) stage_a<BF, NCR>(c, n0);
+    for (int n0 = 0; n0 < c.H1; n0 += NCR) stage_a<BF, NCR>(c, n0);
     __syncthreads();
-    if (!(p.skip & 2))
-      for (int n0 = 0; n0 < c.H2; n0 += NCR) {
-        if (many)
-          stage_b<BF, NCR, false>(c, n0);
-        else
-          stage_b<BF, NCR, true>(c, n0);
-      }
+    for (int n0 = 0; n0 < c.H2; n0 += NCR) {
+      if (many)
+        stage_b<BF, NCR, false>(c, n0);
+      else
+        stage_b<BF, NCR, true>(c, n0);
+    }
     __syncthreads();
-    if (!(p.skip & 4)) {
-      if (many) {
-        for (int a0 = 0; a0 < c.O; a0 += NCH) heads_mma<BF, NCH>(c, a0);
-        __syncthreads();
-      }
-      // C: the row loss (heads from hs, or from rv at many actions), the row
-      // values' sums (a warp a column, its lanes along the rows), g_h2
-      if ((int)threadIdx.x < c.nr) {
-        const long r = c.r0 + threadIdx.x;
-        float* row = c.rv + r * c.W;
-        const float* head = many ? row : hs + threadIdx.x * OSMALL;
-        if constexpr (BF)
-          row_loss<float>(p, t, r, head, row);
-        else
-          row_loss<double>(p, t, r, head, row);
-      }
-      __syncthreads();
-      const int heads = L.rv_heads(t);
-      for (int k0 = warp; k0 < L.rv_cols(t); k0 += 4 * NW) {
-        double s[4] = {0.0, 0.0, 0.0, 0.0};
-        for (int r = lane; r < c.nr; r += 32) {
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            if (k0 + u * NW < L.rv_cols(t))
-              s[u] += (double)c.rv[(c.r0 + r) * c.W + k0 + u * NW];
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int k = k0 + u * NW;
-          s[u] = warp_sum(s[u]);
-          if (lane == 0 && k < L.rv_cols(t))
-            c.pd[k < heads ? L.pd_hb() + k : L.pd_aux() + (k - heads)] += s[u];
-        }
-      }
-      if (!many) {
-        for (int e = threadIdx.x; e < BR * OSMALL; e += NT) {
-          const int r = e / OSMALL, a = e % OSMALL;
-          gs[e] = r < c.nr && a < c.O ? c.rv[(c.r0 + r) * c.W + a] : 0.f;
-        }
-        __syncthreads();
-        for (int n0 = 0; n0 < c.ld2; n0 += 64)
-          stage_c_cols<BF, MANY ? 1 : OSMALL>(c, n0, pc, pw);
-      } else {
-        for (int n0 = 0; n0 < c.H2; n0 += NCM) g2_mma<BF, NCM>(c, n0);
-        for (int m0 = 0; m0 < c.O; m0 += BR)
-          for (int n0 = 0; n0 < c.H2; n0 += NCH)
-            head_grad_mma<BF, NCH>(c, m0, n0);
-      }
+    if (many) {
+      for (int a0 = 0; a0 < c.O; a0 += NCH) heads_mma<BF, NCH>(c, a0);
       __syncthreads();
     }
-    if (!(p.skip & 8))
-      for (int n0 = 0; n0 < c.H1; n0 += NCR) stage_d<BF, NCR>(c, n0);
+    // C: the row loss (heads from hs, or from rv at many actions), the row
+    // values' sums (a warp a column, its lanes along the rows), g_h2
+    if ((int)threadIdx.x < c.nr) {
+      const long r = c.r0 + threadIdx.x;
+      float* row = c.rv + r * c.W;
+      const float* head = many ? row : hs + threadIdx.x * OSMALL;
+      if constexpr (BF)
+        row_loss<float>(p, t, r, head, row);
+      else
+        row_loss<double>(p, t, r, head, row);
+    }
+    __syncthreads();
+    const int heads = L.rv_heads(t);
+    for (int k0 = warp; k0 < L.rv_cols(t); k0 += 4 * NW) {
+      double s[4] = {0.0, 0.0, 0.0, 0.0};
+      for (int r = lane; r < c.nr; r += 32) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (k0 + u * NW < L.rv_cols(t))
+            s[u] += (double)c.rv[(c.r0 + r) * c.W + k0 + u * NW];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = k0 + u * NW;
+        s[u] = warp_sum(s[u]);
+        if (lane == 0 && k < L.rv_cols(t))
+          c.pd[k < heads ? L.pd_hb() + k : L.pd_aux() + (k - heads)] += s[u];
+      }
+    }
+    if (!many) {
+      for (int e = threadIdx.x; e < BR * OSMALL; e += NT) {
+        const int r = e / OSMALL, a = e % OSMALL;
+        gs[e] = r < c.nr && a < c.O ? c.rv[(c.r0 + r) * c.W + a] : 0.f;
+      }
+      __syncthreads();
+      for (int n0 = 0; n0 < c.ld2; n0 += 64)
+        stage_c_cols<BF, MANY ? 1 : OSMALL>(c, n0, pc, pw);
+    } else {
+      for (int n0 = 0; n0 < c.H2; n0 += NCM) g2_mma<BF, NCM>(c, n0);
+      for (int m0 = 0; m0 < c.O; m0 += BR)
+        for (int n0 = 0; n0 < c.H2; n0 += NCH)
+          head_grad_mma<BF, NCH>(c, m0, n0);
+    }
+    __syncthreads();
+    for (int n0 = 0; n0 < c.H1; n0 += NCR) stage_d<BF, NCR>(c, n0);
   }
 }
 
@@ -1597,13 +1608,13 @@ long scratch_floats(int B, const Layout& L) {
 
 // which: -1 every launch; 0, 1, 2 only the row kernel, the product kernel
 // or the reduce, on scratch that an earlier launch filled (for timing them
-// apart); skip: the row kernel's stages to leave out (for timing only).
+// apart).
 cudaError_t run(const float* params, const float* obs, const float* act,
                 const float* logp_old, const float* adv, const float* ret,
                 const float* lam, const float* resc, float* grad, float* aux,
                 float* scratch, int B, const Layout& L, bool bf16,
                 float clip_lo, float clip_hi, float vf_coef, cudaStream_t s,
-                int which, int skip = 0) {
+                int which) {
   const int T = L.K + 1;
   Scratch sc;
   carve(reinterpret_cast<char*>(scratch), B, L, &sc);
@@ -1614,7 +1625,7 @@ cudaError_t run(const float* params, const float* obs, const float* act,
                      sc.h1, sc.g2, sc.g1, sc.h2, sc.rv, sc.pd, L, B,
                      clip_lo, clip_hi,
                      (float)(2.0 * (double)vf_coef / (double)B),
-                     (float)(L.A * 0.91893853320467274178), skip,
+                     (float)(L.A * 0.91893853320467274178),
                      (int)(h2_smem_bytes(L, bf16) > 0)};
     const dim3 grid(G, T);
     const size_t dyn = (size_t)h2_smem_bytes(L, bf16);
@@ -1723,8 +1734,7 @@ extern "C" int fsrl_ppo_grad_any(const float* params, const float* obs,
 // One launch of the form alone (which: 0 the row kernel, 1 the product
 // kernel, 2 the reduce) with the arguments of fsrl_ppo_grad_any, on scratch
 // that a whole launch at the same shape filled: for timing the launches
-// apart. skip: the row kernel's stages to leave out (bit s: stage A, B, C,
-// D; the results then mean nothing), for timing them.
+// apart.
 extern "C" int fsrl_ppo_grad_any_one(const float* params, const float* obs,
                                      const float* act, const float* logp_old,
                                      const float* adv, const float* ret,
@@ -1733,32 +1743,15 @@ extern "C" int fsrl_ppo_grad_any_one(const float* params, const float* obs,
                                      int B, int D, int H1, int H2, int A,
                                      int K, int bf16, long scratch_n,
                                      float clip_lo, float clip_hi,
-                                     float vf_coef, void* stream, int which,
-                                     int skip) {
+                                     float vf_coef, void* stream,
+                                     int which) {
   if (!valid(B, D, H1, H2, A, K) || which < 0 || which > 2)
     return (int)cudaErrorInvalidValue;
   const Layout L{D, H1, H2, A, K};
   if (scratch_n < scratch_floats(B, L)) return (int)cudaErrorInvalidValue;
   return (int)run(params, obs, act, logp_old, adv, ret, lam, resc, grad, aux,
                   scratch, B, L, bf16 != 0, clip_lo, clip_hi, vf_coef,
-                  (cudaStream_t)stream, which, skip);
-}
-
-// The last launch alone, on partials already in scratch (for timing it).
-extern "C" int fsrl_ppo_grad_any_reduce_only(const float* scratch,
-                                             float* grad, float* aux, int B,
-                                             int D, int H1, int H2, int A,
-                                             int K, void* stream) {
-  if (!valid(B, D, H1, H2, A, K)) return (int)cudaErrorInvalidValue;
-  const Layout L{D, H1, H2, A, K};
-  Scratch sc;
-  carve(reinterpret_cast<char*>(const_cast<float*>(scratch)), B, L, &sc);
-  const RedArgs rd{sc.pd, sc.pw, grad, aux, L, row_grid(B, L, true),
-                   splits(B, L, true)};
-  const long n = (long)(K + 1) * L.tower_size(0);
-  reduce_kernel<<<(unsigned)(cdiv(n, NT_RED) + 1), NT_RED, 0,
-                  (cudaStream_t)stream>>>(rd);
-  return (int)cudaGetLastError();
+                  (cudaStream_t)stream, which);
 }
 
 // The f32 form's float64 retakes since the last call ([0] first layer,

@@ -375,13 +375,11 @@ ANY_LAUNCHES = ("row kernel", "weight-gradient products", "reduce")
 
 def any_launches(flat, layout: GradLayout, obs, act, logp_old, adv, ret,
                  lam, resc, *, eps_clip: float = 0.2, vf_coef: float = 0.25,
-                 bf16: bool = False, skip: int = 0):
+                 bf16: bool = False):
     """The generic form's three launches (:data:`ANY_LAUNCHES`), each as a
     function that runs it alone on the scratch of one whole launch made
-    here at the same arguments, for timing them apart; ``skip`` leaves the
-    row kernel's stages out (bit s: stage A, B, C, D; its results then mean
-    nothing). Not counted as launches of the kernel; used by nothing on the
-    main path."""
+    here at the same arguments, for timing them apart. Not counted as
+    launches of the kernel; used by nothing on the main path."""
     B, D = obs.shape
     lib = kernels.library()
     grad = torch.empty(layout.size, device=flat.device)
@@ -398,42 +396,35 @@ def any_launches(flat, layout: GradLayout, obs, act, logp_old, adv, ret,
             with torch.cuda.device(flat.device):
                 rc = lib.fsrl_ppo_grad_any_one(
                     *ptrs, *dims, int(bf16), n_scratch, 1.0 - eps_clip,
-                    1.0 + eps_clip, vf_coef, kernels.stream_ptr(), which,
-                    skip if which == 0 else 0)
+                    1.0 + eps_clip, vf_coef, kernels.stream_ptr(), which)
             kernels.check(rc, f"generic K2 launch {which}")
         return run
     for which in range(3):
         with torch.cuda.device(flat.device):
             kernels.check(lib.fsrl_ppo_grad_any_one(
                 *ptrs, *dims, int(bf16), n_scratch, 1.0 - eps_clip,
-                1.0 + eps_clip, vf_coef, kernels.stream_ptr(), which, 0),
+                1.0 + eps_clip, vf_coef, kernels.stream_ptr(), which),
                 f"generic K2 launch {which}")
     return [one(which) for which in range(3)]
 
 
 def reduce_launch(layout: GradLayout, B: int, device="cuda"):
-    """The form's last launch alone (the fixed-order sum of the block or
-    row-slice partials) on scratch of the size a batch of ``B`` rows takes,
-    so that it can be timed on its own. The scratch is not initialised, so
-    the sums mean nothing; not counted as a launch of the kernel."""
+    """The tuned form's last launch alone (the fixed-order sum of the block
+    partials) on scratch of the size a batch of ``B`` rows takes, so that it
+    can be timed on its own (the generic form's: :func:`any_launches`). The
+    scratch is not initialised, so the sums mean nothing; not counted as a
+    launch of the kernel."""
+    kernels.require(kernel_form(layout) == "tuned",
+                    f"reduce_launch times the tuned form; got {layout}")
     lib = kernels.library()
     grad = torch.empty(layout.size, device=device)
     aux = torch.empty(AUX_WIDTH, device=device)
-    ptrs = lambda scratch: (scratch.data_ptr(), grad.data_ptr(),
-                            aux.data_ptr())
     with torch.cuda.device(grad.device):
-        if kernel_form(layout) == "tuned":
-            scratch = torch.empty(lib.fsrl_ppo_grad_scratch_floats(
-                B, layout.D, layout.H, layout.A, layout.K), device=device)
-            rc = lib.fsrl_ppo_grad_reduce_only(
-                *ptrs(scratch), B, layout.D, layout.A, layout.K,
-                kernels.stream_ptr())
-        else:
-            dims = (B, layout.D, layout.H, layout.H2, layout.A, layout.K)
-            scratch = torch.empty(lib.fsrl_ppo_grad_any_scratch_floats(*dims),
-                                  device=device)
-            rc = lib.fsrl_ppo_grad_any_reduce_only(*ptrs(scratch), *dims,
-                                                   kernels.stream_ptr())
+        scratch = torch.empty(lib.fsrl_ppo_grad_scratch_floats(
+            B, layout.D, layout.H, layout.A, layout.K), device=device)
+        rc = lib.fsrl_ppo_grad_reduce_only(
+            scratch.data_ptr(), grad.data_ptr(), aux.data_ptr(), B, layout.D,
+            layout.A, layout.K, kernels.stream_ptr())
     kernels.check(rc, "fused PPO grad reduce launch")
     return grad, aux
 

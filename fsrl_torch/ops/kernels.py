@@ -122,10 +122,8 @@ def library() -> ctypes.CDLL:
     lib.fsrl_ppo_grad_any.restype = I
     lib.fsrl_ppo_grad_any_scratch_floats.argtypes = [I] * 6
     lib.fsrl_ppo_grad_any_scratch_floats.restype = ctypes.c_long
-    lib.fsrl_ppo_grad_any_reduce_only.argtypes = [P, P, P] + [I] * 6 + [P]
-    lib.fsrl_ppo_grad_any_reduce_only.restype = I
     lib.fsrl_ppo_grad_any_one.argtypes = [P] * 11 + [I] * 7 + [
-        ctypes.c_long, F, F, F, P, I, I]
+        ctypes.c_long, F, F, F, P, I]
     lib.fsrl_ppo_grad_any_one.restype = I
     lib.fsrl_ppo_grad_any_splits.argtypes = [I] * 7
     lib.fsrl_ppo_grad_any_row_blocks.argtypes = [I] * 7
