@@ -127,8 +127,10 @@ Phases, each of which must pass:
    the form on each rank every iteration, the ranks' parameters
    ``torch.equal`` after each, after the first within ``DP_TOL`` of one
    process with the same seed (f32 rtol 2e-4 / atol 2e-5, the CPU tests';
-   bf16 atol 1.6e-3), and at seed 3, ``dp_blocks`` 2 equal bit for bit to
-   one process whose K2 runs on each minibatch's two halves; beside them
+   bf16 atol 1.6e-3), and equal bit for bit to one process whose K2 runs
+   on the rows of each minibatch that each rank owns, summed with the
+   ranks' weights (``_shares``: the halves at ``dp_blocks`` 2, uneven
+   shares at 1); beside them
    one process against itself with every gradient entry moved one ulp
    before each Adam step, two ranks with the policy on their own rows (not
    the path), a rank's collect both ways, and the policy's forward at a
@@ -140,7 +142,20 @@ Phases, each of which must pass:
    fsrl_torch.examples.mlp.train_ppol_agent`` for one epoch of one
    collect on the card, then ``eval_ppol_agent --path`` on its run
    directory; the same under ``torchrun --nproc_per_node 1`` with
-   ``--use_mesh true`` (NCCL, one rank);
+   ``--use_mesh true`` (NCCL, one rank); then the training-quality entry
+   points: ``[curves ppol]`` and ``[curves sacl]``, the learning-curve
+   runner (``fsrl_torch.examples.run_curves``) for one epoch of
+   SafetyCarCircle-v0 and SafetyBallCircle-v0 (its JSON keys those of the
+   JAX runner's committed result, the summary table written, exactly 1
+   K1 and 16 K2 launches on ``ppol``, none on ``sacl``);
+   ``[customized ...]``, the hand-assembled loops
+   (``fsrl_torch.examples.customized``): ``train_ppol`` for 2 iterations
+   (2 K1, 32 K2), then ``eval_ppol`` on its run directory, whose
+   evaluation must equal the trained state's bit for bit, and
+   ``collect_dataset`` for 2 epochs (2 K1), whose HDF5 file must read
+   back with the dataset's keys, dtypes and shapes; ``[gates offpolicy]``,
+   the constrained CVPO gate of ``tests/test_all_agents.py`` (too long for
+   the CPU tests) at its budget, seed and thresholds, no kernel launched;
 8. breakdown: for PPO-Lag and the three f32 trust-region / FOCOPS paths the
    two halves of an iteration and one iteration under ``torch.profiler``,
    then one SAC-Lag collect and the first 32 of its 640 grad steps under it
@@ -2283,8 +2298,9 @@ DP_TIMEOUT = 600          # seconds both ranks may take for all DP phases
 # the largest of the six readings on an H100 80GB HBM3 at 700 W (7.774e-4
 # at seed 4, dp_blocks 1), since the tests' bound failed there: K2's sums
 # over each rank's rows, in another order than over the whole minibatch,
-# move the bf16 run that far (the two ranks equal one process whose K2
-# runs on the halves, bit for bit, checked below), and on that card one
+# move the bf16 run that far (the two ranks equal, bit for bit, one process
+# whose K2 runs on each rank's rows, ``_shares``, checked below at both
+# dp_blocks), and on that card one
 # process moved 3.6e-5 from itself when every gradient entry moved one ulp
 DP_TOL = {"f32": (2e-4, 2e-5), "bf16": (2e-4, 1.6e-3)}
 
@@ -2412,29 +2428,63 @@ def _policy_ms(tr, rows=(512, 1024, 2048, 4096), reps: int = 3) -> dict:
     return out
 
 
-def _halves(tr):
-    """``tr`` (one process, ``dp_blocks`` 2) with each grad step's K2
-    launched on the two halves of its minibatch, the rows each of two ranks
-    holds, and the results summed with weight 1/2 as the ranks sum them:
-    the data-parallel arithmetic in one process. Returns a function that
-    runs one iteration so."""
-    import fsrl_torch.algos.ppo_lag as ppo_lag
-    whole = ppo_lag.ppo_grad_minibatch
+def _shares(tr):
+    """``tr`` (one process) with each grad step's K2 launched on the rows
+    of its minibatch that each of ``DP_WORLD`` ranks owns (``owned_rows``:
+    the rank's block of the envs, in the minibatch's order), and the
+    results summed with the weights of the ranks' all-reduce (the rank's
+    count over the minibatch's rows, in rank order): the data-parallel
+    arithmetic in one process, at any ``dp_blocks`` (at 2 the shares are
+    the minibatch's halves). Returns a function that runs one iteration
+    so."""
+    import torch
 
-    def halves(flat, layout, obs, act, logp_old, adv, ret, lam, resc, **kw):
-        h = obs.shape[0] // 2
-        (l0, a0, g0), (l1, a1, g1) = (
-            whole(flat, layout, obs[s], act[s], logp_old[s], adv[s], ret[s],
-                  lam, resc, **kw) for s in (slice(0, h), slice(h, None)))
-        return (l0 * 0.5 + l1 * 0.5, {k: a0[k] * 0.5 + a1[k] * 0.5
-                                      for k in a0}, g0 * 0.5 + g1 * 0.5)
+    import fsrl_torch.algos.ppo_lag as ppo_lag
+    from fsrl_torch.types import owned_rows
+    whole, index = ppo_lag.ppo_grad_minibatch, ppo_lag.minibatch_row_index
+    seen = {}
+
+    def rows_of(layout, *perms):
+        rows = index(layout, *perms)
+        n = layout.size // DP_WORLD
+        seen["masks"] = [(rows >= r * n) & (rows < (r + 1) * n)
+                         for r in range(DP_WORLD)]
+        seen["counts"] = [owned_rows(rows, r * n, (r + 1) * n)[1]
+                          for r in range(DP_WORLD)]
+        seen["step"], seen["mb_rows"] = 0, layout.mb_rows
+        return rows
+
+    def shares(flat, layout, obs, act, logp_old, adv, ret, lam, resc, **kw):
+        s = seen["step"]
+        seen["step"] += 1
+        terms = []
+        for mask, counts in zip(seen["masks"], seen["counts"]):
+            if counts[s] == 0:
+                # no rows on this rank: it adds zeros, as the ranks do
+                zero = torch.zeros((), device=flat.device)
+                part = (zero, dict.fromkeys(ppo_lag.AUX_NAMES, zero),
+                        torch.zeros_like(flat))
+            else:
+                m = mask[s]
+                part = whole(flat, layout, obs[m], act[m], logp_old[m],
+                             adv[m], ret[m], lam, resc, **kw)
+            w = counts[s] / seen["mb_rows"]
+            terms.append((part[0] * w, {k: v * w for k, v in
+                                        part[1].items()}, part[2] * w))
+        loss, aux, grad = terms[0]
+        for l_r, a_r, g_r in terms[1:]:
+            loss, grad = loss + l_r, grad + g_r
+            aux = {k: aux[k] + a_r[k] for k in aux}
+        return loss, aux, grad
 
     def run():
-        ppo_lag.ppo_grad_minibatch = halves
+        ppo_lag.ppo_grad_minibatch = shares
+        ppo_lag.minibatch_row_index = rows_of
         try:
             tr._run_iter()
         finally:
             ppo_lag.ppo_grad_minibatch = whole
+            ppo_lag.minibatch_row_index = index
 
     return run
 
@@ -2504,8 +2554,9 @@ def _dp_one_process():
     iteration of every case of ``_dp_cases``, the CPO iteration and the
     SAC-Lag one, from the same seeds; the control: the first case of each
     form again with every gradient entry moved up one ulp before each Adam
-    step; the first case with K2 on each minibatch's halves (``_halves``);
-    and the policy's forward at a rank's share of the rows."""
+    step; every case again with K2 on the rows each rank owns, summed as
+    the ranks sum them (``_shares``); and the policy's forward at a rank's
+    share of the rows."""
     import torch
     ref = {}
     for key, form, dtype, blocks, seed in _dp_cases():
@@ -2514,13 +2565,13 @@ def _dp_one_process():
         ref[key] = _flat(tr)
         if "policy ms" not in ref:
             ref["policy ms"] = _policy_ms(tr)
+        tr = _dp_ppo_trainer(dtype, None, blocks, seed)
+        _shares(tr)()
+        ref[f"{key} shares"] = _flat(tr)
     for form, dtype in (("f32", None), ("bf16", torch.bfloat16)):
         tr = _ulp_grads(_dp_ppo_trainer(dtype))
         tr._run_iter()
         ref[f"ppo_lag {form} ulp"] = _flat(tr)
-        tr = _dp_ppo_trainer(dtype)
-        _halves(tr)()
-        ref[f"ppo_lag {form} halves"] = _flat(tr)
     for name, make in (("cpo", _dp_cpo_trainer), ("sac_lag",
                                                   _dp_sac_trainer)):
         tr = make()
@@ -2547,9 +2598,9 @@ def phase_dp():
     ``DP_SEEDS`` from a fresh trainer: exactly 1 K1 and 32 K2 of the form
     on each rank every iteration, the ranks' parameters equal after each
     (the first case also after a second iteration), and after the first
-    within ``DP_TOL`` of one process with the same seed; the first case in
-    each dtype equal bit for bit to one process whose K2 runs on each
-    minibatch's two halves (``_halves``); beside them one process against
+    within ``DP_TOL`` of one process with the same seed, and equal bit for
+    bit to one process whose K2 runs on the rows of each minibatch that
+    each rank owns (``_shares``); beside them one process against
     itself with every gradient entry moved one ulp before each Adam step,
     two ranks with the policy on their own rows (not the path:
     ``_own_rows_rollout``), a rank's collect both ways, and the policy's
@@ -2613,29 +2664,25 @@ def phase_dp():
         got, want = ranks[0][f"{key} flat"], ref[key]
         rtol, atol = DP_TOL[form]
         gap = float((got - want).abs().max())
+        shares = ref[f"{key} shares"]
+        same = torch.equal(got, shares)
         print(f"[{tag}] seed {seed} dp_blocks {blocks}, after one "
               f"iteration, 2 ranks against one process: largest parameter "
-              f"distance {gap:.3e} (tolerance rtol {rtol}, atol {atol})",
-              flush=True)
+              f"distance {gap:.3e} (tolerance rtol {rtol}, atol {atol}); "
+              f"against one process with K2 on each rank's rows, summed as "
+              f"the ranks sum them: equal {same}, largest distance "
+              f"{float((got - shares).abs().max()):.3e}", flush=True)
         if not torch.allclose(got, want, rtol=rtol, atol=atol):
             far.append(f"{key} by {gap:.3e}")
+        if not same:
+            far.append(f"{key}: 2 ranks against one process with K2 on "
+                       f"each rank's rows")
     for form in forms:
         tag = f"dp ppo_lag {form}"
         first = f"ppo_lag {form} b2 s{DP_SEED}"
         ulp = float((ref[f"ppo_lag {form} ulp"] - ref[first]).abs().max())
         own = float((ranks[0][f"{first} own rows flat"]
                      - ref[first]).abs().max())
-        halves = ref[f"ppo_lag {form} halves"]
-        same = torch.equal(ranks[0][f"{first} flat"], halves)
-        print(f"[{tag}] seed {DP_SEED} dp_blocks 2: one process with K2 on "
-              f"each minibatch's two halves, summed as the ranks sum them, "
-              f"against 2 ranks: equal {same}, largest distance "
-              f"{float((ranks[0][f'{first} flat'] - halves).abs().max()):.3e}"
-              f"; against one process "
-              f"{float((halves - ref[first]).abs().max()):.3e}", flush=True)
-        if not same:
-            far.append(f"{first}: 2 ranks against one process with K2 on "
-                       f"halves")
         print(f"[{tag}] seed {DP_SEED} dp_blocks 2, after one iteration: "
               f"the control, one process against itself with every "
               f"gradient entry moved one ulp before each Adam step, "
@@ -2750,6 +2797,197 @@ def phase_cli():
     shutil.rmtree(logs, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the training-quality entry points: the learning-curve runner, the
+# hand-assembled loops, and the agent gates too long for the CPU tests
+# ---------------------------------------------------------------------------
+
+# the JAX runner's committed result whose keys the port's runner writes
+CURVES_REF = ROOT / "benchmarks" / "results_1m" / "SafetyBallCircle-v0-sacl-s0.json"
+
+
+def _ppo_k2_name(env) -> str:
+    """The K2 form and dtype PPO-Lag's default recipe (f32, hidden (128,
+    128)) launches on ``env``."""
+    from fsrl_torch.ops.fused_ppo_grad import GradLayout, launch_name
+    return launch_name(GradLayout(D=env.observation_size, H=128,
+                                  A=env.action_size, K=1 + env.num_costs),
+                       bf16=False)
+
+
+def _counted(fn):
+    """``fn()``, its host seconds and the kernel launches it made."""
+    from fsrl_torch.ops import kernels
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    out = fn()
+    return out, time.time() - t0, dict(kernels.LAUNCHES)
+
+
+def phase_curves() -> dict:
+    """``[curves]``: the port's learning-curve runner
+    (``fsrl_torch.examples.run_curves``), one epoch each of ``ppol`` on
+    SafetyCarCircle-v0 (20 envs x 500 steps, one collect) and ``sacl`` on
+    SafetyBallCircle-v0 (8 envs x 125 steps, ten collects of 200 grad
+    steps), on the card, at the runner's defaults otherwise: its JSON keys
+    are those of the JAX runner's committed result (``CURVES_REF``), the
+    summary table lists both, the ``ppol`` run launches K1 and the K2 form
+    ``kernel_form`` picks, the ``sacl`` run none. Returns the launches by
+    run."""
+    import shutil
+
+    from fsrl_torch.envs import make
+    from fsrl_torch.examples import run_curves
+    outdir = ROOT / "logs" / "chip_smoke_curves"
+    shutil.rmtree(outdir, ignore_errors=True)
+    with open(CURVES_REF) as f:
+        ref_keys = set(json.load(f))
+    counts = {}
+    for key, task, budget in (("ppol", "SafetyCarCircle-v0", "--budget"),
+                              ("sacl", "SafetyBallCircle-v0",
+                               "--off_budget")):
+        (row,), secs, launches = _counted(lambda: run_curves.main([
+            "--task", task, "--algos", key, "--seeds", "0", budget,
+            "10000", "--outdir", str(outdir)]))
+        path = outdir / f"{task}-{key}-s0.json"
+        with open(path) as f:
+            keys = set(json.load(f))
+        summary = outdir / f"summary-{task}.md"
+        print(f"[curves {key}] {task}, one epoch of 10,000 env steps: "
+              f"{secs:.1f} s, reward {row['final_reward']:.2f} cost "
+              f"{row['final_cost']:.2f}, best {row['best_reward']:.2f} / "
+              f"{row['best_cost']:.2f}, {row['steps_per_s']:.0f} env-steps/s"
+              f"; launches {launches}; keys as the JAX runner's "
+              f"{keys == ref_keys}", flush=True)
+        if keys != ref_keys:
+            fail(f"[curves {key}] keys {sorted(keys ^ ref_keys)} differ "
+                 f"from {CURVES_REF.name}'s")
+        if not all(math.isfinite(row[k]) for k in (
+                "final_reward", "final_cost", "best_reward", "best_cost")) \
+                or len(row["curve"]["reward"]) != 1:
+            fail(f"[curves {key}] a result is not finite or the curve is "
+                 f"not one epoch: {row}")
+        if not summary.is_file() or f"| {key} | 0 |" not in \
+                summary.read_text():
+            fail(f"[curves {key}] the summary {summary} lacks the run")
+        if key == "ppol":
+            k2 = _ppo_k2_name(make(task))
+            if set(launches) != {"gae", k2} or launches["gae"] != 1 or \
+                    launches[k2] != 16:
+                fail(f"[curves ppol] expected 1 K1 and 16 {k2} launches, "
+                     f"got {launches}")
+        elif launches:
+            fail(f"[curves sacl] the off-policy path launched {launches}")
+        counts[f"curves_{key}"] = launches
+    shutil.rmtree(outdir, ignore_errors=True)
+    return counts
+
+
+def phase_customized() -> dict:
+    """``[customized]``: the hand-assembled loops on the card.
+    ``train_ppol`` for 2 iterations at its defaults otherwise (32 envs x
+    300 steps, repeat 4 x 4: 2 K1 and 32 K2 launches of the form), then
+    ``eval_ppol``'s command line on its run directory, whose evaluation
+    must equal the trained state's bit for bit at the same seed;
+    ``collect_dataset`` for 2 epochs of one collect (20 envs x 500 steps,
+    the limit swept from 10 to 80: 2 K1 launches), whose HDF5 file must
+    read back with the dataset's keys, dtypes and shapes. Returns the
+    launches by script."""
+    import shutil
+
+    import numpy as np
+
+    from fsrl_torch.data.traj_buf import KEYS, TrajectoryBuffer
+    from fsrl_torch.envs import make
+    from fsrl_torch.examples.customized import (collect_dataset, eval_ppol,
+                                                train_ppol)
+    from fsrl_torch.examples.customized.custom_common import (
+        eval_main, evaluate_policy)
+    logs = ROOT / "logs" / "chip_smoke_customized"
+    shutil.rmtree(logs, ignore_errors=True)
+    counts = {}
+    (run_dir, state), secs, launches = _counted(lambda: train_ppol.main([
+        "--total_iters", "2", "--eval_every", "1", "--logdir", str(logs)]))
+    env = make("SafetyCarCircle-v0")
+    k2 = _ppo_k2_name(env)
+    trained = evaluate_policy(env, eval_ppol.build(
+        env, {"cost_limit": 10.0}, "cuda"), state.params, 10, seed=0)
+    reloaded = eval_main(eval_ppol.build, ["--path", run_dir])
+    print(f"[customized train_ppol] 2 iterations of 32 envs x 300 steps: "
+          f"{secs:.1f} s, launches {launches}; the trained state's "
+          f"evaluation {trained}, eval_ppol's {reloaded}", flush=True)
+    if launches != {"gae": 2, k2: 32}:
+        fail(f"[customized train_ppol] expected 2 K1 and 32 {k2} "
+             f"launches, got {launches}")
+    if trained != reloaded or not all(map(math.isfinite, trained)):
+        fail(f"[customized eval_ppol] the reloaded policy's evaluation "
+             f"{reloaded} differs from the trained one's {trained}")
+    counts["customized_train_ppol"] = launches
+    (path, limits), secs, launches = _counted(lambda: collect_dataset.main([
+        "--epochs", "2", "--iters_per_epoch", "1", "--logdir",
+        str(logs / "datasets")]))
+    data = TrajectoryBuffer.load(path)
+    n = len(data["rewards"])
+    env = make("SafetyBallCircle-v0")
+    shapes = {"observations": (n, env.observation_size),
+              "next_observations": (n, env.observation_size),
+              "actions": (n, env.action_size), "rewards": (n,),
+              "costs": (n,), "terminals": (n,), "timeouts": (n,)}
+    dtypes = {k: (np.bool_ if k in ("terminals", "timeouts")
+                  else np.float32) for k in KEYS}
+    print(f"[customized collect_dataset] 2 epochs of 20 envs x 500 steps, "
+          f"limits {limits}: {secs:.1f} s, launches {launches}; {path}: "
+          + ", ".join(f"{k} {v.dtype} {v.shape}" for k, v in data.items()),
+          flush=True)
+    if set(data) != set(KEYS) or n == 0 or any(
+            data[k].shape != shapes[k] or data[k].dtype != dtypes[k]
+            for k in KEYS) or not all(
+            np.isfinite(data[k]).all() for k in KEYS):
+        fail(f"[customized collect_dataset] the dataset read back is not "
+             f"the dataset's layout: "
+             f"{ {k: (v.dtype, v.shape) for k, v in data.items()} }")
+    if limits != [10.0, 80.0] or launches != {"gae": 2}:
+        fail(f"[customized collect_dataset] limits {limits}, launches "
+             f"{launches}: expected [10.0, 80.0] and 2 K1")
+    counts["customized_collect_dataset"] = launches
+    shutil.rmtree(logs, ignore_errors=True)
+    return counts
+
+
+def phase_gates_offpolicy() -> dict:
+    """``[gates offpolicy]``: the agent gate of ``tests/test_all_agents.py``
+    too long for the CPU tests (about 350 s there), on the card with its
+    task, budget, seed and thresholds: CVPO on SafetyBallRun-v0 at a cost
+    limit of 25, 8 epochs of 5,000 env steps (4 envs x 100 steps, 80 grad
+    steps a collect); the feasibility-first best test result has reward
+    above 80 and cost within 1.2x the limit, and the final state holds the
+    constraint by the final test or by the PID controller's EMA of the
+    realized cost (within 2x the limit). No kernel launches. Returns the
+    launches."""
+    from fsrl_torch.agent import CVPOAgent
+    limit = 25.0
+    agent = CVPOAgent("SafetyBallRun-v0", cost_limit=limit, seed=0)
+    info, secs, launches = _counted(lambda: agent.learn(
+        epochs=8, step_per_epoch=5000, n_envs=4, steps_per_collect=100,
+        episode_per_test=10, buffer_size=50000, update_per_step=0.2,
+        verbose=False))
+    ema = float(agent.state.lag.cost_ema.sum())
+    print(f"[gates offpolicy cvpo constrained] SafetyBallRun-v0: "
+          f"{secs:.1f} s; best reward {info['best_reward']:.2f} cost "
+          f"{info['best_cost']:.2f}; final test cost {info['test_cost']:.2f}"
+          f", cost EMA {ema:.2f}; launches {launches}", flush=True)
+    if not info["best_reward"] > 80.0:
+        fail(f"[gates offpolicy] CVPO did not learn: {info}")
+    if not info["best_cost"] <= 1.2 * limit:
+        fail(f"[gates offpolicy] CVPO's best is infeasible: {info}")
+    if not (info["test_cost"] <= 2.0 * limit or ema <= 2.0 * limit):
+        fail(f"[gates offpolicy] CVPO's final state diverged: final test "
+             f"cost {info['test_cost']:.1f}, EMA {ema:.1f}: {info}")
+    if launches:
+        fail(f"[gates offpolicy] the off-policy path launched {launches}")
+    return {"gates_cvpo_constrained": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -2821,6 +3059,9 @@ def main() -> int:
     mark("data parallel")
     phase_cli()
     mark("command lines")
+    entry_counts = {**phase_curves(), **phase_customized(),
+                    **phase_gates_offpolicy()}
+    mark("curves, customized loops, off-policy gates")
     k1 = phase_gae()
     k2 = _k2_case(2, True)
     phase_k2_scaling(k2["ms"], bf16=True)
@@ -2952,7 +3193,9 @@ def main() -> int:
                     for t in ("f32", "bf16")},
                  host_sac_lag=host_sac["launches"].get("gae", 0),
                  **{f"{k}_per_iteration": v.get("gae", 0)
-                    for k, v in dp_counts.items()}), **k1),
+                    for k, v in dp_counts.items()},
+                 **{k: v.get("gae", 0) for k, v in entry_counts.items()}),
+             **k1),
         dict(name="fused_ppo_grad", route="cuda",
              source="fsrl_torch/csrc/fused_ppo_grad.cu",
              replaces="fsrl_tpu/ops/fused_ppo_grad.py:68",
@@ -2977,7 +3220,9 @@ def main() -> int:
                  **wide_launches("fused_ppo_grad_f32", "f32"),
                  host_cli=host_cli["launches"].get("fused_ppo_grad_f32", 0),
                  **{f"{k}_per_iteration": v.get("fused_ppo_grad_f32", 0)
-                    for k, v in dp_counts.items() if "f32" in k}),
+                    for k, v in dp_counts.items() if "f32" in k},
+                 **{k: v.get("fused_ppo_grad_f32", 0)
+                    for k, v in entry_counts.items()}),
              by_width=wide_ms(False), host_path=host_ms(False),
              velocity_widest=vel_ms(False),
              retakes_d348_natural_rows=list(retakes),

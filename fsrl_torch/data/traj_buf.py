@@ -15,8 +15,10 @@ episodes over segment boundaries.
 The filter is the C++ one (:mod:`fsrl_torch.native`, seed 0, as in JAX);
 :meth:`TrajectoryBuffer.filter_points` is its plain numpy version. Random
 draws (the replacement of a full buffer without the filter, ``sample``)
-come from the buffer's ``np.random.Generator``. h5py is imported where a
-dataset is saved or loaded.
+come from the buffer's ``np.random.Generator``. The dataset is written and
+read by :mod:`fsrl_torch.data.hdf5` (numpy alone, no h5py): the JAX
+package's keys, dtypes and shapes in one HDF5 file that h5py reads, each
+array stored contiguous where the JAX package compresses it with gzip.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fsrl_torch.data.hdf5 import read_datasets, write_datasets
 from fsrl_torch.native import grid_filter_native
 
 KEYS = ("observations", "next_observations", "actions", "rewards", "costs",
@@ -193,17 +196,12 @@ class TrajectoryBuffer:
                 for k in KEYS}
 
     def save(self, log_dir: str, dataset_name: str = "dataset.hdf5") -> str:
-        import h5py
         os.makedirs(log_dir, exist_ok=True)
         path = os.path.join(log_dir, dataset_name)
-        data = self.get_all()
-        with h5py.File(path, "w") as f:
-            for k, v in data.items():
-                f.create_dataset(k, data=v, compression="gzip")
+        write_datasets(path, self.get_all())
         return path
 
     @staticmethod
     def load(path: str) -> dict[str, np.ndarray]:
-        import h5py
-        with h5py.File(path, "r") as f:
-            return {k: f[k][()] for k in f.keys()}
+        """The arrays of a dataset :meth:`save` wrote."""
+        return read_datasets(path)

@@ -40,7 +40,7 @@ from fsrl_torch.utils.logger import (BaseLogger, DummyLogger,
                                      TensorboardLogger)
 
 
-def _run_logger(logdir: str, name: str) -> BaseLogger:
+def run_logger(logdir: str, name: str) -> BaseLogger:
     """TensorBoard where tensorboardX is installed, else the text logger
     (progress.txt, config and checkpoints)."""
     if importlib.util.find_spec("tensorboardX") is not None:
@@ -78,7 +78,7 @@ def _train(cfg, agent_cls, default_cfg, logger, mesh) -> dict:
         name = cfg.name or auto_name(default_cfg, cfg, cfg.prefix,
                                      cfg.suffix or "")
         group = cfg.group or f"{cfg.task}-cost-{int(cfg.cost_limit)}"
-        logger = _run_logger(os.path.join(cfg.logdir, cfg.project, group),
+        logger = run_logger(os.path.join(cfg.logdir, cfg.project, group),
                              name)
     logger.save_config(dataclasses.asdict(cfg))
 

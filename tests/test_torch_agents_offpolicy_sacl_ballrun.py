@@ -1,0 +1,11 @@
+"""SAC-Lag holds a cost limit of 25 on SafetyBallRun-v0: the torch twin of
+``tests/test_all_agents.py::test_offpolicy_agent_respects_constraint
+[SACLagAgent]``, same budget, seed and thresholds, on the CPU."""
+
+from _torch_gates import TASK, respects_constraint
+
+from fsrl_torch.agent import SACLagAgent
+
+
+def test_sac_lag_respects_constraint_ballrun():
+    respects_constraint(SACLagAgent, TASK)
