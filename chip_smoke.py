@@ -117,8 +117,26 @@ Phases, each of which must pass:
    from the same state with the same injected draws; a checkpoint of the
    SAC-Lag state trained on the card restored bit for bit; the Q-critic
    ensemble's batched form timed against one chain per tower at 256 and
-   4,096 rows;
-6. data parallel (``phase_dp``): two ranks spawned by the script
+   4,096 rows; these trainers run their grad steps in chunk graphs
+   (``update_chunk`` 32), so their second iteration's update includes the
+   capture;
+6. CUDA graphs (``phase_graphs``, ``[graph ...]``): the trainers'
+   dispatch settings replayed from CUDA graphs
+   (``fsrl_torch/trainer/graphs.py``), each against the eager cycle of a
+   trainer built alike from the same seed, bit for bit (else within
+   tests/test_fuse_iters.py's rtol 2e-4 / atol 2e-5, printed as a
+   finding): PPO-Lag bf16 and f32 at 4096 envs x 64 steps with
+   ``fuse_iters`` 8 (``bench.py:114``: 8 K1 and 256 K2 a dispatch),
+   f32 at hidden (256, 256), TRPO-Lag (DroneRun), CPO (AntRun) and
+   recurrent PPO-Lag (PointGoal1) with ``fuse_iters`` 2, PPO-Lag bf16
+   with ``rollout_unroll`` 8 (its rollout timed alone too); DDPG-Lag,
+   SAC-Lag and CVPO at the off-policy shape with ``update_chunk`` 256 and
+   ``fuse_iters`` 2 (JAX's benchmark fuses 8; cut for the script's
+   time), and their chunk graphs; each path's mode, launches a dispatch
+   against the eager cycle's, and ms an iteration (off-policy: a grad
+   step) replayed and eager, with the card's name and power limit; every
+   trainer the script builds prints its mode (``[mode]``);
+7. data parallel (``phase_dp``): two ranks spawned by the script
    (``--dp-rank``), sharing the card over gloo and loading the kernels the
    parent built: ``[dp ppo_lag f32]`` and ``[dp ppo_lag bf16]``, PPO-Lag on
    SafetyCarCircle-v0 at 4096 envs x 64 steps global, repeat 4 x 8, one
@@ -137,8 +155,9 @@ Phases, each of which must pass:
    rank's share of the rows; ``[dp cpo]`` (AntRun, one iteration: the
    ranks equal, one ``optim_case``); ``[dp sac_lag]`` at the off-policy
    benchmark shape, one iteration of 640 grad steps, equal to one process
-   bit for bit, buffers included;
-7. command lines (``phase_cli``): ``python -m
+   bit for bit, buffers included (one process runs its grad steps in
+   chunk graphs, the ranks eagerly);
+8. command lines (``phase_cli``): ``python -m
    fsrl_torch.examples.mlp.train_ppol_agent`` for one epoch of one
    collect on the card, then ``eval_ppol_agent --path`` on its run
    directory; the same under ``torchrun --nproc_per_node 1`` with
@@ -155,15 +174,22 @@ Phases, each of which must pass:
    ``collect_dataset`` for 2 epochs (2 K1), whose HDF5 file must read
    back with the dataset's keys, dtypes and shapes; ``[gates offpolicy]``,
    the constrained CVPO gate of ``tests/test_all_agents.py`` (too long for
-   the CPU tests) at its budget, seed and thresholds, no kernel launched;
-8. breakdown: for PPO-Lag and the three f32 trust-region / FOCOPS paths the
+   the CPU tests) at its budget, seed and thresholds, no kernel launched,
+   on chunk graphs;
+9. breakdown: for PPO-Lag and the three f32 trust-region / FOCOPS paths the
    two halves of an iteration and one iteration under ``torch.profiler``,
    then one SAC-Lag collect and the first 32 of its 640 grad steps under it
-   (device busy share, device ops and host ms per grad step); last, because
-   the profiler leaves every later launch slower for the host;
-9. summary: one JSON line of kernels (K1, K2 bf16, K2 f32, and K2's
+   (device busy share, device ops and host ms per grad step); then one
+   replay of the fused bf16 PPO-Lag graph under it, whose device events
+   must hold K1 and K2 as many times as its capture launched them (a
+   replay runs no kernel wrapper, so the counters cannot show them);
+   last, because the profiler leaves every later launch slower for the
+   host;
+10. summary: one JSON line of kernels (K1, K2 bf16, K2 f32, and K2's
    generic form in bf16 and f32; their launches by path, the
-   data-parallel ranks' among them), the card's
+   data-parallel ranks' and the graphed paths' among them: a graphed
+   path's launches are its capture's times one more than its replays,
+   the eager warm-up included), the card's
    name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -2280,6 +2306,356 @@ def phase_offpolicy():
 
 
 # ---------------------------------------------------------------------------
+# CUDA graphs: the trainers' dispatch settings (``fuse_iters``,
+# ``update_chunk``, ``rollout_unroll``), each graphed trainer against the
+# eager cycle of a trainer built alike from the same seed
+# ---------------------------------------------------------------------------
+
+GRAPH_FUSE = 8          # bench.py:114, the scan-fused PPO-Lag
+# the trust-region, recurrent and off-policy phases fuse 2 cycles, not
+# JAX's 8 (benchmarks/bench_offpolicy.py:29): the depth is cut for the
+# script's time
+GRAPH_FUSE_SHORT = 2
+GRAPH_UNROLL = 8
+# the graphs must match the eager cycle bit for bit; a difference is a
+# finding, held to tests/test_fuse_iters.py's tolerance
+GRAPH_RTOL, GRAPH_ATOL = 2e-4, 2e-5
+
+
+def _print_modes(where: str = "") -> None:
+    """From here on, each on- or off-policy trainer built in this process
+    prints its dispatch mode (graphs or eager, and why) once built; a
+    trainer built as the one before it prints nothing."""
+    from fsrl_torch.trainer import OffpolicyTrainer, OnpolicyTrainer
+    last = []
+    for cls in (OnpolicyTrainer, OffpolicyTrainer):
+        def init(self, *args, __init=cls.__init__, **kwargs):
+            __init(self, *args, **kwargs)
+            line = (f"[mode{where}] {type(self).__name__} {self.n_envs} envs"
+                    f" x {self.T} steps, fuse_iters {self.fuse_iters}: "
+                    f"{self.dispatch_mode}")
+            if last != [line]:
+                print(line, flush=True)
+                last[:] = [line]
+        cls.__init__ = init
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _tree_tensors(tree, prefix: str = "") -> dict:
+    """Every tensor of ``tree`` by path, modules' parameters and buffers
+    included."""
+    import dataclasses
+
+    import torch
+    from torch import nn
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    if isinstance(tree, nn.Module):
+        return {f"{prefix}.{k}": v for k, v in tree.state_dict().items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        items = [(f.name, getattr(tree, f.name))
+                 for f in dataclasses.fields(tree)]
+    elif isinstance(tree, dict):
+        items = list(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(_tree_tensors(v, f"{prefix}.{k}"))
+    return out
+
+
+def _graph_groups(tr) -> dict:
+    """What a dispatch changes, by group, as tensors by path."""
+    groups = dict(params=tr.state, env=tr.env_state, stats=tr.stats)
+    if getattr(tr, "hidden", None) is not None:
+        groups["hidden"] = tr.hidden
+    if hasattr(tr, "buf_state"):
+        groups["buffer"] = tr.buf_state
+    return {k: _tree_tensors(v) for k, v in groups.items()}
+
+
+def _graph_diff(tag: str, got: dict, ref: dict) -> tuple[dict, bool]:
+    """Largest absolute difference of each group and whether all are equal
+    bit for bit; fails beyond the tolerance, or on any integer or flag
+    that differs."""
+    import torch
+    diffs, exact = {}, True
+    for group, tensors in got.items():
+        worst = 0.0
+        if tensors.keys() != ref[group].keys():
+            fail(f"[graph {tag}] {group}: the trees differ")
+        for k, x in tensors.items():
+            y = ref[group][k]
+            if x.shape != y.shape or x.dtype != y.dtype:
+                fail(f"[graph {tag}] {group}{k}: {x.dtype} {tuple(x.shape)}"
+                     f" against {y.dtype} {tuple(y.shape)}")
+            if torch.equal(x, y):
+                continue
+            exact = False
+            if not x.is_floating_point():
+                fail(f"[graph {tag}] {group}{k} differs from the eager "
+                     "cycle's")
+            if not torch.allclose(x, y, rtol=GRAPH_RTOL, atol=GRAPH_ATOL,
+                                  equal_nan=True):
+                fail(f"[graph {tag}] {group}{k}: beyond rtol {GRAPH_RTOL} / "
+                     f"atol {GRAPH_ATOL} of the eager cycle's")
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+        diffs[group] = worst
+    return diffs, exact
+
+
+def _k12(launches) -> dict:
+    """K1's and every K2 form's launches."""
+    return {k: v for k, v in dict(launches).items() if v}
+
+
+def _graph_onpolicy(tag: str, make_agent, fuse: int = 1, unroll: int = 1,
+                    dispatches: int = 4):
+    """The on-policy trainer with ``fuse_iters`` ``fuse`` and
+    ``rollout_unroll`` ``unroll`` against the eager cycle: ``dispatches``
+    dispatches (the first the eager warm-up, the second the capture and
+    its replay, the rest replays) and as many eager cycles; then the
+    largest differences, the launches of a dispatch against the eager
+    cycle's, and the ms of an iteration replayed and eager. Returns the
+    graphed trainer, the eager one and the readings."""
+    from fsrl_torch.ops import kernels
+    from fsrl_torch.trainer import OnpolicyTrainer
+
+    def trainer(**kw):
+        agent = make_agent()
+        return OnpolicyTrainer(agent.algo, agent.env, None, n_envs=N_ENVS,
+                               steps_per_collect=T_STEPS, cost_limit=10.0,
+                               seed=0, verbose=False, state=agent.state,
+                               **kw)
+
+    tr = trainer(fuse_iters=fuse, rollout_unroll=unroll)
+    ref = trainer()
+    cycles = dispatches * fuse
+    kernels.reset_launch_counts()
+    _, first_ms = _timed(ref.cycle)
+    per_cycle = _k12(kernels.LAUNCHES)
+    eager = [first_ms] + [_timed(ref.cycle)[1] for _ in range(cycles - 1)]
+    kernels.reset_launch_counts()
+    times = [_timed(tr._run_iter)[1] for _ in range(dispatches)]
+    counted = _k12(kernels.LAUNCHES)
+    diffs, exact = _graph_diff(tag, _graph_groups(tr), _graph_groups(ref))
+    if tr.graph is not None:
+        graphs = [tr.graph]
+        per_dispatch = _k12(tr.graph.launches)
+        expect = {k: fuse * v for k, v in per_cycle.items()}
+        # the eager warm-up and the capture are what Python counted
+        path = {k: v * (1 + tr.graph.replays)
+                for k, v in per_dispatch.items()}
+    else:
+        graphs = list(tr.rollout.graphs.values())
+        per_dispatch = {k: v // dispatches for k, v in counted.items()}
+        expect = per_cycle
+        path = counted
+    if not graphs or not all(g.replays for g in graphs):
+        fail(f"[graph {tag}] no graph was replayed ({tr.dispatch_mode})")
+    if per_dispatch != expect or not per_dispatch:
+        fail(f"[graph {tag}] a dispatch launched {per_dispatch}, the eager "
+             f"cycle {per_cycle} ({fuse} cycles a dispatch)")
+    replay_ms = statistics.median(times[2:]) / fuse
+    eager_ms = statistics.median(eager[1:])
+    print(f"[graph {tag}] mode: {tr.dispatch_mode} (reference: "
+          f"{ref.dispatch_mode}); {N_ENVS} envs x {T_STEPS} steps, "
+          f"{cycles} cycles each; largest differences {diffs} "
+          f"({'bit for bit' if exact else 'NOT bit for bit'}); launches a "
+          f"dispatch {per_dispatch} (eager cycle {per_cycle}), "
+          f"{sum(g.replays for g in graphs)} replays, "
+          f"{sum(g.captures for g in graphs)} captures; {replay_ms:.2f} ms "
+          f"an iteration replayed against "
+          f"{eager_ms:.2f} eager (dispatches {[round(t, 1) for t in times]}"
+          f" ms: warm-up, capture and replay, replays); {_card()}",
+          flush=True)
+    return tr, ref, dict(mode=tr.dispatch_mode, exact=exact, diffs=diffs,
+                         launches_per_dispatch=per_dispatch, launches=path,
+                         replay_ms=replay_ms, eager_ms=eager_ms)
+
+
+def _graph_rollout_ms(tr, reps: int = 3) -> float:
+    """Median host ms of the trainer's rollout alone (its results are
+    dropped: after the comparison)."""
+    return statistics.median(_timed(lambda: tr.rollout(
+        tr.state.params, tr.env_state, tr.stats.reset_aggregates(),
+        tr.draw, hidden=tr.hidden))[1] for _ in range(reps))
+
+
+def _graph_clone_into(dst, src) -> None:
+    """``dst`` (a trainer built alike) continues from where ``src`` is:
+    its state, env state, statistics, buffer and generator."""
+    import dataclasses
+    for name in ("state", "env_state", "stats", "buf_state"):
+        d, s = (_tree_tensors(getattr(t, name)) for t in (dst, src))
+        for k, x in d.items():
+            x.copy_(s[k])
+    dst.buf_state = dataclasses.replace(dst.buf_state,
+                                        filled=src.buf_state.filled)
+    dst.generator.set_state(src.generator.get_state())
+
+
+def _graph_offpolicy(name: str) -> dict:
+    """An off-policy path at the benchmark shape with ``update_chunk``
+    256, against the eager cycle of a trainer with ``update_chunk`` 1 (no
+    graph): ``fuse_iters`` 2 (one graph of 2 whole cycles), whose first
+    dispatch is its eager warm-up; the eager trainer continues from there
+    for the 2 cycles the second dispatch replays. The chunk graphs
+    (``fuse_iters`` 1: two graphs, of 256 and 128 steps) after 2 collects
+    against the fused trainer's warm-up. Then one replay of each graph
+    timed alone, in ms a grad step."""
+    from fsrl_torch.ops import kernels
+    from fsrl_torch.trainer import OffpolicyTrainer
+
+    def trainer(**kw):
+        agent = _offpolicy_agent(name)
+        return OffpolicyTrainer(agent.algo, agent.env, None, n_envs=OFF_ENVS,
+                                steps_per_collect=OFF_T, buffer_size=100000,
+                                update_per_step=OFF_UPS, cost_limit=10.0,
+                                seed=0, verbose=False, state=agent.state,
+                                **kw)
+
+    fused = trainer(update_chunk=256, fuse_iters=GRAPH_FUSE_SHORT)
+    chunked = trainer(update_chunk=256)
+    ref = trainer(update_chunk=1)
+    n_upd = ref.n_updates
+    kernels.reset_launch_counts()
+    warm_ms = _timed(fused._run_iter)[1]
+    after_warm = {g: {k: v.clone() for k, v in t.items()}
+                  for g, t in _graph_groups(fused).items()}
+    _graph_clone_into(ref, fused)
+    eager = []
+    for _ in range(GRAPH_FUSE_SHORT):
+        ref.collect()
+        eager.append(_timed(ref.update)[1] / n_upd)
+    res = {}
+    for label, tr, want, steps in (
+            ("chunk 256", chunked, after_warm, chunked.chunk_sizes[0]),
+            (f"fuse {GRAPH_FUSE_SHORT}", fused, _graph_groups(ref),
+             GRAPH_FUSE_SHORT * n_upd)):
+        times = [_timed(tr._run_iter)[1]
+                 for _ in range(2 if tr is chunked else 1)]
+        diffs, exact = _graph_diff(f"{name} {label}", _graph_groups(tr),
+                                   want)
+        graph = tr.graph or tr.chunk_graphs.get(steps)
+        if graph is None or not graph.replays:
+            fail(f"[graph {name} {label}] no graph was replayed "
+                 f"({tr.dispatch_mode})")
+            continue
+        if tr is fused:
+            _, ms = _timed(graph.captured.graph.replay)
+            times.insert(0, warm_ms)
+        else:
+            _, ms = _timed(lambda: graph(tr.state, tr.buf_state, tr.view))
+        res[label] = dict(mode=tr.dispatch_mode, exact=exact, diffs=diffs,
+                          replay_ms_per_step=ms / steps,
+                          eager_ms_per_step=statistics.median(eager))
+        dispatches = [tr.graph] if tr.graph else tr.chunk_graphs.values()
+        print(f"[graph {name} {label}] mode: {tr.dispatch_mode} "
+              f"(reference: {ref.dispatch_mode}); chunk sizes "
+              f"{tr.chunk_sizes}; largest differences {diffs} "
+              f"({'bit for bit' if exact else 'NOT bit for bit'}); "
+              f"{ms / steps:.3f} ms a grad step replayed ({steps} steps in "
+              f"{ms:.1f} ms) against {statistics.median(eager):.3f} eager; "
+              f"dispatches {[round(t, 1) for t in times]} ms (the eager "
+              f"warm-up, then the capture and its replay); "
+              f"{sum(d.captures for d in dispatches)} captures; {_card()}",
+              flush=True)
+    if sum(kernels.LAUNCHES.values()):
+        fail(f"[graph {name}] a PPO kernel launched on an off-policy path: "
+             f"{dict(kernels.LAUNCHES)}")
+    return res
+
+
+def phase_graphs() -> tuple:
+    """The ``[graph ...]`` phases; returns the fused bf16 PPO-Lag trainer
+    (profiled last) and the readings by path."""
+    import torch
+    from fsrl_torch.agent import (CPOAgent, PPOLagAgent,
+                                  RecurrentPPOLagAgent, TRPOLagAgent)
+
+    def ppo(dtype=None, hidden=(128, 128)):
+        return lambda: PPOLagAgent(
+            "SafetyCarCircle-v0", cost_limit=10.0, repeat=4, n_minibatches=8,
+            compute_dtype=dtype, hidden_sizes=hidden)
+
+    out = {}
+    keep, _, out["ppo_lag_bf16_fuse8"] = _graph_onpolicy(
+        "ppo_lag bf16 fuse 8", ppo(torch.bfloat16), fuse=GRAPH_FUSE)
+    for key, tag, make, fuse, n in (
+            ("ppo_lag_f32_fuse8", "ppo_lag f32 fuse 8", ppo(), GRAPH_FUSE, 4),
+            ("ppo_lag_h256_f32_fuse2", "ppo_lag h256 f32 fuse 2",
+             ppo(hidden=(256, 256)), GRAPH_FUSE_SHORT, 4),
+            ("trpo_lag_fuse2", "trpo_lag fuse 2", lambda: TRPOLagAgent(
+                "SafetyDroneRun-v0", cost_limit=10.0), GRAPH_FUSE_SHORT, 4),
+            ("cpo_fuse2", "cpo fuse 2", lambda: CPOAgent(
+                "SafetyAntRun-v0", cost_limit=10.0), GRAPH_FUSE_SHORT, 4),
+            ("ppo_lag_rnn_fuse2", "ppo_lag_rnn fuse 2",
+             lambda: RecurrentPPOLagAgent(NAV_TASK, cost_limit=10.0),
+             GRAPH_FUSE_SHORT, 3)):
+        out[key] = _graph_onpolicy(tag, make, fuse=fuse, dispatches=n)[2]
+    tr, ref, r = _graph_onpolicy("ppo_lag bf16 unroll 8", ppo(torch.bfloat16),
+                                 unroll=GRAPH_UNROLL)
+    r.update(rollout_replay_ms=_graph_rollout_ms(tr),
+             rollout_eager_ms=_graph_rollout_ms(ref))
+    out["ppo_lag_bf16_unroll8"] = r
+    print(f"[graph ppo_lag bf16 unroll 8] rollout of {T_STEPS} steps "
+          f"{r['rollout_replay_ms']:.2f} ms in graphs of {GRAPH_UNROLL} "
+          f"steps against {r['rollout_eager_ms']:.2f} eager; {_card()}",
+          flush=True)
+    for name in ("ddpg_lag", "sac_lag", "cvpo"):
+        for label, r in _graph_offpolicy(name).items():
+            out[f"{name}_{label.replace(' ', '')}"] = r
+    return keep, out
+
+
+def phase_graph_profile(tr) -> dict:
+    """One dispatch of the fused bf16 PPO-Lag trainer, a replay of its
+    graph, under ``torch.profiler`` (run last, as the breakdowns are): a
+    replay runs no kernel wrapper, so the launch counters cannot show that
+    K1 and K2 ran in it; the profiler's device events must hold each
+    kernel ``fuse_iters`` times the eager cycle's count. Device busy share
+    of the replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    replays = tr.graph.replays
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        _, wall_ms = _timed(tr._run_iter)
+    if tr.graph.replays != replays + 1:
+        fail("[graph profile] the dispatch did not replay its graph")
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    kernel = {"gae": "gae_kernel", "fused_ppo_grad": "ppo_grad_bf16_kernel"}
+    seen = {k: sum(e.count for e in events if name in e.key)
+            for k, name in kernel.items()}
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"[graph profile] one replay of {tr.fuse_iters} cycles: "
+          f"{wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), "
+          f"{sum(e.count for e in events)} device ops; kernels seen {seen}"
+          f" (launches a dispatch {dict(tr.graph.launches)}); {_card()}",
+          flush=True)
+    if seen != {k: tr.graph.launches[k] for k in kernel}:
+        fail(f"[graph profile] the replay ran K1 / K2 {seen} times, the "
+             f"capture launched {dict(tr.graph.launches)}")
+    return dict(seen=seen, wall_ms=wall_ms, busy_ms=busy_ms)
+
+
+# ---------------------------------------------------------------------------
 # Data parallel: two ranks that share the card over gloo, spawned by this
 # script (``python3 chip_smoke.py --dp-rank R W PORT LIBRARY OUT``), and the
 # per-algorithm command lines
@@ -2517,6 +2893,7 @@ def dp_rank_main(rank: int, world: int, port: str, library: str,
         fail(f"[dp rank {rank}] the kernel library {library} is not built")
     init_multihost(f"localhost:{port}", world, rank, backend="gloo",
                    device="cuda:0")
+    _print_modes(f" dp rank {rank}")
     mesh = make_multihost_mesh(device="cuda:0")
     dp = DPGroup.of(mesh)
     if kernels.build() != Path(library):
@@ -3006,6 +3383,7 @@ def main() -> int:
     from fsrl_torch.agent import FOCOPSAgent
     from fsrl_torch.ops import kernels as fsrl_kernels
     t_start = time.time()
+    _print_modes()
 
     def mark(tag):
         print(f"[time] {tag} done at {time.time() - t_start:.1f} s",
@@ -3055,6 +3433,8 @@ def main() -> int:
              steps_per_collect=T_STEPS, episode_per_test=2))
     sac_agent = phase_offpolicy()
     mark("off-policy paths")
+    graph_tr, graphs = phase_graphs()
+    mark("graphs")
     dp_counts = phase_dp()
     mark("data parallel")
     phase_cli()
@@ -3119,6 +3499,11 @@ def main() -> int:
     mark("on-policy breakdowns")
     phase_offpolicy_breakdown(sac_agent)
     mark("sac_lag breakdown")
+    graph_profile = phase_graph_profile(graph_tr)
+    mark("graph profile")
+    graph_launches = lambda name: {
+        f"graph_{path}": r["launches"].get(name, 0)
+        for path, r in graphs.items() if r.get("launches", {}).get(name)}
 
     nav_f32, nav_bf16 = (nav_counts[f"train ppo_lag nav {t}"]
                          for t in ("f32", "bf16"))
@@ -3158,7 +3543,8 @@ def main() -> int:
                 **({f"ppo_lag_h64_{t}": h64["launches"].get(name, 0)}
                    if h64 else {}),
                 f"host_ppo_lag_a40_{t}": host_a40[f"train host a40 {t}"][
-                    "launches"].get(name, 0)},
+                    "launches"].get(name, 0),
+                **graph_launches(name)},
             by_case={f"B{B}_D{D}_H{H1}x{H2}_A{A}": {
                 **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "max_abs_err")},
@@ -3194,7 +3580,9 @@ def main() -> int:
                  host_sac_lag=host_sac["launches"].get("gae", 0),
                  **{f"{k}_per_iteration": v.get("gae", 0)
                     for k, v in dp_counts.items()},
-                 **{k: v.get("gae", 0) for k, v in entry_counts.items()}),
+                 **{k: v.get("gae", 0) for k, v in entry_counts.items()},
+                 **graph_launches("gae")),
+             graphs=graphs, graph_profile=graph_profile,
              **k1),
         dict(name="fused_ppo_grad", route="cuda",
              source="fsrl_torch/csrc/fused_ppo_grad.cu",
@@ -3206,7 +3594,8 @@ def main() -> int:
                  host_ppo_lag_bf16=host_bf16.get("fused_ppo_grad", 0),
                  **wide_launches("fused_ppo_grad", "bf16"),
                  **{f"{k}_per_iteration": v.get("fused_ppo_grad", 0)
-                    for k, v in dp_counts.items() if "bf16" in k}),
+                    for k, v in dp_counts.items() if "bf16" in k},
+                 **graph_launches("fused_ppo_grad")),
              by_width=wide_ms(True), host_path=host_ms(True),
              velocity_widest=vel_ms(True), **k2),
         dict(name="fused_ppo_grad_f32", route="cuda",
@@ -3222,7 +3611,8 @@ def main() -> int:
                  **{f"{k}_per_iteration": v.get("fused_ppo_grad_f32", 0)
                     for k, v in dp_counts.items() if "f32" in k},
                  **{k: v.get("fused_ppo_grad_f32", 0)
-                    for k, v in entry_counts.items()}),
+                    for k, v in entry_counts.items()},
+                 **graph_launches("fused_ppo_grad_f32")),
              by_width=wide_ms(False), host_path=host_ms(False),
              velocity_widest=vel_ms(False),
              retakes_d348_natural_rows=list(retakes),

@@ -21,7 +21,10 @@ Per trust-region step:
 The line search is an early-exit loop in the JAX package. Here the
 candidates are evaluated ``LS_GROUP`` at a time without reading anything
 back, and the host asks once per group whether one was accepted: the
-accepted index is the same, for one host sync per group.
+accepted index is the same, for one host sync per group. While a CUDA graph
+captures the update (:mod:`fsrl_torch.trainer.graphs`) the host cannot ask:
+every group is evaluated, and the first accepted candidate is kept on the
+device, the same index and step.
 
 Data parallel (``update(..., dp=)``): each rank holds its block of the
 batch. The advantages are normalized by the whole batch's statistics; the
@@ -43,7 +46,7 @@ from fsrl_torch.algos.common import (ActorCriticAlgo, AdamState, Schedule,
                                      apply_flat, critic_steps, global_mean,
                                      make_optimizer, normalize_adv,
                                      process_rollout, split_flat)
-from fsrl_torch.device import resolve_device
+from fsrl_torch.device import capturing, resolve_device
 from fsrl_torch.nets.mlp import ActorCritic
 from fsrl_torch.ops.cg import conjugate_gradient, make_fvp
 from fsrl_torch.types import Transition
@@ -259,8 +262,8 @@ class CPO(ActorCriticAlgo):
                                           min=EPS)
 
         # ---- line search: first accepted candidate, LS_GROUP at a time ----
-        coeff = torch.as_tensor(hp["backtrack_coeff"], dtype=flat_a.dtype,
-                                device=flat_a.device)
+        coeff = torch.full((), hp["backtrack_coeff"], dtype=flat_a.dtype,
+                           device=flat_a.device)
         max_bt = hp["max_backtracks"]
         max_rise = torch.clamp(-c_value, min=0.0)
 
@@ -276,16 +279,21 @@ class CPO(ActorCriticAlgo):
             return ((kl <= delta) & obj_ok
                     & (cost_surr - cost_surr0 <= max_rise))
 
+        # under a CUDA graph's capture the host cannot look: every group
+        # is evaluated and the first accepted candidate kept on the device
+        sync = not capturing()
         any_ok = torch.zeros_like(neg_c)
         accept_idx = torch.full_like(optim_case, max_bt - 1)
         for start in range(0, max_bt, LS_GROUP):
             idxs = range(start, min(start + LS_GROUP, max_bt))
             (values,) = glob(torch.stack([cand_values(i) for i in idxs]))
             oks = torch.stack([cand_ok(v) for v in values])
-            if bool(oks.any()):                       # the host sync
-                any_ok = oks.any()
-                accept_idx = start + torch.argmax(oks.to(torch.int32)).to(
-                    torch.int32)                      # the first maximum
+            group_ok = oks.any()
+            first = start + torch.argmax(oks.to(torch.int32)).to(
+                torch.int32)                          # the first maximum
+            accept_idx = torch.where(group_ok & ~any_ok, first, accept_idx)
+            any_ok = any_ok | group_ok
+            if sync and bool(group_ok):               # the host sync
                 break
         beta = coeff ** accept_idx.to(flat_a.dtype)
         # NaN guard: skip the update entirely on a NaN lambda

@@ -180,11 +180,13 @@ class TRPOLag(ActorCriticAlgo):
         first = torch.argmax(oks.to(torch.int32))      # the first maximum
         # if every candidate fails, the smallest step is applied
         idx = torch.where(any_ok, first, hp["max_backtracks"] - 1)
-        frac = fracs[idx]
+        # an index tensor, not ``x[idx]``: a 0-d index is read on the host
+        at = lambda x: x.index_select(0, idx.reshape(1))[0]
+        frac = at(fracs)
         new_flat = flat_a + frac * step_size * direction
-        info = dict(kl=kls[idx], step_size=frac * step_size,
+        info = dict(kl=at(kls), step_size=frac * step_size,
                     line_search_ok=any_ok.float(),
-                    loss_actor_total=losses[idx], loss_actor_old=loss0)
+                    loss_actor_total=at(losses), loss_actor_old=loss0)
         return new_flat, info, idx
 
     # ---------------- update ----------------

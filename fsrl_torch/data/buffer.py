@@ -5,9 +5,12 @@ One pre-allocated set of ``(C, N_envs, ...)`` tensors on the device, written
 a whole rollout segment at a time and sampled by gather. Each env's rows stay
 contiguous in its column, so episodes do too.
 
-The write cursor ``pos`` and the fill count ``filled`` are Python ints on the
-host: they depend only on how many segments were written, so sampling draws
-``torch.randint`` with a host bound and never waits for the device.
+The fill count ``filled`` is a Python int on the host: it depends only on
+how many segments were written, so sampling draws ``torch.randint`` with a
+host bound and never waits for the device. The write cursor ``pos`` is a
+0-d device tensor, and the segment is written at device indices: a CUDA
+graph that writes or samples the buffer (:mod:`fsrl_torch.trainer.graphs`)
+then reads the cursor at replay, not at capture.
 
 n-step linkage follows Tianshou's ``buffer.next``: the successor of a row is
 the same env's next row, except at episode ends and at the newest written
@@ -35,7 +38,7 @@ Tensor = torch.Tensor
 @dataclass
 class ReplayBufferState:
     data: Transition     # tensors (C, N, ...)
-    pos: int             # next row to write
+    pos: Tensor          # () long: the next row to write
     filled: int          # number of valid rows (<= C)
 
 
@@ -61,22 +64,22 @@ class ReplayBuffer:
                           obs_next=z(C, N, obs_dim), reward=z(C, N),
                           cost=z(C, N, num_costs), terminated=b(),
                           truncated=b(), logp=z(C, N))
-        return ReplayBufferState(data=data, pos=0, filled=0)
+        return ReplayBufferState(
+            data=data, pos=torch.zeros((), dtype=torch.long, device=dev),
+            filled=0)
 
     # ------------------------------------------------------------------
     def add_segment(self, state: ReplayBufferState,
                     tr: Transition) -> ReplayBufferState:
-        """Write a ``(T, N, ...)`` segment at the ring cursor (T <= C), as
-        at most two slice copies."""
+        """Write a ``(T, N, ...)`` segment at the ring cursor (T <= C):
+        rows ``(pos + t) % C``, one indexed copy a field."""
         T, C = tr.reward.shape[0], self.C
         if T > C:
             raise ValueError("segment longer than buffer capacity")
-        head = min(T, C - state.pos)
+        rows = (state.pos + torch.arange(T, device=state.pos.device)) % C
         for f in dataclasses.fields(Transition):
-            buf, seg = getattr(state.data, f.name), getattr(tr, f.name)
-            buf[state.pos: state.pos + head] = seg[:head]
-            if head < T:
-                buf[: T - head] = seg[head:]
+            getattr(state.data, f.name).index_copy_(0, rows,
+                                                    getattr(tr, f.name))
         return ReplayBufferState(data=state.data, pos=(state.pos + T) % C,
                                  filled=min(state.filled + T, C))
 
@@ -132,7 +135,7 @@ class ReplayBuffer:
         """``(C*N,)`` episode-end flags, the whole newest (unfinished) row
         forced to True as the reference does."""
         done = state.data.terminated | state.data.truncated
-        done[(state.pos - 1) % self.C] = True
+        done.index_fill_(0, ((state.pos - 1) % self.C).reshape(1), True)
         return done.reshape(-1)
 
     def metrics_flat(self, state: ReplayBufferState) -> Tensor:

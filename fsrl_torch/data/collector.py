@@ -64,10 +64,18 @@ def _reset_hidden(hidden: Tensor, fresh: Tensor, done: Tensor) -> Tensor:
 
 def make_rollout_fn(env: SafeEnv, act_fn: ActFn, num_steps: int,
                     device=None, init_hidden: Callable[[int], Tensor] | None
-                    = None):
+                    = None, unroll: int = 1):
     """Build ``rollout(params, env_state, stats, generator, reset_states=None,
     hidden=None)`` collecting a ``(num_steps, N)`` segment; N is implied by
     ``env_state``.
+
+    ``unroll`` is the JAX collector's scan unroll. On the card, with
+    ``unroll`` u > 1, a plain generator and no injected reset states, the
+    steps run as CUDA graphs (:class:`fsrl_torch.trainer.graphs.Dispatch`)
+    of u steps, replayed ``num_steps // u`` times, then one of the
+    remaining steps, each replay's transitions copied into the segment;
+    the first rollout runs eagerly, as the graphs' warm-up. The segment is
+    the eager loop's, bit for bit; on the CPU ``unroll`` changes nothing.
 
     The rollout runs on ``device`` (CUDA unless ``"cpu"`` is given; raises
     without CUDA) and refuses env states elsewhere. ``generator`` draws the
@@ -83,22 +91,17 @@ def make_rollout_fn(env: SafeEnv, act_fn: ActFn, num_steps: int,
     segment's start and end."""
     device = resolve_device(device)
     recurrent = init_hidden is not None
+    unroll = max(1, min(int(unroll), num_steps))
+    graphs = {}      # (steps, generator) -> Dispatch
 
-    @torch.no_grad()
-    def rollout(params, env_state: EnvState, stats: EpisodeStats,
-                generator: torch.Generator,
-                reset_states: Sequence[EnvState] | None = None,
-                hidden: Tensor | None = None) -> RolloutResult:
-        if env_state.obs.device.type != device.type:
-            raise ValueError(f"env state on {env_state.obs.device}, rollout "
-                             f"built for {device}")
-        if recurrent and hidden is None:
-            hidden = init_hidden(env_state.obs.shape[0])
-        hidden0 = hidden
-        steps = []
+    def steps(params, env_state, stats, hidden, generator, n,
+              reset_states=None):
+        """``n`` steps: the new env state, statistics and carry, and the
+        list of their transitions."""
+        trs = []
         rows = generator if isinstance(generator, EnvRows) else None
         g = generator if rows is None else rows.generator
-        for t in range(num_steps):
+        for t in range(n):
             obs = env_state.obs
             act_in = (obs, hidden) if recurrent else (obs,)
             if rows is not None:
@@ -125,16 +128,66 @@ def make_rollout_fn(env: SafeEnv, act_fn: ActFn, num_steps: int,
                 hidden = _reset_hidden(hidden, init_hidden(obs.shape[0]),
                                        ts.done)
             stats = stats.update(ts)
-            steps.append(Transition(
+            trs.append(Transition(
                 obs=obs, act=act, obs_next=ts.obs, reward=ts.reward,
                 cost=ts.cost, terminated=ts.terminated,
                 truncated=ts.truncated, logp=logp))
-        transitions = Transition(**{
-            name: torch.stack([getattr(s, name) for s in steps])
-            for name in Transition.__dataclass_fields__})
+        return env_state, stats, hidden, trs
+
+    def graphed_steps(params, env_state, stats, hidden, generator):
+        """The segment from graphs of ``unroll`` steps (see above)."""
+        from fsrl_torch.trainer.graphs import Dispatch
+
+        seg, carry, t0 = None, (env_state, stats, hidden), 0
+        for n in [unroll] * (num_steps // unroll) + (
+                [num_steps % unroll] if num_steps % unroll else []):
+            if (n, generator) not in graphs:
+                def fn(carry, params, n=n):
+                    *carry, trs = steps(params, *carry, generator, n)
+                    return tuple(carry), stack(trs)
+                graphs[n, generator] = Dispatch(
+                    fn, (generator,), name=f"rollout of {n} steps")
+            carry, tr = graphs[n, generator](carry, params)
+            if seg is None:
+                seg = Transition(**{
+                    k: x.new_empty((num_steps,) + x.shape[1:])
+                    for k, x in vars(tr).items()})
+            for k, x in vars(tr).items():
+                getattr(seg, k)[t0: t0 + n].copy_(x)
+            t0 += n
+        return (*carry, seg)
+
+    @torch.no_grad()
+    def rollout(params, env_state: EnvState, stats: EpisodeStats,
+                generator: torch.Generator,
+                reset_states: Sequence[EnvState] | None = None,
+                hidden: Tensor | None = None) -> RolloutResult:
+        if env_state.obs.device.type != device.type:
+            raise ValueError(f"env state on {env_state.obs.device}, rollout "
+                             f"built for {device}")
+        if recurrent and hidden is None:
+            hidden = init_hidden(env_state.obs.shape[0])
+        hidden0 = hidden
+        if (unroll > 1 and device.type == "cuda" and reset_states is None
+                and isinstance(generator, torch.Generator)):
+            env_state, stats, hidden, transitions = graphed_steps(
+                params, env_state, stats, hidden, generator)
+        else:
+            env_state, stats, hidden, trs = steps(
+                params, env_state, stats, hidden, generator, num_steps,
+                reset_states)
+            transitions = stack(trs)
         return RolloutResult(env_state, stats, transitions, hidden, hidden0)
 
+    rollout.graphs = graphs
     return rollout
+
+
+def stack(steps: Sequence[Transition]) -> Transition:
+    """Time-major ``(T, N, ...)`` transitions from T steps'."""
+    return Transition(**{
+        name: torch.stack([getattr(s, name) for s in steps])
+        for name in Transition.__dataclass_fields__})
 
 
 @torch.no_grad()

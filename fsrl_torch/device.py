@@ -19,3 +19,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "fsrl_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph
+    (:mod:`fsrl_torch.trainer.graphs`); False on a machine without
+    CUDA."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())

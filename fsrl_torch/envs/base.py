@@ -115,6 +115,17 @@ class SafeEnv:
             t=torch.where(done, fresh.t, new_state.t))
         return reset_state, ts
 
+    def _constant(self, name: str, values, like: Tensor) -> Tensor:
+        """A constant tensor of ``values`` in ``like``'s dtype and device,
+        made once for each: a step captured into a CUDA graph cannot copy
+        from the host."""
+        cache = self.__dict__.setdefault("_constants", {})
+        key = (name, like.dtype, like.device)
+        if key not in cache:
+            cache[key] = torch.tensor(values, dtype=like.dtype,
+                                      device=like.device)
+        return cache[key]
+
     # --- subclass hooks ---
     def _init_sim(self, n_envs: int, generator: torch.Generator) -> dict:
         raise NotImplementedError

@@ -71,9 +71,9 @@ class DroneEnv(SafeEnv):
         body_z = torch.stack([torch.sin(pitch),
                               -torch.sin(roll) * torch.cos(pitch),
                               torch.cos(roll) * torch.cos(pitch)], 1)
-        gravity = action.new_tensor([0.0, 0.0, G])
+        gravity = self._constant("gravity", [0.0, 0.0, G], action)
         acc = (thrust[:, None] * body_z - gravity
-               - action.new_tensor(LIN_DRAG) * sim["vel"])
+               - self._constant("drag", LIN_DRAG, action) * sim["vel"])
         vel = sim["vel"] + DT * acc
         pos = sim["pos"] + DT * vel
         return dict(pos=pos, vel=vel, att=att, angvel=angvel)

@@ -286,7 +286,7 @@ class PushEnv(_NavEnv):
         pmin = PILLAR_RADIUS + ROBOT_RADIUS
         pnormal = torch.where(
             (pd > 1e-6)[:, None], prel / torch.clamp(pd, min=1e-6)[:, None],
-            torch.tensor([1.0, 0.0], device=pos.device))
+            self._constant("x_axis", [1.0, 0.0], pos))
         pos = torch.where((pd < pmin)[:, None], sim["pillar"] + pnormal * pmin,
                           pos)
         return dict(sim, pos=pos, vel=vel, box=box)
@@ -322,9 +322,9 @@ class PushEnv(_NavEnv):
         reached = bg_after < GOAL_RADIUS
         reward = (bg_before - bg_after) + 0.5 * (rb_before - rb_after) \
             + GOAL_BONUS * reached.float()
-        radii = torch.tensor([self.hazard_radius] * self.n_hazards
-                             + [PILLAR_RADIUS + ROBOT_RADIUS + 1e-3],
-                             device=sim["pos"].device)
+        radii = self._constant(
+            "radii", [self.hazard_radius] * self.n_hazards
+            + [PILLAR_RADIUS + ROBOT_RADIUS + 1e-3], sim["pos"])
         cost = _any_within(self._obstacles(sim), sim["pos"], radii)
         return reward, cost.float()[:, None]
 

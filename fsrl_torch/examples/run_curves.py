@@ -12,14 +12,14 @@ Writes one JSON per (algo, seed), ``<outdir>/<task>-<algo>-s<seed>.json``
 with the JAX runner's keys, then rewrites the directory's summary tables
 (:func:`fsrl_torch.examples.make_summaries.summarize_dir`).
 
-It differs from the JAX runner in three ways:
+The off-policy trainer gets the JAX runner's ``update_chunk=256`` and
+``fuse_iters=off_fuse_iters``: on the card its dispatches replay CUDA
+graphs (:mod:`fsrl_torch.trainer.graphs`). It differs from the JAX runner
+in two ways:
 
 * the default ``outdir`` is ``logs/curves`` (git ignores ``logs/``), and a
   run refuses to write into the repository's ``benchmarks/``, which holds
   the JAX package's committed results;
-* ``off_fuse_iters`` is accepted and not passed on: the port's trainers
-  have no ``fuse_iters``. ``update_chunk=256`` is passed, and changes
-  nothing in the port's off-policy trainer;
 * no retries: the JAX runner tries a run three times (for flaky remote
   compiles); here an exception ends the run with a nonzero exit status.
 """
@@ -56,6 +56,17 @@ AGENTS = {
 BENCHMARKS = Path(__file__).resolve().parents[2] / "benchmarks"
 
 
+def results_dir(outdir: str) -> Path:
+    """``outdir``, resolved and made; refused inside the repository's
+    ``benchmarks/``, which holds the JAX package's committed results."""
+    out = Path(outdir).resolve()
+    if out == BENCHMARKS or BENCHMARKS in out.parents:
+        raise ValueError(f"{outdir} lies in benchmarks/, which holds the "
+                         "JAX package's committed results")
+    os.makedirs(out, exist_ok=True)
+    return out
+
+
 @dataclass
 class CurveCfg:
     task: str = "SafetyBallRun-v0"
@@ -67,7 +78,8 @@ class CurveCfg:
     steps_per_collect: int = 500
     off_n_envs: int = 8
     off_steps_per_collect: int = 125
-    off_fuse_iters: int = 10        # accepted, not passed on (no fuse_iters)
+    # 10 cycles of 1,000-step collects a dispatch (one graph on the card)
+    off_fuse_iters: int = 10
     episode_per_test: int = 10
     algos: str = "ppol,trpol,cpo,focops,ddpgl,sacl,cvpo"
     seeds: str = "0"
@@ -118,7 +130,8 @@ def run_one(cfg: CurveCfg, key: str, seed: int) -> dict:
     else:
         common.update(n_envs=cfg.off_n_envs,
                       steps_per_collect=cfg.off_steps_per_collect,
-                      update_per_step=0.2, update_chunk=256)
+                      update_per_step=0.2, update_chunk=256,
+                      fuse_iters=cfg.off_fuse_iters)
         tcls = OffpolicyTrainer
     # the trainer is driven epoch by epoch, so that each epoch's test is
     # recorded
@@ -160,11 +173,7 @@ def main(cfg: CurveCfg) -> list[dict]:
     unknown = [k for k in keys if k not in AGENTS]
     if unknown:
         raise KeyError(f"unknown algos {unknown}; known: {sorted(AGENTS)}")
-    out = Path(cfg.outdir).resolve()
-    if out == BENCHMARKS or BENCHMARKS in out.parents:
-        raise ValueError(f"{cfg.outdir} lies in benchmarks/, which holds the "
-                         "JAX package's committed results")
-    os.makedirs(out, exist_ok=True)
+    out = results_dir(cfg.outdir)
     rows = []
     for key in keys:
         for seed in (int(s) for s in cfg.seeds.split(",")):

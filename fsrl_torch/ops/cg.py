@@ -88,7 +88,7 @@ def backtrack_fractions(coeff: float, max_backtracks: int,
                         like: Tensor) -> Tensor:
     """``coeff ** arange(max_backtracks)`` in ``like``'s dtype and device."""
     return torch.pow(
-        torch.as_tensor(coeff, dtype=like.dtype, device=like.device),
+        torch.full((), coeff, dtype=like.dtype, device=like.device),
         torch.arange(max_backtracks, dtype=like.dtype, device=like.device))
 
 

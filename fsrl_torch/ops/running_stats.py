@@ -38,7 +38,7 @@ class RunningMeanStd:
             m2 = (batch.var(0, unbiased=False) * batch.shape[0]
                   + batch.shape[0] * (r_mean - b_mean) ** 2)
             (b_var,) = dp.weighted_sum(1.0 / n, m2)
-        b_count = torch.tensor(float(n), device=batch.device)
+        b_count = torch.full((), float(n), device=batch.device)
         delta = b_mean - self.mean
         tot = self.count + b_count
         new_mean = self.mean + delta * b_count / tot

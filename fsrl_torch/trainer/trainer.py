@@ -33,14 +33,33 @@ whose results and generator state are broadcast before the best result and
 alone writes the logger and the checkpoints; ``resume_from`` loads on every
 rank, and the step counters come from rank 0's logger.
 
-Not ported yet: ``fuse_iters``, ``rollout_unroll`` and a working
-``update_chunk``.
+Dispatch settings: where the JAX trainers put several steps into one
+compiled dispatch, the port replays a CUDA graph of the eager code on the
+card (:mod:`fsrl_torch.trainer.graphs`), with the results of the eager
+code:
+
+* ``fuse_iters`` = k (both trainers): k collect-and-update cycles a
+  dispatch, one graph; an epoch counts ``T * n_envs * k`` env steps a
+  dispatch, and the train metrics and episode statistics are the last
+  cycle's;
+* ``update_chunk`` (off-policy): the collect's grad steps in JAX's
+  ``chunk_sizes``, each chunk of more than one step one graph;
+* ``rollout_unroll`` = u (on-policy, with ``fuse_iters`` 1): the rollout
+  in graphs of u env steps.
+
+The first dispatch of each graph runs eagerly, as its warm-up. On the CPU
+these settings change nothing but the step accounting. Under a mesh the k
+cycles and the chunks run one after another without a graph: gloo's
+collectives pass through the host. ``dispatch_mode`` says which. Unlike
+JAX, which splits a key for each chunk, the port draws from one generator
+in sequence, so ``update_chunk`` does not change its results.
 """
 
 from __future__ import annotations
 
 import os.path as osp
 import time
+from functools import partial
 from typing import Callable, Optional
 
 import numpy as np
@@ -53,6 +72,7 @@ from fsrl_torch.envs.base import SafeEnv
 from fsrl_torch.parallel.mesh import (DPGroup, EnvRows, check_rank_device,
                                       make_mesh, replicate_tree,
                                       shard_env_state)
+from fsrl_torch.trainer.graphs import Dispatch
 from fsrl_torch.types import EpisodeStats
 from fsrl_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from fsrl_torch.utils.logger import BaseLogger, DummyLogger
@@ -84,7 +104,12 @@ class BaseTrainer:
     episode-exact test, best-result tracking, ``stop_fn`` and speed
     counters. ``state`` may be passed in (the agent does); otherwise it is
     ``algo.init(seed)``. ``mesh`` (or ``use_default_mesh``, which builds
-    :func:`make_mesh`) trains data parallel over its ranks."""
+    :func:`make_mesh`) trains data parallel over its ranks. Each dispatch
+    runs ``fuse_iters`` cycles (:meth:`cycle`); the attributes named in
+    ``CARRY`` are what a cycle replaces, and what a graph of the dispatch
+    carries."""
+
+    CARRY = ("state", "env_state", "stats")
 
     def __init__(self, algo, env: SafeEnv,
                  logger: Optional[BaseLogger] = None, *, epochs: int = 100,
@@ -95,8 +120,9 @@ class BaseTrainer:
                  mesh=None, use_default_mesh: bool = False,
                  seed: int = 0, verbose: bool = True,
                  resume_from: Optional[str] = None, log_every: int = 1,
-                 state=None):
+                 state=None, fuse_iters: int = 1):
         self.algo, self.env = algo, env
+        self.fuse_iters = max(1, int(fuse_iters))
         self.device = algo.device
         self.mesh = mesh or (make_mesh() if use_default_mesh else None)
         self.dp = None if self.mesh is None else DPGroup.of(self.mesh)
@@ -149,9 +175,52 @@ class BaseTrainer:
         # host seconds spent in the epochs' train iterations
         self.collect_time = 0.0
         self.last_metrics: dict = {}
+        # the graph of a whole dispatch, where there is one
+        self.graph: Dispatch | None = None
+        self.dispatch_mode = "eager"
+
+    def _graphs_off(self) -> str:
+        """Why this trainer replays no graph whatever its settings, or ''
+        if it may."""
+        if self.device.type != "cuda":
+            return "on the CPU"
+        if self.dp is not None:
+            return "data parallel: gloo's collectives pass through the host"
+        return ""
+
+    def _fuse_graph(self) -> None:
+        """With ``fuse_iters`` > 1 on the card, the graph of a dispatch."""
+        off = self._graphs_off()
+        if self.fuse_iters > 1 and not off:
+            self.graph = Dispatch(self._cycles, (self.generator,),
+                                  name=f"{self.fuse_iters} cycles")
+            self.dispatch_mode = f"graph of {self.fuse_iters} cycles"
+        elif self.fuse_iters > 1:
+            self.dispatch_mode = f"eager ({off})"
+
+    def cycle(self) -> dict:
+        """One collect and update, eagerly: the work a dispatch repeats
+        ``fuse_iters`` times. Returns the metrics as tensors."""
+        raise NotImplementedError
+
+    def _cycles(self, carry: tuple) -> tuple[tuple, dict]:
+        """``fuse_iters`` cycles from ``carry`` (the ``CARRY``
+        attributes): the new carry and the last cycle's metrics."""
+        for name, value in zip(self.CARRY, carry):
+            setattr(self, name, value)
+        for _ in range(self.fuse_iters):
+            metrics = self.cycle()
+        return tuple(getattr(self, name) for name in self.CARRY), metrics
 
     def _run_iter(self) -> dict:
-        raise NotImplementedError
+        """One dispatch: ``fuse_iters`` cycles, replayed from the graph
+        where there is one; then the train log."""
+        run = self._cycles if self.graph is None else self.graph
+        carry, metrics = run(tuple(getattr(self, n) for n in self.CARRY))
+        for name, value in zip(self.CARRY, carry):
+            setattr(self, name, value)
+        self._log_train(self.stats, metrics)
+        return metrics
 
     def test_step(self) -> tuple[float, float, float]:
         """The episode-exact test; under a mesh on rank 0, whose results
@@ -191,7 +260,7 @@ class BaseTrainer:
         self.epoch += 1
         t0 = time.time()
         steps_this_epoch = 0
-        steps_per_iter = self.T * self.n_envs
+        steps_per_iter = self.T * self.n_envs * self.fuse_iters
         while steps_this_epoch < self.step_per_epoch:
             self._run_iter()
             steps_this_epoch += steps_per_iter
@@ -253,18 +322,35 @@ class BaseTrainer:
 class OnpolicyTrainer(BaseTrainer):
     """Collect a segment, step the PID multiplier, update the policy on the
     whole segment: the on-policy schedule. A recurrent algorithm's hidden
-    state carries across the collects."""
+    state carries across the collects.
 
-    def __init__(self, *args, **kwargs):
+    ``fuse_iters`` = k runs k cycles a dispatch, on the card from one CUDA
+    graph; ``rollout_unroll`` = u > 1 with ``fuse_iters`` 1 runs the
+    rollout in graphs of u env steps on the card (the module's
+    docstring)."""
+
+    CARRY = ("state", "env_state", "stats", "hidden")
+
+    def __init__(self, *args, rollout_unroll: int = 1, **kwargs):
         super().__init__(*args, **kwargs)
+        self.rollout_unroll = max(1, int(rollout_unroll))
         init_hidden = getattr(self.algo, "init_hidden", None)
         self.recurrent = init_hidden is not None
+        self._fuse_graph()
+        unroll = 1
+        if self.fuse_iters == 1 and self.rollout_unroll > 1:
+            off = self._graphs_off()
+            unroll = 1 if off else self.rollout_unroll
+            self.dispatch_mode = (f"eager ({off})" if off else
+                                  f"eager; rollout in graphs of {unroll} "
+                                  f"steps")
         self.rollout = make_rollout_fn(self.env, self.algo.act_fn, self.T,
-                                       self.device, init_hidden=init_hidden)
+                                       self.device, init_hidden=init_hidden,
+                                       unroll=unroll)
         # the fresh carry is zeros, so the rank's block of it is its own
         self.hidden = init_hidden(self.n_local) if self.recurrent else None
 
-    def _run_iter(self) -> dict:
+    def cycle(self) -> dict:
         res = self.rollout(self.state.params, self.env_state,
                            self.stats.reset_aggregates(), self.draw,
                            hidden=self.hidden)
@@ -282,7 +368,6 @@ class OnpolicyTrainer(BaseTrainer):
                 self.state, res.transitions, stats.mean_cost,
                 stats.n_episodes, self.generator, **dp)
         self.env_state, self.stats = res.env_state, stats
-        self._log_train(self.stats, metrics)
         return metrics
 
 
@@ -295,12 +380,17 @@ class OffpolicyTrainer(BaseTrainer):
     the n-step view, the grad steps, ``post_update``. The train metrics are
     the last grad step's.
 
+    The grad steps go in JAX's ``chunk_sizes``: ``update_chunk`` clamped to
+    ``[1, n_updates]``, repeated, then the remainder. On the card each chunk
+    of more than one step replays a CUDA graph, captured once for each
+    fill count of the buffer until it is full; with ``fuse_iters`` = k > 1
+    the k whole cycles are one graph instead.
+
     The buffer holds ``max(buffer_size // n_envs, T)`` rows per env (under
     a mesh each rank the columns of its envs). It is not checkpointed
-    (neither is JAX's). ``update_chunk`` is accepted for the JAX package's
-    signature: there it groups grad steps into one XLA dispatch, here every
-    grad step is issued on its own and the value changes nothing.
-    ``fuse_iters`` is not ported."""
+    (neither is JAX's)."""
+
+    CARRY = ("state", "env_state", "stats", "buf_state")
 
     def __init__(self, *args, buffer_size: int = 100000,
                  update_per_step: float = 0.2, update_chunk: int = 32,
@@ -316,8 +406,27 @@ class OffpolicyTrainer(BaseTrainer):
                                           env.action_size, env.num_costs)
         self.n_updates = max(1, int(round(update_per_step * self.T
                                           * self.n_envs)))
+        chunk = max(1, min(self.n_updates, int(update_chunk)))
+        self.chunk_sizes = [chunk] * (self.n_updates // chunk)
+        if self.n_updates % chunk:
+            self.chunk_sizes.append(self.n_updates % chunk)
         self.rollout = make_rollout_fn(env, algo.act_fn, self.T, self.device)
         self.view = None
+        self._fuse_graph()
+        # n -> the graph of a chunk of n grad steps
+        self.chunk_graphs: dict[int, Dispatch] = {}
+        off = self._graphs_off()
+        if self.fuse_iters == 1 and not off:
+            self.chunk_graphs = {
+                n: Dispatch(partial(self._grad_steps, n=n),
+                            (self.generator,), name=f"{n} grad steps")
+                for n in sorted(set(self.chunk_sizes)) if n > 1}
+            if self.chunk_graphs:
+                self.dispatch_mode = (
+                    "eager collect; grad steps in graphs of "
+                    + ", ".join(map(str, self.chunk_graphs)))
+        elif self.fuse_iters == 1 and chunk > 1:
+            self.dispatch_mode = f"eager ({off})"
 
     def collect(self) -> None:
         """Rollout, buffer write, the per-collect hooks and the n-step
@@ -337,24 +446,32 @@ class OffpolicyTrainer(BaseTrainer):
             self.state = algo.pre_update(self.state)
         self.view = make_nstep_view(self.buffer, self.buf_state)
 
-    def update(self) -> dict:
-        """The collect's grad steps, then ``post_update``; the last step's
-        metrics, as tensors."""
-        metrics = {}
+    def _grad_steps(self, state, buf_state, view, n: int):
+        """``n`` grad steps from ``state``: the new state and the last
+        step's metrics."""
         dp = {} if self.dp is None else dict(dp=self.dp)
-        for _ in range(self.n_updates):
-            self.state, metrics = self.algo.update_step(
-                self.state, self.buffer, self.buf_state, self.generator,
-                view=self.view, **dp)
+        metrics = {}
+        for _ in range(n):
+            state, metrics = self.algo.update_step(
+                state, self.buffer, buf_state, self.generator, view=view,
+                **dp)
+        return state, metrics
+
+    def update(self) -> dict:
+        """The collect's grad steps, chunk by chunk (each from its graph
+        where it has one), then ``post_update``; the last step's metrics,
+        as tensors."""
+        metrics = {}
+        for n in self.chunk_sizes:
+            run = self.chunk_graphs.get(n) or partial(self._grad_steps, n=n)
+            self.state, metrics = run(self.state, self.buf_state, self.view)
         if hasattr(self.algo, "post_update"):
             self.state = self.algo.post_update(self.state)
         return metrics
 
-    def _run_iter(self) -> dict:
+    def cycle(self) -> dict:
         self.collect()
-        metrics = self.update()
-        self._log_train(self.stats, metrics)
-        return metrics
+        return self.update()
 
 
 def onpolicy_trainer(*args, **kwargs) -> dict:

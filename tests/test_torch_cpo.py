@@ -160,6 +160,32 @@ def test_line_search_group_boundary(monkeypatch):
         assert torch.equal(out[group][0], out[1][0])
 
 
+@pytest.mark.parametrize("group", [1, 3, 10])
+def test_line_search_under_a_capture_keeps_the_first_accepted(monkeypatch,
+                                                              group):
+    """While a CUDA graph captures the update (no host sync) every group
+    is evaluated and the first accepted candidate kept on the device: the
+    index and parameters of the host's early exit."""
+    params = _params()
+    b = _batch()
+    out = {}
+    for capturing in (False, True):
+        monkeypatch.setattr(tcpo, "LS_GROUP", group)
+        monkeypatch.setattr(tcpo, "capturing", lambda: capturing)
+        talgo = CPO(D, A, hidden_sizes=HIDDEN, target_kl=DELTA, device="cpu")
+        tstate = talgo.init(state_dict=state_dict(params))
+        out[capturing] = talgo.trust_region_step(
+            tstate.params, split_flat(tstate.params, tstate.flat)[0],
+            *(torch.from_numpy(b[k]) for k in
+              ("obs", "act", "logp_old", "advR", "advC")),
+            torch.tensor(20.0), torch.tensor(30.0))
+    (eager, em), (graph, gm) = out[False], out[True]
+    assert int(em["loss/backtracks"]) > 3
+    assert torch.equal(eager, graph)
+    for k in ("loss/backtracks", "loss/ls_ok", "loss/step_size"):
+        assert torch.equal(em[k], gm[k]), k
+
+
 UPDATE_CASES = {
     "default": dict(),
     "repeat2": dict(repeat=2, optim_critic_iters=5),

@@ -507,3 +507,99 @@ def test_offpolicy_update_step_on_the_card_matches_the_cpu(cuda, name):
     assert set(mc) == set(mg)
     for k in mc:
         assert mg[k] == pytest.approx(mc[k], rel=1e-4, abs=1e-5), k
+
+
+# --------------------------------------------------------------- CUDA graphs
+def _same(a, b):
+    """Two trainers' state, env state and statistics equal bit for bit."""
+    from fsrl_torch.utils.checkpoint import to_state_dict
+
+    def flat(d, p=""):
+        if isinstance(d, dict):
+            for k, v in d.items():
+                yield from flat(v, f"{p}.{k}")
+        else:
+            yield p, d
+    for name in ("state", "stats"):
+        sa, sb = (dict(flat(to_state_dict(getattr(t, name)))) for t in (a, b))
+        assert all(torch.equal(sa[k], sb[k]) for k in sa), name
+    assert torch.equal(a.env_state.obs, b.env_state.obs)
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+def _onpolicy(**kw):
+    from fsrl_torch.agent import PPOLagAgent
+    from fsrl_torch.trainer import OnpolicyTrainer
+    agent = PPOLagAgent("SafetyCarCircle-v0", cost_limit=10.0, repeat=2,
+                        n_minibatches=2)
+    return OnpolicyTrainer(agent.algo, agent.env, None, n_envs=64,
+                           steps_per_collect=16, seed=0, verbose=False,
+                           state=agent.state, **kw)
+
+
+def test_fused_dispatch_replays_the_eager_cycles(cuda):
+    """``fuse_iters`` 2: the eager warm-up, then one capture replayed; 3
+    dispatches equal 6 eager cycles bit for bit, and the capture launched
+    each kernel twice the eager cycle's count."""
+    g, e = _onpolicy(fuse_iters=2), _onpolicy()
+    for _ in range(3):
+        g._run_iter()
+    for _ in range(6):
+        e.cycle()
+    assert g.dispatch_mode == "graph of 2 cycles"
+    assert (g.graph.captures, g.graph.replays) == (1, 2)
+    assert dict(g.graph.launches) == {"gae": 2, "fused_ppo_grad_f32": 8}
+    _same(g, e)
+
+
+def test_rollout_unroll_replays_the_eager_rollout(cuda):
+    """``rollout_unroll`` 5 over 16 steps: graphs of 5 steps, 3 a rollout,
+    and one of the last step."""
+    g, e = _onpolicy(rollout_unroll=5), _onpolicy()
+    for _ in range(3):
+        g._run_iter()
+        e.cycle()
+    assert sorted(n for n, _ in g.rollout.graphs) == [1, 5]
+    assert all(d.replays for d in g.rollout.graphs.values())
+    _same(g, e)
+
+
+def test_chunk_graphs_replay_the_eager_grad_steps(cuda):
+    """``update_chunk`` 8 of 20 grad steps a collect: graphs of 8 and 4
+    steps, the first call of each eager; the buffer fills in the second
+    collect, after which the graphs are kept and replayed; equal to
+    ``update_chunk`` 1 (no graph)."""
+    from fsrl_torch.agent import SACLagAgent
+    from fsrl_torch.trainer import OffpolicyTrainer
+
+    def trainer(chunk):
+        agent = SACLagAgent("SafetyBallCircle-v0", cost_limit=10.0,
+                            batch_size=64)
+        return OffpolicyTrainer(agent.algo, agent.env, None, n_envs=4,
+                                steps_per_collect=25, buffer_size=200,
+                                update_per_step=0.2, update_chunk=chunk,
+                                seed=0, verbose=False, state=agent.state)
+    g, e = trainer(8), trainer(1)
+    for _ in range(4):
+        g._run_iter()
+        e._run_iter()
+    assert g.chunk_sizes == [8, 8, 4] and sorted(g.chunk_graphs) == [4, 8]
+    # 8 steps: the warm-up and a capture at 25 rows filled, a capture at
+    # 50 (full), replayed 1 + 2 + 2 + 2 times
+    assert (g.chunk_graphs[8].captures, g.chunk_graphs[8].replays) == (2, 7)
+    assert (g.chunk_graphs[4].captures, g.chunk_graphs[4].replays) == (1, 3)
+    _same(g, e)
+    for name in vars(g.buf_state.data):
+        assert torch.equal(getattr(g.buf_state.data, name),
+                           getattr(e.buf_state.data, name))
+
+
+def test_dispatch_refuses_a_nested_capture(cuda):
+    from fsrl_torch.trainer.graphs import Dispatch
+    inner = Dispatch(lambda c: (c + 1, None), name="inner")
+    x = torch.zeros(2, device=cuda)
+    inner(x)                                  # the warm-up
+    outer = Dispatch(lambda c: (inner(c)[0], None), name="outer")
+    outer(x)
+    with pytest.raises(RuntimeError, match="inside another"):
+        outer(x)

@@ -27,13 +27,17 @@ TINY = ["--device", "cpu", "--task", "SafetyBallCircle-v0", "--seeds", "0",
         "--off_steps_per_collect", "50", "--episode_per_test", "1"]
 
 
-def _jax_summaries():
+def _jax_module(name):
     spec = importlib.util.spec_from_file_location(
-        "jax_make_summaries", ROOT / "benchmarks" / "make_summaries.py")
+        f"jax_{name}", ROOT / "benchmarks" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod      # its dataclass looks itself up there
     spec.loader.exec_module(mod)
     return mod
+
+
+def _jax_summaries():
+    return _jax_module("make_summaries")
 
 
 @pytest.mark.parametrize("algo,extra,more", [
@@ -81,6 +85,27 @@ def test_runner_overrides_match_jax():
     assert run_curves.agent_kwargs(cfg, "cpo") == {"sigma_floor": -2.0}
     assert run_curves.agent_kwargs(run_curves.CurveCfg(), "ddpgl") == {
         "lagrangian_pid": (0.05, 0.0005, 0.1)}
+
+
+def test_runner_passes_jax_off_policy_dispatch_settings(monkeypatch,
+                                                       tmp_path):
+    """The runner's off-policy trainer gets JAX's ``fuse_iters``
+    (``off_fuse_iters``, ``benchmarks/run_curves.py:103-104``) and
+    ``update_chunk``; the on-policy one neither."""
+    jax_cfg = _jax_module("run_curves").CurveCfg()
+    assert run_curves.CurveCfg().off_fuse_iters == jax_cfg.off_fuse_iters
+    built = []
+
+    class Recorded(run_curves.OffpolicyTrainer):
+        def __init__(self, *args, **kwargs):
+            built.append(kwargs)
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(run_curves, "OffpolicyTrainer", Recorded)
+    run_curves.main(TINY + ["--algos", "sacl", "--off_fuse_iters", "2",
+                            "--outdir", str(tmp_path)])
+    (kw,) = built
+    assert (kw["fuse_iters"], kw["update_chunk"]) == (2, 256)
 
 
 def test_runner_refuses_benchmarks_and_unknown_algos(tmp_path):

@@ -3,10 +3,15 @@ rows each rank owns (``chip_smoke.py``'s ``_shares``), on the CPU: two
 gloo ranks (this file run as a script, each under a timeout) and the one
 process agree bit for bit after an iteration at ``dp_blocks`` 2 (each
 minibatch's halves) and at ``dp_blocks`` 1 (the global shuffle, uneven
-shares). The card runs the same check on K2 (``phase_dp``)."""
+shares). The card runs the same check on K2 (``phase_dp``).
+
+The ranks meet through a file store in the test's own directory, not a
+TCP port: a port found free and released before rank 0 binds it can be
+taken in between by a socket of the tests that run beside this one
+(``-n 6``), and rank 0 then fails. ``init_multihost``'s TCP rendezvous is
+tested in ``tests/test_torch_parallel.py``."""
 
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -30,22 +35,16 @@ def _trainer(blocks: int, seed: int, mesh=None):
                            state=agent.state)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.mark.parametrize("blocks,seed", [(2, 3), (1, 3), (1, 4)])
 def test_ranks_equal_one_process_on_their_shares(tmp_path, blocks, seed):
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     torch.set_num_threads(1)
-    port = str(_free_port())
+    store = str(tmp_path / "store")
     outs = [tmp_path / f"rank{r}.pt" for r in range(2)]
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), port, str(blocks), str(seed),
+        [sys.executable, __file__, str(r), store, str(blocks), str(seed),
          str(outs[r])], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(2)]
     for p in procs:
@@ -59,11 +58,13 @@ def test_ranks_equal_one_process_on_their_shares(tmp_path, blocks, seed):
 
 
 if __name__ == "__main__":
-    rank, port, blocks, seed, out = sys.argv[1:6]
+    rank, store, blocks, seed, out = sys.argv[1:6]
     torch.set_num_threads(1)
-    from fsrl_torch.parallel.mesh import init_multihost, make_multihost_mesh
-    init_multihost(f"localhost:{port}", 2, int(rank), backend="gloo",
-                   device="cpu")
+    import torch.distributed as dist
+
+    from fsrl_torch.parallel.mesh import make_multihost_mesh
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=2, rank=int(rank))
     tr = _trainer(int(blocks), int(seed), make_multihost_mesh(device="cpu"))
     tr._run_iter()
     torch.save(tr.state.flat.clone(), out)

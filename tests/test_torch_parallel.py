@@ -6,6 +6,7 @@ from JAX's initial weights, and the test process runs the same cases in one
 process. The block-local shuffle (``dp_blocks``) is held to JAX's."""
 
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -36,11 +37,26 @@ RTOL, ATOL = 2e-4, 2e-5
 
 
 def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    """A free TCP port below the kernel's ephemeral range, for rank 0's
+    store. Rank 0 binds it seconds after this check; an ephemeral port
+    found free could be handed out in that gap to a socket of the tests
+    running beside this one (gloo's pairs and stores, ``-n 6``), and rank
+    0 would then fail. The kernel hands out no port below its range."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except OSError:
+        low = 32768
+    rng = random.Random()
+    for _ in range(200):
+        port = rng.randrange(max(1024, low - 10000), low)
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free port below the ephemeral range")
 
 
 def _launch(mode: str, src: str, dst: str) -> list:
