@@ -129,7 +129,9 @@ Phases, each of which must pass:
    ``fuse_iters`` 8 (``bench.py:114``: 8 K1 and 256 K2 a dispatch),
    f32 at hidden (256, 256), TRPO-Lag (DroneRun), CPO (AntRun) and
    recurrent PPO-Lag (PointGoal1) with ``fuse_iters`` 2, PPO-Lag bf16
-   with ``rollout_unroll`` 8 (its rollout timed alone too); DDPG-Lag,
+   with ``rollout_unroll`` 8 (its rollout timed alone too), recurrent
+   PPO-Lag with ``rollout_unroll`` 8 over 3 rollouts (the update's BPTT
+   start is the carry the rollout's graphs were given); DDPG-Lag,
    SAC-Lag and CVPO at the off-policy shape with ``update_chunk`` 256 and
    ``fuse_iters`` 2 (JAX's benchmark fuses 8; cut for the script's
    time), and their chunk graphs; each path's mode, launches a dispatch
@@ -164,9 +166,11 @@ Phases, each of which must pass:
    ``--use_mesh true`` (NCCL, one rank); then the training-quality entry
    points: ``[curves ppol]`` and ``[curves sacl]``, the learning-curve
    runner (``fsrl_torch.examples.run_curves``) for one epoch of
-   SafetyCarCircle-v0 and SafetyBallCircle-v0 (its JSON keys those of the
-   JAX runner's committed result, the summary table written, exactly 1
-   K1 and 16 K2 launches on ``ppol``, none on ``sacl``);
+   SafetyCarCircle-v0 and two of SafetyBallCircle-v0, whose second epoch
+   captures and replays the runner's graph of 10 off-policy cycles (its
+   JSON keys those of the JAX runner's committed result, the summary
+   table written, exactly 1 K1 and 16 K2 launches on ``ppol``, none on
+   ``sacl``);
    ``[customized ...]``, the hand-assembled loops
    (``fsrl_torch.examples.customized``): ``train_ppol`` for 2 iterations
    (2 K1, 32 K2), then ``eval_ppol`` on its run directory, whose
@@ -2323,21 +2327,22 @@ GRAPH_RTOL, GRAPH_ATOL = 2e-4, 2e-5
 
 
 def _print_modes(where: str = "") -> None:
-    """From here on, each on- or off-policy trainer built in this process
-    prints its dispatch mode (graphs or eager, and why) once built; a
-    trainer built as the one before it prints nothing."""
-    from fsrl_torch.trainer import OffpolicyTrainer, OnpolicyTrainer
-    last = []
-    for cls in (OnpolicyTrainer, OffpolicyTrainer):
-        def init(self, *args, __init=cls.__init__, **kwargs):
-            __init(self, *args, **kwargs)
-            line = (f"[mode{where}] {type(self).__name__} {self.n_envs} envs"
-                    f" x {self.T} steps, fuse_iters {self.fuse_iters}: "
-                    f"{self.dispatch_mode}")
-            if last != [line]:
-                print(line, flush=True)
-                last[:] = [line]
-        cls.__init__ = init
+    """From here on, print each on- or off-policy trainer's dispatch mode
+    (graphs or eager, and why), which it logs once built; a trainer built
+    as the one before it prints nothing."""
+    import logging
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter(f"[mode{where}] %(message)s"))
+    last = [None]
+
+    def changed(record) -> bool:
+        line = record.getMessage()
+        new, last[0] = line != last[0], line
+        return new
+    handler.addFilter(changed)
+    log = logging.getLogger("fsrl_torch.trainer.trainer")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
 
 
 def _card() -> str:
@@ -2350,40 +2355,19 @@ def _card() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def _tree_tensors(tree, prefix: str = "") -> dict:
-    """Every tensor of ``tree`` by path, modules' parameters and buffers
-    included."""
-    import dataclasses
-
-    import torch
-    from torch import nn
-    if isinstance(tree, torch.Tensor):
-        return {prefix: tree}
-    if isinstance(tree, nn.Module):
-        return {f"{prefix}.{k}": v for k, v in tree.state_dict().items()}
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        items = [(f.name, getattr(tree, f.name))
-                 for f in dataclasses.fields(tree)]
-    elif isinstance(tree, dict):
-        items = list(tree.items())
-    elif isinstance(tree, (list, tuple)):
-        items = list(enumerate(tree))
-    else:
-        return {}
-    out = {}
-    for k, v in items:
-        out.update(_tree_tensors(v, f"{prefix}.{k}"))
-    return out
-
-
 def _graph_groups(tr) -> dict:
-    """What a dispatch changes, by group, as tensors by path."""
-    groups = dict(params=tr.state, env=tr.env_state, stats=tr.stats)
+    """What a dispatch changes, by group, as lists of tensors: the
+    training state as its checkpoint holds it, the rest as the graphs
+    flatten it."""
+    from fsrl_torch.trainer.graphs import flatten
+    from fsrl_torch.utils.checkpoint import to_state_dict
+    groups = dict(params=to_state_dict(tr.state), env=tr.env_state,
+                  stats=tr.stats)
     if getattr(tr, "hidden", None) is not None:
         groups["hidden"] = tr.hidden
     if hasattr(tr, "buf_state"):
         groups["buffer"] = tr.buf_state
-    return {k: _tree_tensors(v) for k, v in groups.items()}
+    return {k: flatten(v)[0] for k, v in groups.items()}
 
 
 def _graph_diff(tag: str, got: dict, ref: dict) -> tuple[dict, bool]:
@@ -2394,22 +2378,21 @@ def _graph_diff(tag: str, got: dict, ref: dict) -> tuple[dict, bool]:
     diffs, exact = {}, True
     for group, tensors in got.items():
         worst = 0.0
-        if tensors.keys() != ref[group].keys():
+        if len(tensors) != len(ref[group]):
             fail(f"[graph {tag}] {group}: the trees differ")
-        for k, x in tensors.items():
-            y = ref[group][k]
+        for k, (x, y) in enumerate(zip(tensors, ref[group])):
             if x.shape != y.shape or x.dtype != y.dtype:
-                fail(f"[graph {tag}] {group}{k}: {x.dtype} {tuple(x.shape)}"
+                fail(f"[graph {tag}] {group}[{k}]: {x.dtype} {tuple(x.shape)}"
                      f" against {y.dtype} {tuple(y.shape)}")
             if torch.equal(x, y):
                 continue
             exact = False
             if not x.is_floating_point():
-                fail(f"[graph {tag}] {group}{k} differs from the eager "
+                fail(f"[graph {tag}] {group}[{k}] differs from the eager "
                      "cycle's")
             if not torch.allclose(x, y, rtol=GRAPH_RTOL, atol=GRAPH_ATOL,
                                   equal_nan=True):
-                fail(f"[graph {tag}] {group}{k}: beyond rtol {GRAPH_RTOL} / "
+                fail(f"[graph {tag}] {group}[{k}]: beyond rtol {GRAPH_RTOL} / "
                      f"atol {GRAPH_ATOL} of the eager cycle's")
             worst = max(worst, float((x.double() - y.double()).abs().max()))
         diffs[group] = worst
@@ -2431,7 +2414,7 @@ def _graph_onpolicy(tag: str, make_agent, fuse: int = 1, unroll: int = 1,
     cycle's, and the ms of an iteration replayed and eager. Returns the
     graphed trainer, the eager one and the readings."""
     from fsrl_torch.ops import kernels
-    from fsrl_torch.trainer import OnpolicyTrainer
+    from fsrl_torch.trainer import OnpolicyTrainer, graphs
 
     def trainer(**kw):
         agent = make_agent()
@@ -2448,22 +2431,23 @@ def _graph_onpolicy(tag: str, make_agent, fuse: int = 1, unroll: int = 1,
     per_cycle = _k12(kernels.LAUNCHES)
     eager = [first_ms] + [_timed(ref.cycle)[1] for _ in range(cycles - 1)]
     kernels.reset_launch_counts()
+    graphs.CAPTURES.clear()
+    graphs.REPLAYS.clear()
     times = [_timed(tr._run_iter)[1] for _ in range(dispatches)]
     counted = _k12(kernels.LAUNCHES)
     diffs, exact = _graph_diff(tag, _graph_groups(tr), _graph_groups(ref))
     if tr.graph is not None:
-        graphs = [tr.graph]
         per_dispatch = _k12(tr.graph.launches)
         expect = {k: fuse * v for k, v in per_cycle.items()}
         # the eager warm-up and the capture are what Python counted
         path = {k: v * (1 + tr.graph.replays)
                 for k, v in per_dispatch.items()}
     else:
-        graphs = list(tr.rollout.graphs.values())
         per_dispatch = {k: v // dispatches for k, v in counted.items()}
         expect = per_cycle
         path = counted
-    if not graphs or not all(g.replays for g in graphs):
+    if not graphs.REPLAYS or not all(
+            graphs.REPLAYS[k] for k in graphs.CAPTURES):
         fail(f"[graph {tag}] no graph was replayed ({tr.dispatch_mode})")
     if per_dispatch != expect or not per_dispatch:
         fail(f"[graph {tag}] a dispatch launched {per_dispatch}, the eager "
@@ -2475,8 +2459,8 @@ def _graph_onpolicy(tag: str, make_agent, fuse: int = 1, unroll: int = 1,
           f"{cycles} cycles each; largest differences {diffs} "
           f"({'bit for bit' if exact else 'NOT bit for bit'}); launches a "
           f"dispatch {per_dispatch} (eager cycle {per_cycle}), "
-          f"{sum(g.replays for g in graphs)} replays, "
-          f"{sum(g.captures for g in graphs)} captures; {replay_ms:.2f} ms "
+          f"{sum(graphs.REPLAYS.values())} replays, "
+          f"{sum(graphs.CAPTURES.values())} captures; {replay_ms:.2f} ms "
           f"an iteration replayed against "
           f"{eager_ms:.2f} eager (dispatches {[round(t, 1) for t in times]}"
           f" ms: warm-up, capture and replay, replays); {_card()}",
@@ -2496,12 +2480,19 @@ def _graph_rollout_ms(tr, reps: int = 3) -> float:
 
 def _graph_clone_into(dst, src) -> None:
     """``dst`` (a trainer built alike) continues from where ``src`` is:
-    its state, env state, statistics, buffer and generator."""
+    its state (through a checkpoint), env state, statistics, buffer and
+    generator."""
     import dataclasses
-    for name in ("state", "env_state", "stats", "buf_state"):
-        d, s = (_tree_tensors(getattr(t, name)) for t in (dst, src))
-        for k, x in d.items():
-            x.copy_(s[k])
+
+    from fsrl_torch.trainer.graphs import flatten
+    from fsrl_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    path = ROOT / "logs" / "chip_smoke_graph_state.pt"
+    save_checkpoint(str(path), src.state)
+    load_checkpoint(str(path), dst.state)
+    path.unlink()
+    for name in ("env_state", "stats", "buf_state"):
+        for x, y in zip(*(flatten(getattr(t, name))[0] for t in (dst, src))):
+            x.copy_(y)
     dst.buf_state = dataclasses.replace(dst.buf_state,
                                         filled=src.buf_state.filled)
     dst.generator.set_state(src.generator.get_state())
@@ -2533,7 +2524,7 @@ def _graph_offpolicy(name: str) -> dict:
     n_upd = ref.n_updates
     kernels.reset_launch_counts()
     warm_ms = _timed(fused._run_iter)[1]
-    after_warm = {g: {k: v.clone() for k, v in t.items()}
+    after_warm = {g: [v.clone() for v in t]
                   for g, t in _graph_groups(fused).items()}
     _graph_clone_into(ref, fused)
     eager = []
@@ -2615,6 +2606,13 @@ def phase_graphs() -> tuple:
           f"{r['rollout_replay_ms']:.2f} ms in graphs of {GRAPH_UNROLL} "
           f"steps against {r['rollout_eager_ms']:.2f} eager; {_card()}",
           flush=True)
+    # the recurrent update reads the carry at each segment's start, which
+    # the rollout's graphs must leave as it was: 3 rollouts, the last two
+    # from the carry the graphs wrote
+    out["ppo_lag_rnn_unroll8"] = _graph_onpolicy(
+        "ppo_lag_rnn unroll 8", lambda: RecurrentPPOLagAgent(
+            NAV_TASK, cost_limit=10.0), unroll=GRAPH_UNROLL,
+        dispatches=3)[2]
     for name in ("ddpg_lag", "sac_lag", "cvpo"):
         for label, r in _graph_offpolicy(name).items():
             out[f"{name}_{label.replace(' ', '')}"] = r
@@ -3203,47 +3201,53 @@ def _counted(fn):
 
 def phase_curves() -> dict:
     """``[curves]``: the port's learning-curve runner
-    (``fsrl_torch.examples.run_curves``), one epoch each of ``ppol`` on
-    SafetyCarCircle-v0 (20 envs x 500 steps, one collect) and ``sacl`` on
-    SafetyBallCircle-v0 (8 envs x 125 steps, ten collects of 200 grad
-    steps), on the card, at the runner's defaults otherwise: its JSON keys
-    are those of the JAX runner's committed result (``CURVES_REF``), the
-    summary table lists both, the ``ppol`` run launches K1 and the K2 form
-    ``kernel_form`` picks, the ``sacl`` run none. Returns the launches by
+    (``fsrl_torch.examples.run_curves``) on the card at its defaults: one
+    epoch of ``ppol`` on SafetyCarCircle-v0 (20 envs x 500 steps, one
+    collect) and two of ``sacl`` on SafetyBallCircle-v0 (8 envs x 125
+    steps; an epoch is one dispatch of ten collects of 200 grad steps, the
+    first the eager warm-up, the second the capture of their graph and its
+    replay). Its JSON keys are those of the JAX runner's committed result
+    (``CURVES_REF``), the summary table lists both, the ``ppol`` run
+    launches K1 and the K2 form ``kernel_form`` picks, the ``sacl`` run
+    none and replays its graph of 10 cycles. Returns the launches by
     run."""
     import shutil
 
     from fsrl_torch.envs import make
     from fsrl_torch.examples import run_curves
+    from fsrl_torch.trainer import graphs
     outdir = ROOT / "logs" / "chip_smoke_curves"
     shutil.rmtree(outdir, ignore_errors=True)
     with open(CURVES_REF) as f:
         ref_keys = set(json.load(f))
     counts = {}
-    for key, task, budget in (("ppol", "SafetyCarCircle-v0", "--budget"),
-                              ("sacl", "SafetyBallCircle-v0",
-                               "--off_budget")):
+    for key, task, budget, epochs in (
+            ("ppol", "SafetyCarCircle-v0", "--budget", 1),
+            ("sacl", "SafetyBallCircle-v0", "--off_budget", 2)):
+        graphs.CAPTURES.clear()
+        graphs.REPLAYS.clear()
         (row,), secs, launches = _counted(lambda: run_curves.main([
             "--task", task, "--algos", key, "--seeds", "0", budget,
-            "10000", "--outdir", str(outdir)]))
+            str(10000 * epochs), "--outdir", str(outdir)]))
         path = outdir / f"{task}-{key}-s0.json"
         with open(path) as f:
             keys = set(json.load(f))
         summary = outdir / f"summary-{task}.md"
-        print(f"[curves {key}] {task}, one epoch of 10,000 env steps: "
-              f"{secs:.1f} s, reward {row['final_reward']:.2f} cost "
+        print(f"[curves {key}] {task}, {epochs} epochs of 10,000 env "
+              f"steps: {secs:.1f} s, reward {row['final_reward']:.2f} cost "
               f"{row['final_cost']:.2f}, best {row['best_reward']:.2f} / "
               f"{row['best_cost']:.2f}, {row['steps_per_s']:.0f} env-steps/s"
-              f"; launches {launches}; keys as the JAX runner's "
-              f"{keys == ref_keys}", flush=True)
+              f"; launches {launches}; graph captures "
+              f"{dict(graphs.CAPTURES)}, replays {dict(graphs.REPLAYS)}; "
+              f"keys as the JAX runner's {keys == ref_keys}", flush=True)
         if keys != ref_keys:
             fail(f"[curves {key}] keys {sorted(keys ^ ref_keys)} differ "
                  f"from {CURVES_REF.name}'s")
         if not all(math.isfinite(row[k]) for k in (
                 "final_reward", "final_cost", "best_reward", "best_cost")) \
-                or len(row["curve"]["reward"]) != 1:
+                or len(row["curve"]["reward"]) != epochs:
             fail(f"[curves {key}] a result is not finite or the curve is "
-                 f"not one epoch: {row}")
+                 f"not {epochs} epochs: {row}")
         if not summary.is_file() or f"| {key} | 0 |" not in \
                 summary.read_text():
             fail(f"[curves {key}] the summary {summary} lacks the run")
@@ -3255,6 +3259,10 @@ def phase_curves() -> dict:
                      f"got {launches}")
         elif launches:
             fail(f"[curves sacl] the off-policy path launched {launches}")
+        elif (dict(graphs.CAPTURES), dict(graphs.REPLAYS)) != (
+                {"10 cycles": 1}, {"10 cycles": 1}):
+            fail("[curves sacl] expected one capture and one replay of the "
+                 "graph of 10 cycles")
         counts[f"curves_{key}"] = launches
     shutil.rmtree(outdir, ignore_errors=True)
     return counts

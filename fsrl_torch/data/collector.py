@@ -74,8 +74,11 @@ def make_rollout_fn(env: SafeEnv, act_fn: ActFn, num_steps: int,
     steps run as CUDA graphs (:class:`fsrl_torch.trainer.graphs.Dispatch`)
     of u steps, replayed ``num_steps // u`` times, then one of the
     remaining steps, each replay's transitions copied into the segment;
-    the first rollout runs eagerly, as the graphs' warm-up. The segment is
-    the eager loop's, bit for bit; on the CPU ``unroll`` changes nothing.
+    each graph's first call runs eagerly, as its warm-up. The env state,
+    statistics and carry given to such a rollout are donated to the
+    graphs, which write into them (the carry at the segment's start comes
+    back as a copy). The segment is the eager loop's, bit for bit; on the
+    CPU ``unroll`` changes nothing.
 
     The rollout runs on ``device`` (CUDA unless ``"cpu"`` is given; raises
     without CUDA) and refuses env states elsewhere. ``generator`` draws the
@@ -170,6 +173,10 @@ def make_rollout_fn(env: SafeEnv, act_fn: ActFn, num_steps: int,
         hidden0 = hidden
         if (unroll > 1 and device.type == "cuda" and reset_states is None
                 and isinstance(generator, torch.Generator)):
+            if recurrent:
+                # the graphs write their new carry into the tensors they
+                # are given, this one among them
+                hidden0 = hidden.clone()
             env_state, stats, hidden, transitions = graphed_steps(
                 params, env_state, stats, hidden, generator)
         else:
@@ -179,7 +186,6 @@ def make_rollout_fn(env: SafeEnv, act_fn: ActFn, num_steps: int,
             transitions = stack(trs)
         return RolloutResult(env_state, stats, transitions, hidden, hidden0)
 
-    rollout.graphs = graphs
     return rollout
 
 

@@ -20,14 +20,24 @@ the port records the eager code once into a CUDA graph and replays it.
 The first call runs ``fn`` eagerly on the capture stream: the warm-up
 (cuBLAS handles, the kernel library, the autograd engine) that a capture
 needs, with the same results as any eager call. A later call captures
-``fn`` on a copy of the carry's structure whose tensors are the captured
-inputs, and each graph ends by copying the carry's new values into those
-inputs; then it replays. So the carry that comes back holds the captured
-inputs, which the next call passes again: each replay reads the previous
-one's result in place, as a donated JAX buffer would be reused. A call
-whose tensors are not the captured inputs (a state set from outside)
-copies its values into them first. A call with another structure captures
-anew; a ``Dispatch`` keeps one graph.
+``fn`` and replays it. A call with another structure captures anew; a
+``Dispatch`` keeps one graph.
+
+The carry is donated, as a JAX buffer under ``donate_argnums`` is. The
+graph's inputs are the carry's own tensors at capture: they cannot be
+copies, since the carry's modules may view them (PPO-Lag's parameters
+view its flat vector). Each graph ends by copying the new carry into
+those inputs, and the carry that comes back holds them; so each replay
+reads the previous one's result in place. A call given other tensors
+(a state set from outside) copies their values into the inputs first.
+So a later call writes into every carry tensor that a call was given or
+returned: a caller that needs such a tensor's value after the next call
+clones it. ``out`` lives in the graph's memory, and the next replay
+overwrites it too.
+
+The reads are the ``Dispatch``'s own: it clones them at capture and
+copies the caller's values into its clones at each call, so it never
+writes into a tensor that the caller only lent it.
 
 Random draws: every generator the function draws from is registered with
 the graph (``CUDAGraph.register_generator_state``), so each replay draws
@@ -38,9 +48,15 @@ Kernel launches: the kernel wrappers count their launches in Python
 (``fsrl_torch.ops.kernels.LAUNCHES``), which a replay does not run. A
 ``Dispatch`` keeps the launches counted while it captured (``launches``)
 and counts its replays (``replays``); a graphed path launched each kernel
-``launches[name] * replays`` times.
+``launches[name] * replays`` times. ``CAPTURES`` and ``REPLAYS`` count
+the captures and replays of every ``Dispatch`` by name, over the
+process, as ``LAUNCHES`` counts launches: a caller that cannot reach a
+path's ``Dispatch`` objects (a runner's trainer) reads them there.
 
-Nothing falls back: a capture or replay that fails raises. Data-parallel
+No garbage collection runs during a capture: a graph freed in it (a
+trainer gone out of use and its graph refer to each other, so the
+collector frees them) would end the capture. Nothing falls back: a
+capture or replay that fails raises. Data-parallel
 training (collectives through the host over gloo) is not graphed; the
 trainers run it eagerly.
 """
@@ -49,6 +65,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 from typing import Any, Callable, Hashable, Sequence
 
 import torch
@@ -58,6 +75,10 @@ from fsrl_torch.device import capturing
 from fsrl_torch.ops import kernels
 
 Tensor = torch.Tensor
+
+# captures and replays by dispatch name, over the process
+CAPTURES: collections.Counter = collections.Counter()
+REPLAYS: collections.Counter = collections.Counter()
 
 
 def flatten(tree: Any) -> tuple[list[Tensor], Hashable]:
@@ -200,6 +221,7 @@ class Dispatch:
         assign(flatten(cap.reads)[0], flatten(reads)[0])
         cap.graph.replay()
         self.replays += 1
+        REPLAYS[self.name] += 1
         return cap.carry, cap.out
 
     def _capture(self, key, carry, reads) -> _Captured:
@@ -208,29 +230,40 @@ class Dispatch:
             self.captured = None
         carry = distinct(carry)
         inputs, _ = flatten(carry)
+        reads = rebuild(reads, [x.clone() for x in flatten(reads)[0]])
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
         before = collections.Counter(kernels.LAUNCHES)
-        with self._side():
-            # the graph context makes its own stream wait for this one
-            with torch.cuda.graph(graph, stream=self.stream):
-                new, out = self.fn(carry, *reads)
-                new_leaves, _ = flatten(new)
-                if [_layout(x) for x in new_leaves] != [
-                        _layout(x) for x in inputs]:
-                    raise ValueError(
-                        f"{self.name}: the carry's tensors changed number, "
-                        "shape, dtype or place across the call")
-                # an output that is one of the inputs would change with
-                # the copies below
-                taken = {_storage(x) for x in inputs}
-                out_leaves, _ = flatten(out)
-                out = rebuild(out, [x.clone() if _storage(x) in taken
-                                    else x for x in out_leaves])
-                assign(inputs, new_leaves)
+        # a graph freed during the capture would end it, and the garbage
+        # collector frees graphs (a trainer and its graph's function refer
+        # to each other): it does not run in a capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with self._side():
+                # the graph context makes its own stream wait for this one
+                with torch.cuda.graph(graph, stream=self.stream):
+                    new, out = self.fn(carry, *reads)
+                    new_leaves, _ = flatten(new)
+                    if [_layout(x) for x in new_leaves] != [
+                            _layout(x) for x in inputs]:
+                        raise ValueError(
+                            f"{self.name}: the carry's tensors changed "
+                            "number, shape, dtype or place across the call")
+                    # an output that is one of the inputs would change
+                    # with the copies below
+                    taken = {_storage(x) for x in inputs}
+                    out_leaves, _ = flatten(out)
+                    out = rebuild(out, [x.clone() if _storage(x) in taken
+                                        else x for x in out_leaves])
+                    assign(inputs, new_leaves)
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.current_stream().wait_stream(self.stream)
         self.captures += 1
+        CAPTURES[self.name] += 1
         launches = collections.Counter(kernels.LAUNCHES)
         launches.subtract(before)
         self.captured = _Captured(

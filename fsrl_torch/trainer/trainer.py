@@ -50,13 +50,15 @@ code:
 The first dispatch of each graph runs eagerly, as its warm-up. On the CPU
 these settings change nothing but the step accounting. Under a mesh the k
 cycles and the chunks run one after another without a graph: gloo's
-collectives pass through the host. ``dispatch_mode`` says which. Unlike
-JAX, which splits a key for each chunk, the port draws from one generator
-in sequence, so ``update_chunk`` does not change its results.
+collectives pass through the host. ``dispatch_mode`` says which, and
+each trainer logs it once built (an INFO line on this module's logger).
+Unlike JAX, which splits a key for each chunk, the port draws from one
+generator in sequence, so ``update_chunk`` does not change its results.
 """
 
 from __future__ import annotations
 
+import logging
 import os.path as osp
 import time
 from functools import partial
@@ -76,6 +78,8 @@ from fsrl_torch.trainer.graphs import Dispatch
 from fsrl_torch.types import EpisodeStats
 from fsrl_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from fsrl_torch.utils.logger import BaseLogger, DummyLogger
+
+_log = logging.getLogger(__name__)
 
 
 def perf_is_better(new_rew, new_cost, old_rew, old_cost, cost_limit) -> bool:
@@ -197,6 +201,11 @@ class BaseTrainer:
             self.dispatch_mode = f"graph of {self.fuse_iters} cycles"
         elif self.fuse_iters > 1:
             self.dispatch_mode = f"eager ({off})"
+
+    def _log_mode(self) -> None:
+        _log.info("%s %d envs x %d steps, fuse_iters %d: %s",
+                  type(self).__name__, self.n_envs, self.T, self.fuse_iters,
+                  self.dispatch_mode)
 
     def cycle(self) -> dict:
         """One collect and update, eagerly: the work a dispatch repeats
@@ -349,6 +358,7 @@ class OnpolicyTrainer(BaseTrainer):
                                        unroll=unroll)
         # the fresh carry is zeros, so the rank's block of it is its own
         self.hidden = init_hidden(self.n_local) if self.recurrent else None
+        self._log_mode()
 
     def cycle(self) -> dict:
         res = self.rollout(self.state.params, self.env_state,
@@ -427,6 +437,7 @@ class OffpolicyTrainer(BaseTrainer):
                     + ", ".join(map(str, self.chunk_graphs)))
         elif self.fuse_iters == 1 and chunk > 1:
             self.dispatch_mode = f"eager ({off})"
+        self._log_mode()
 
     def collect(self) -> None:
         """Rollout, buffer write, the per-collect hooks and the n-step

@@ -555,13 +555,43 @@ def test_fused_dispatch_replays_the_eager_cycles(cuda):
 def test_rollout_unroll_replays_the_eager_rollout(cuda):
     """``rollout_unroll`` 5 over 16 steps: graphs of 5 steps, 3 a rollout,
     and one of the last step."""
+    from fsrl_torch.trainer import graphs
+    graphs.CAPTURES.clear()
+    graphs.REPLAYS.clear()
     g, e = _onpolicy(rollout_unroll=5), _onpolicy()
     for _ in range(3):
         g._run_iter()
         e.cycle()
-    assert sorted(n for n, _ in g.rollout.graphs) == [1, 5]
-    assert all(d.replays for d in g.rollout.graphs.values())
+    # each graph's first call is its warm-up: 5 steps captured in the
+    # first rollout, the last step in the second
+    assert graphs.CAPTURES == {"rollout of 5 steps": 1,
+                               "rollout of 1 steps": 1}
+    assert graphs.REPLAYS == {"rollout of 5 steps": 8,
+                              "rollout of 1 steps": 2}
     _same(g, e)
+
+
+def test_recurrent_rollout_unroll_replays_the_eager_cycles(cuda):
+    """Recurrent PPO-Lag with ``rollout_unroll`` 5 over 16 steps: the
+    update's BPTT start is the carry at the segment's start, which the
+    rollout's graphs are given and write into. 4 cycles, the last three
+    from a carry a graph wrote, equal the eager cycles bit for bit."""
+    from fsrl_torch.agent import RecurrentPPOLagAgent
+    from fsrl_torch.trainer import OnpolicyTrainer
+
+    def trainer(**kw):
+        agent = RecurrentPPOLagAgent("SafetyCarCircle-v0", cost_limit=10.0,
+                                     repeat=2, n_minibatches=2)
+        return OnpolicyTrainer(agent.algo, agent.env, None, n_envs=64,
+                               steps_per_collect=16, seed=0, verbose=False,
+                               state=agent.state, **kw)
+    g, e = trainer(rollout_unroll=5), trainer()
+    for _ in range(4):
+        g._run_iter()
+        e.cycle()
+    assert g.dispatch_mode == "eager; rollout in graphs of 5 steps"
+    _same(g, e)
+    assert torch.equal(g.hidden, e.hidden)
 
 
 def test_chunk_graphs_replay_the_eager_grad_steps(cuda):
@@ -592,6 +622,44 @@ def test_chunk_graphs_replay_the_eager_grad_steps(cuda):
     for name in vars(g.buf_state.data):
         assert torch.equal(getattr(g.buf_state.data, name),
                            getattr(e.buf_state.data, name))
+
+
+def test_no_garbage_collection_during_a_capture(cuda):
+    """A graph in a reference cycle (as a trainer and its graph's function
+    are) is freed by the garbage collector, and freeing it during another
+    graph's capture would end that capture: here a captured graph's last
+    holder becomes cyclic garbage inside another capture, with the
+    collector at its most eager."""
+    import gc
+
+    from fsrl_torch.trainer.graphs import Dispatch
+
+    def captured():
+        d = Dispatch(lambda c: (c * 2, None), name="garbage")
+        x = torch.ones(4, device=cuda)
+        for _ in range(2):                    # the warm-up, then a capture
+            x, _ = d(x)
+        return [d]
+    held = captured()
+
+    def fn(c):
+        if torch.cuda.is_current_stream_capturing():
+            cycle = [held.pop()]              # a young cycle, its only holder
+            cycle.append(cycle)
+            del cycle
+            [[] for _ in range(1000)]         # a collection's worth
+        return c + 1, None
+    live = Dispatch(fn, name="live")
+    x = torch.zeros(4, device=cuda)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        for _ in range(3):                    # warm-up, capture, replay
+            x, _ = live(x)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert torch.equal(x, torch.full((4,), 3.0, device=cuda))
+    assert not held
 
 
 def test_dispatch_refuses_a_nested_capture(cuda):

@@ -181,3 +181,21 @@ def test_cycle_has_nothing_a_capture_refuses(monkeypatch, agent_cls, task):
     with HostReads() as reads:
         tr.cycle()
     assert not reads.hits, "\n".join(f"{n}\n{s}" for n, s in reads.hits)
+
+
+@pytest.mark.parametrize("fuse,chunk,mode", [
+    (2, 32, "eager (on the CPU)"), (1, 8, "eager (on the CPU)"),
+    (1, 1, "eager")], ids=["fuse", "chunk", "plain"])
+def test_trainers_log_their_dispatch_mode(caplog, fuse, chunk, mode):
+    """Each trainer logs its dispatch mode once, on its module's logger."""
+    caplog.set_level("INFO", logger="fsrl_torch.trainer.trainer")
+    agent = SACLagAgent("SafetyBallCircle-v0", cost_limit=10.0, seed=0,
+                        device="cpu", batch_size=16)
+    tr = OffpolicyTrainer(agent.algo, agent.env, None, n_envs=4,
+                          steps_per_collect=16, state=agent.state,
+                          verbose=False, update_per_step=0.25,
+                          buffer_size=1000, fuse_iters=fuse,
+                          update_chunk=chunk)
+    assert tr.dispatch_mode == mode
+    assert [r.getMessage() for r in caplog.records] == [
+        f"OffpolicyTrainer 4 envs x 16 steps, fuse_iters {fuse}: {mode}"]
