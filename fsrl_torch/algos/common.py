@@ -20,6 +20,7 @@ from fsrl_torch.nets.mlp import ActorCritic, GaussianActor, VCriticEnsemble
 from fsrl_torch.ops.gae_kernel import gae_advantages_fused
 from fsrl_torch.ops.lagrange import pid_controller_step, rescaling_factor
 from fsrl_torch.types import Transition
+from fsrl_torch.utils import profiling
 from fsrl_torch.utils.params import flatten_parameters_, unflatten
 
 Tensor = torch.Tensor
@@ -98,7 +99,9 @@ def process_rollout(critic_apply: Callable[[Tensor], Tensor], tr: Transition,
     env; those rows get one small gather, forward and scatter
     (:func:`_bootstrap_values`).
 
-    Returns the env-major flattened :class:`OnPolicyBatch`, and the updated
+    Ends with the trace's ``process.end`` mark
+    (:mod:`fsrl_torch.utils.profiling`). Returns the env-major flattened
+    :class:`OnPolicyBatch`, and the updated
     return statistics when ``ret_rms`` is given. Under data parallelism
     (``dp``, a :class:`fsrl_torch.parallel.mesh.DPGroup`) ``tr`` holds the
     rank's block of envs: GAE is per env and needs nothing from the other
@@ -144,6 +147,7 @@ def process_rollout(critic_apply: Callable[[Tensor], Tensor], tr: Transition,
     batch = OnPolicyBatch(obs=flat(tr.obs), act=flat(tr.act),
                           logp_old=flat(tr.logp), adv=flat(adv),
                           ret=flat(ret), value_old=flat(values))
+    profiling.mark("process.end", adv.device)
     return (batch, new_rms) if ret_rms is not None else batch
 
 

@@ -40,6 +40,7 @@ from fsrl_torch.nets.mlp import (RecurrentActorCritic, RecurrentGaussianActor,
 from fsrl_torch.ops.gae_kernel import gae_advantages_fused
 from fsrl_torch.ops.lagrange import PIDLagrangianState
 from fsrl_torch.types import Transition, is_epoch_end, owned_rows
+from fsrl_torch.utils import profiling
 from fsrl_torch.utils.params import flatten_parameters_, unflatten
 
 Tensor = torch.Tensor
@@ -235,6 +236,7 @@ class RecurrentPPOLag:
         adv, ret = gae_advantages_fused(
             metrics_of(tr).contiguous(), values.contiguous(),
             values_next.contiguous(), done, hp["gamma"], hp["gae_lambda"])
+        profiling.mark("process.end", dev)
 
         n_mb, repeat = hp["n_minibatches"], hp["repeat"]
         per_mb = N // n_mb

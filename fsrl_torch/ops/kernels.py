@@ -11,7 +11,8 @@ machine without ``nvcc``.
 
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel and nowhere else, so a run can show that its main path went through
-the kernels.
+the kernels. The trace's device marks (``marks.cu``, launched by
+:mod:`fsrl_torch.utils.profiling`) are not counted there.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("gae.cu", "fused_ppo_grad.cu", "fused_ppo_grad_f32.cu",
-           "fused_ppo_grad_any.cu")
+           "fused_ppo_grad_any.cu", "marks.cu")
 HEADERS = ("wgmma.cuh", "ppo_grad_common.cuh", "mma_tf32.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -137,6 +138,17 @@ def library() -> ctypes.CDLL:
     lib.fsrl_gae_time_tile.argtypes = []
     lib.fsrl_empty_launch.argtypes = [P]
     lib.fsrl_empty_launch.restype = I
+    # the trace's device marks (fsrl_torch.utils.profiling)
+    lib.fsrl_mark.argtypes = [I, I, P]
+    lib.fsrl_mark.restype = I
+    lib.fsrl_marks_capacity.argtypes = []
+    lib.fsrl_marks_capacity.restype = ctypes.c_long
+    lib.fsrl_marks_read.argtypes = [P, P]
+    lib.fsrl_marks_read.restype = I
+    lib.fsrl_marks_clock.argtypes = [P]
+    lib.fsrl_marks_clock.restype = I
+    lib.fsrl_marks_clock_read.argtypes = [P]
+    lib.fsrl_marks_clock_read.restype = I
     return lib
 
 

@@ -48,10 +48,14 @@ Kernel launches: the kernel wrappers count their launches in Python
 (``fsrl_torch.ops.kernels.LAUNCHES``), which a replay does not run. A
 ``Dispatch`` keeps the launches counted while it captured (``launches``)
 and counts its replays (``replays``); a graphed path launched each kernel
-``launches[name] * replays`` times. ``CAPTURES`` and ``REPLAYS`` count
-the captures and replays of every ``Dispatch`` by name, over the
-process, as ``LAUNCHES`` counts launches: a caller that cannot reach a
-path's ``Dispatch`` objects (a runner's trainer) reads them there.
+``launches[name] * replays`` times. So with the trace's device marks
+(:mod:`fsrl_torch.utils.profiling`): a graph keeps how many it holds and
+tells the trace at each replay, which is traced as the host span
+``graphs.replay``, labelled with the ``Dispatch``'s name. ``CAPTURES``
+and ``REPLAYS`` count the captures and replays of every ``Dispatch`` by
+name, over the process, as ``LAUNCHES`` counts launches: a caller that
+cannot reach a path's ``Dispatch`` objects (a runner's trainer) reads
+them there.
 
 No garbage collection runs during a capture: a graph freed in it (a
 trainer gone out of use and its graph refer to each other, so the
@@ -73,6 +77,7 @@ from torch import nn
 
 from fsrl_torch.device import capturing
 from fsrl_torch.ops import kernels
+from fsrl_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -171,11 +176,12 @@ def distinct(tree: Any) -> Any:
 class _Captured:
     """One captured graph: its inputs, the carry and output it returns."""
 
-    def __init__(self, key, graph, inputs, reads, carry, out, launches):
+    def __init__(self, key, graph, inputs, reads, carry, out, launches,
+                 marks):
         self.key, self.graph = key, graph
         self.inputs, self.reads = inputs, reads
         self.carry, self.out = carry, out
-        self.launches = launches
+        self.launches, self.marks = launches, marks
 
 
 class Dispatch:
@@ -219,7 +225,9 @@ class Dispatch:
             cap = self._capture(key, carry, reads)
         assign(cap.inputs, flatten(carry)[0])
         assign(flatten(cap.reads)[0], flatten(reads)[0])
-        cap.graph.replay()
+        with profiling.span("graphs.replay", self.name):
+            cap.graph.replay()
+        profiling.replayed(cap.marks)
         self.replays += 1
         REPLAYS[self.name] += 1
         return cap.carry, cap.out
@@ -235,6 +243,7 @@ class Dispatch:
         for g in self.generators:
             graph.register_generator_state(g)
         before = collections.Counter(kernels.LAUNCHES)
+        marks = profiling.captured_marks()
         # a graph freed during the capture would end it, and the garbage
         # collector frees graphs (a trainer and its graph's function refer
         # to each other): it does not run in a capture
@@ -268,5 +277,5 @@ class Dispatch:
         launches.subtract(before)
         self.captured = _Captured(
             key, graph, inputs, reads, rebuild(new, inputs), out,
-            +launches)
+            +launches, profiling.captured_marks() - marks)
         return self.captured

@@ -76,6 +76,7 @@ from fsrl_torch.parallel.mesh import (DPGroup, EnvRows, check_rank_device,
                                       shard_env_state)
 from fsrl_torch.trainer.graphs import Dispatch
 from fsrl_torch.types import EpisodeStats
+from fsrl_torch.utils import profiling
 from fsrl_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from fsrl_torch.utils.logger import BaseLogger, DummyLogger
 
@@ -176,7 +177,8 @@ class BaseTrainer:
         self.best_rew, self.best_cost = -np.inf, np.inf
         self.has_best = False
         self.start_time = time.time()
-        # host seconds spent in the epochs' train iterations
+        # seconds of the epochs' train iterations, each epoch's to the
+        # drained device
         self.collect_time = 0.0
         self.last_metrics: dict = {}
         # the graph of a whole dispatch, where there is one
@@ -217,18 +219,21 @@ class BaseTrainer:
         attributes): the new carry and the last cycle's metrics."""
         for name, value in zip(self.CARRY, carry):
             setattr(self, name, value)
-        for _ in range(self.fuse_iters):
+        for i in range(self.fuse_iters):
+            profiling.set_cycle(i)
             metrics = self.cycle()
         return tuple(getattr(self, name) for name in self.CARRY), metrics
 
     def _run_iter(self) -> dict:
         """One dispatch: ``fuse_iters`` cycles, replayed from the graph
-        where there is one; then the train log."""
-        run = self._cycles if self.graph is None else self.graph
-        carry, metrics = run(tuple(getattr(self, n) for n in self.CARRY))
-        for name, value in zip(self.CARRY, carry):
-            setattr(self, name, value)
-        self._log_train(self.stats, metrics)
+        where there is one; then the train log. Traced as the span
+        ``trainer.dispatch``, which begins a dispatch number."""
+        with profiling.span("trainer.dispatch", dispatch=True):
+            run = self._cycles if self.graph is None else self.graph
+            carry, metrics = run(tuple(getattr(self, n) for n in self.CARRY))
+            for name, value in zip(self.CARRY, carry):
+                setattr(self, name, value)
+            self._log_train(self.stats, metrics)
         return metrics
 
     def test_step(self) -> tuple[float, float, float]:
@@ -264,17 +269,22 @@ class BaseTrainer:
         return self
 
     def __next__(self):
+        """One epoch. ``collect_time`` grows by the epoch's dispatches
+        (:meth:`_dispatch_seconds`); ``speed`` is the reference's: the env
+        steps over all the time since the trainer was built, the tests and
+        checkpoints included."""
         if self.epoch >= self.epochs:
             raise StopIteration
         self.epoch += 1
-        t0 = time.time()
-        steps_this_epoch = 0
+        t0 = time.perf_counter_ns()
+        steps_this_epoch, n = 0, 0
         steps_per_iter = self.T * self.n_envs * self.fuse_iters
         while steps_this_epoch < self.step_per_epoch:
             self._run_iter()
+            n += 1
             steps_this_epoch += steps_per_iter
             self.env_step += steps_per_iter
-        self.collect_time += time.time() - t0
+        self.collect_time += self._dispatch_seconds(t0, n)
 
         rew, cost, length = self.test_step()
         if perf_is_better(rew, cost, self.best_rew, self.best_cost,
@@ -301,6 +311,21 @@ class BaseTrainer:
             self.epoch = self.epochs
         return self.epoch, epoch_stats, info
 
+    def _dispatch_seconds(self, t0: int, n: int) -> float:
+        """The seconds of the ``n`` dispatches run since ``t0`` (ns of
+        ``time.perf_counter_ns``): their ``trainer.dispatch`` spans, the
+        last one to the drained device; where the trace does not hold
+        them all (off, or dropped), the whole time to the drained
+        device."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        end = time.perf_counter_ns()
+        spans = profiling.spans_since(t0, "trainer.dispatch")
+        if n and len(spans) == n:
+            return 1e-9 * (sum(s.end_ns - s.start_ns for s in spans[:-1])
+                           + end - spans[-1].start_ns)
+        return 1e-9 * (end - t0)
+
     def run(self) -> dict:
         info = {}
         for _, _, info in self:
@@ -314,10 +339,11 @@ class BaseTrainer:
         if self._iter_count % self.log_every:
             return
         names = list(metrics)
-        vals = torch.stack(
-            [stats.n_episodes.float(), stats.mean_reward,
-             stats.mean_cost.sum(), stats.mean_length]
-            + [metrics[k].float().reshape(()) for k in names]).tolist()
+        with profiling.span("trainer.log_readback"):
+            vals = torch.stack(
+                [stats.n_episodes.float(), stats.mean_reward,
+                 stats.mean_cost.sum(), stats.mean_length]
+                + [metrics[k].float().reshape(()) for k in names]).tolist()
         n_ep, rew, cost, length = vals[:4]
         if n_ep > 0:
             self.logger.store(tab="train", reward=rew, cost=cost,
@@ -361,9 +387,11 @@ class OnpolicyTrainer(BaseTrainer):
         self._log_mode()
 
     def cycle(self) -> dict:
+        profiling.mark("cycle.start", self.device)
         res = self.rollout(self.state.params, self.env_state,
                            self.stats.reset_aggregates(), self.draw,
                            hidden=self.hidden)
+        profiling.mark("rollout.end", self.device)
         stats = res.stats
         if self.dp is not None:
             stats = stats.merge_across(self.dp)
@@ -378,6 +406,7 @@ class OnpolicyTrainer(BaseTrainer):
                 self.state, res.transitions, stats.mean_cost,
                 stats.n_episodes, self.generator, **dp)
         self.env_state, self.stats = res.env_state, stats
+        profiling.mark("cycle.end", self.device)
         return metrics
 
 
@@ -441,21 +470,26 @@ class OffpolicyTrainer(BaseTrainer):
 
     def collect(self) -> None:
         """Rollout, buffer write, the per-collect hooks and the n-step
-        view."""
-        algo = self.algo
-        res = self.rollout(self.state.params, self.env_state,
-                           self.stats.reset_aggregates(), self.draw)
-        stats = res.stats
-        if self.dp is not None:
-            stats = stats.merge_across(self.dp)
-        self.env_state, self.stats = res.env_state, stats
-        self.buf_state = self.buffer.add_segment(self.buf_state,
-                                                 res.transitions)
-        self.state = algo.update_lagrangian(self.state, stats.mean_cost,
-                                            stats.n_episodes)
-        if hasattr(algo, "pre_update"):
-            self.state = algo.pre_update(self.state)
-        self.view = make_nstep_view(self.buffer, self.buf_state)
+        view; traced as the span ``collector.collect`` where it runs
+        eagerly, and marked ``rollout.end`` after the rollout and
+        ``process.end`` at its end."""
+        with profiling.span("collector.collect"):
+            algo = self.algo
+            res = self.rollout(self.state.params, self.env_state,
+                               self.stats.reset_aggregates(), self.draw)
+            profiling.mark("rollout.end", self.device)
+            stats = res.stats
+            if self.dp is not None:
+                stats = stats.merge_across(self.dp)
+            self.env_state, self.stats = res.env_state, stats
+            self.buf_state = self.buffer.add_segment(self.buf_state,
+                                                     res.transitions)
+            self.state = algo.update_lagrangian(self.state, stats.mean_cost,
+                                                stats.n_episodes)
+            if hasattr(algo, "pre_update"):
+                self.state = algo.pre_update(self.state)
+            self.view = make_nstep_view(self.buffer, self.buf_state)
+            profiling.mark("process.end", self.device)
 
     def _grad_steps(self, state, buf_state, view, n: int):
         """``n`` grad steps from ``state``: the new state and the last
@@ -481,8 +515,11 @@ class OffpolicyTrainer(BaseTrainer):
         return metrics
 
     def cycle(self) -> dict:
+        profiling.mark("cycle.start", self.device)
         self.collect()
-        return self.update()
+        metrics = self.update()
+        profiling.mark("cycle.end", self.device)
+        return metrics
 
 
 def onpolicy_trainer(*args, **kwargs) -> dict:

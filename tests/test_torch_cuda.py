@@ -671,3 +671,96 @@ def test_dispatch_refuses_a_nested_capture(cuda):
     outer(x)
     with pytest.raises(RuntimeError, match="inside another"):
         outer(x)
+
+
+# ------------------------------------------------------------- the trace
+def _marks_of(rec, d):
+    return [m for m in rec.marks if m.dispatch == d]
+
+
+def _inside_its_dispatch(rec, d, marks):
+    """Each mark, on the host clock, inside dispatch ``d``'s span (give or
+    take the calibration's error)."""
+    (span,) = [s for s in rec.spans
+               if s.name == "trainer.dispatch" and s.dispatch == d]
+    err = rec.calibration["error_ns"]
+    for m in marks:
+        assert span.start_ns - err <= m.t_ns <= span.end_ns + err, (d, m)
+
+
+def test_fused_replay_appends_four_marks_a_cycle(cuda):
+    """``fuse_iters`` 2: the eager warm-up marks as it goes, the capture
+    holds 8 marks, and each replay appends them: 4 a cycle in order, the
+    card's times rising, each inside its dispatch's span."""
+    from fsrl_torch.utils import profiling
+    profiling.enable(True)
+    profiling.reset()
+    g = _onpolicy(fuse_iters=2)
+    for _ in range(3):
+        g._run_iter()
+    assert g.graph.captured.marks == 8
+    rec = profiling.record()
+    assert rec.dispatches() == [1, 2, 3]
+    assert rec.calibration["error_ns"] < 1e6
+    for d in (1, 2, 3):
+        marks = _marks_of(rec, d)
+        assert [(m.cycle, m.name) for m in marks] == [
+            (c, n) for c in range(2) for n in profiling.MARKS]
+        t = [m.t_ns for m in marks]
+        assert t == sorted(t)
+        for c in range(2):
+            assert t[4 * c] < t[4 * c + 1] < t[4 * c + 2] < t[4 * c + 3]
+        _inside_its_dispatch(rec, d, marks)
+    replays = [s for s in rec.spans if s.name == "graphs.replay"]
+    assert [(s.dispatch, s.label) for s in replays] == [
+        (2, "2 cycles"), (3, "2 cycles")]
+
+
+@pytest.mark.parametrize("on", [True, False], ids=["traced", "untraced"])
+def test_traced_replay_equals_the_eager_cycles(cuda, on):
+    """A graph captured with the trace on holds its marks and still equals
+    the eager cycles bit for bit; one captured with it off holds none."""
+    from fsrl_torch.utils import profiling
+    profiling.enable(on)
+    try:
+        g, e = _onpolicy(fuse_iters=2), _onpolicy()
+        for _ in range(3):
+            g._run_iter()
+        for _ in range(6):
+            e.cycle()
+    finally:
+        profiling.enable(True)
+    assert g.graph.captured.marks == (8 if on else 0)
+    _same(g, e)
+
+
+def test_chunk_graph_dispatch_marks_and_spans(cuda):
+    """Off-policy with chunk graphs: each dispatch's four eager marks
+    inside its span, its ``collector.collect`` span, and a
+    ``graphs.replay`` span for each chunk graph it replays."""
+    from fsrl_torch.agent import SACLagAgent
+    from fsrl_torch.trainer import OffpolicyTrainer
+    from fsrl_torch.utils import profiling
+    profiling.enable(True)
+    profiling.reset()
+    agent = SACLagAgent("SafetyBallCircle-v0", cost_limit=10.0,
+                        batch_size=64)
+    tr = OffpolicyTrainer(agent.algo, agent.env, None, n_envs=4,
+                          steps_per_collect=25, buffer_size=100,
+                          update_per_step=0.2, update_chunk=8, seed=0,
+                          verbose=False, state=agent.state)
+    for _ in range(4):
+        tr._run_iter()
+    rec = profiling.record()
+    assert rec.dispatches() == [1, 2, 3, 4]
+    for d in (1, 2, 3, 4):
+        marks = _marks_of(rec, d)
+        assert [m.name for m in marks] == list(profiling.MARKS)
+        _inside_its_dispatch(rec, d, marks)
+        names = [s.name for s in rec.spans if s.dispatch == d]
+        assert names.count("collector.collect") == 1
+    # the first dispatch warms both graphs up eagerly; then 8, 8 and 4
+    # grad steps replay (the 4-step graph's first replay in dispatch 2)
+    assert [len([s for s in rec.spans if s.dispatch == d
+                 and s.name == "graphs.replay"]) for d in (1, 2, 3, 4)] == [
+        1, 3, 3, 3]
