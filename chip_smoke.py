@@ -12,7 +12,14 @@ Phases, each of which must pass:
    instance (fails if an instance that a training path launches spills);
    K2's generic form (``csrc/fused_ppo_grad_any.cu``): every kernel's
    registers and spills, its static shared memory, its scratch at the
-   largest cases;
+   largest cases; then the collector's rollout kernel
+   (``csrc/rollout.cu``, ``[rollout N x T]``) against the loop on
+   SafetyCarCircle-v0 with f32 PPO-Lag's actor at 4096 x 64 and 16384 x
+   16 from one generator state (clocks, done flags, costs and counts bit
+   for bit, the rest within 1e-4; the actions no farther from float64
+   than 4 times the loop's, which a TF32 actor exceeds; fed the loop's
+   actions, bit for bit), the kernel form, its launch alone and the loop
+   timed against the bound of the actor's f32 products;
 1. train: first one critic loss and gradient in the ensemble's form (a
    plain matmul chain per tower) against one matmul batched over the towers,
    at the whole batch and at one minibatch; then PPO-Lagrangian through the
@@ -23,8 +30,9 @@ Phases, each of which must pass:
    must have run; then 3 more iterations are timed; then f32 PPO-Lag, the
    config's default dtype, whose grad steps go through the f32 K2 kernel
    (three TF32 products for each product on the tensor cores): one
-   iteration with its launches counted (32), then 3 iterations with
-   collect and update timed apart;
+   iteration with its launches counted (32, and one rollout kernel
+   launch a collect), then 3 iterations with collect and update timed
+   apart;
    then, each with the launch counters zeroed before and read after, FOCOPS
    on SafetyCarCircle-v0 (repeat 4 x 8 minibatches), TRPO-Lagrangian on
    SafetyDroneRun-v0 (whose crashes terminate episodes) and CPO on
@@ -169,8 +177,8 @@ Phases, each of which must pass:
    SafetyCarCircle-v0 and two of SafetyBallCircle-v0, whose second epoch
    captures and replays the runner's graph of 10 off-policy cycles (its
    JSON keys those of the JAX runner's committed result, the summary
-   table written, exactly 1 K1 and 16 K2 launches on ``ppol``, none on
-   ``sacl``);
+   table written, exactly 1 K1, 16 K2 and 1 rollout kernel launches on
+   ``ppol``, none on ``sacl``);
    ``[customized ...]``, the hand-assembled loops
    (``fsrl_torch.examples.customized``): ``train_ppol`` for 2 iterations
    (2 K1, 32 K2), then ``eval_ppol`` on its run directory, whose
@@ -189,8 +197,9 @@ Phases, each of which must pass:
    replay runs no kernel wrapper, so the counters cannot show them);
    last, because the profiler leaves every later launch slower for the
    host;
-10. summary: one JSON line of kernels (K1, K2 bf16, K2 f32, and K2's
-   generic form in bf16 and f32; their launches by path, the
+10. summary: one JSON line of kernels (K1, K2 bf16, K2 f32, K2's
+   generic form in bf16 and f32, and the rollout kernel; their launches
+   by path, the
    data-parallel ranks' and the graphed paths' among them: a graphed
    path's launches are its capture's times one more than its replays,
    the eager warm-up included), the card's
@@ -420,6 +429,215 @@ def phase_build():
     return report
 
 
+# the collector's rollout kernel (csrc/rollout.cu) at the benchmark's two
+# PPO-Lag shapes, (envs, steps a collect)
+ROLLOUT_SHAPES = ((4096, 64), (16384, 16))
+ROLLOUT_TASK = "SafetyCarCircle-v0"
+# the kernel's states, observations, rewards, actions and log-probs against
+# the loop's (tests/test_torch_rollout_kernel.py's: the actor's sum order,
+# integrated over the segment's steps)
+ROLLOUT_TOL = dict(rtol=1e-4, atol=1e-4)
+# the kernel's actions may lie at most this many times as far from a
+# float64 evaluation of the actor as the loop's (cuBLAS's f32 products);
+# a TF32 actor (the control: TF32-rounded inputs, exact products) lies
+# farther, or the phase fails as unable to tell one
+ROLLOUT_F64_FACTOR = 4.0
+
+
+def _actor64(actor, obs, noise, tf32: bool = False):
+    """``act_fn``'s actions on ``obs`` and the actions' ``noise``, from the
+    actor's weights in float64 (the std is the actor's float32 one); with
+    ``tf32`` each product's inputs rounded to TF32 first, as a single TF32
+    product takes them."""
+    import torch
+
+    def rd(x):
+        x = x.float()
+        if tf32:
+            # round to nearest in the 10-bit mantissa (ties away)
+            i = x.view(torch.int32)
+            x = ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+        return x.double()
+
+    with torch.no_grad():
+        h = obs.double()
+        for layer in actor.trunk.layers:
+            h = torch.relu(rd(h) @ rd(layer.weight).T + layer.bias.double())
+        mu = rd(h) @ rd(actor.mu.weight).T + actor.mu.bias.double()
+        mean = actor.max_action * torch.tanh(mu)
+        return mean + actor.std().double() * noise.double()
+
+
+def phase_rollout() -> dict:
+    """``[rollout N x T]``: the collector's rollout kernel against its loop
+    on SafetyCarCircle-v0 with f32 PPO-Lag's actor, at the benchmark's
+    shapes (4096 x 64, 16384 x 16), both from one generator state, with
+    the launch counters and ``collector.ROLLOUTS`` zeroed just before:
+    the clocks, done flags, costs, counts and cost sums bit for bit; the
+    states, observations, rewards, actions and log-probs within
+    ``ROLLOUT_TOL``; the actions no farther from float64 than
+    ``ROLLOUT_F64_FACTOR`` times the loop's, which a TF32 actor exceeds;
+    fed the loop's actions, every output bit for bit but the episode
+    reward sum (within 1e-6 of the segment's summed reward magnitudes).
+    Then the kernel form (its draws and its launch), the launch alone and
+    the loop, each timed from a CUDA graph, against the bound of the
+    actor's f32 products and the segment's bytes. Returns the readings by
+    shape and the launches."""
+    import torch
+    from fsrl_torch.algos.ppo_lag import PPOLag
+    from fsrl_torch.data import collector
+    from fsrl_torch.envs import make
+    from fsrl_torch.ops import kernels
+    from fsrl_torch.ops import rollout_kernel as rk
+    from fsrl_torch.types import EpisodeStats
+
+    dev = torch.device("cuda")
+    env = make(ROLLOUT_TASK)
+    # the last layer unscaled: a mean of a trained policy's size, whose
+    # products' errors show in the actions above the rounding of the noise
+    # term (at 0.01 a TF32 actor lies only about 6 times as far from
+    # float64 as an f32 one; unscaled, hundreds of times)
+    algo = PPOLag(env.observation_size, env.action_size, device=dev,
+                  last_layer_scale=False)
+    params = algo.init(seed=0).params
+    actor = algo.rollout_actor(params)
+    if not rk.kernel_fits(env, actor):
+        fail(f"[rollout] f32 PPO-Lag on {ROLLOUT_TASK} is outside the "
+             f"kernel's envelope")
+    D, A, M, H = (env.observation_size, env.action_size, env.num_costs,
+                  rk.H)
+    out, launches = {}, {}
+    for N, T in ROLLOUT_SHAPES:
+        tag = f"rollout {N}x{T}"
+        g = torch.Generator(device=dev).manual_seed(7)
+        # staggered clocks, so that envs reset inside the segment
+        s0 = env.reset_vec(N, g, stagger=True)
+        stats = EpisodeStats.init(N, M, dev)
+        loop = collector.make_rollout_fn(env, algo.act_fn, T)
+        kern = collector.make_rollout_fn(env, algo.act_fn, T,
+                                         actor=algo.rollout_actor)
+        start = g.get_state()
+        kernels.reset_launch_counts()
+        collector.ROLLOUTS.clear()
+        ref = loop(params, s0, stats, g)
+        g.set_state(start)
+        got = kern(params, s0, stats, g)
+        g.set_state(start)
+        fed = rk.rollout_segment(env, actor, s0, stats, g, T, actions=(
+            ref.transitions.act, ref.transitions.logp))
+        g.set_state(start)
+        noise, _ = rk.segment_draws(env, T, N, g)
+        counted = (dict(kernels.LAUNCHES), dict(collector.ROLLOUTS))
+        if counted != ({"rollout": 2}, {"loop": 1, "kernel": 1}):
+            fail(f"[{tag}] launches {counted[0]}, rollouts {counted[1]}: "
+                 f"expected 2 kernel launches (the form and the fed "
+                 f"actions), one loop and one kernel rollout")
+        launches[f"rollout_{N}x{T}"] = counted[0]["rollout"]
+        rt, tr = ref.transitions, got.transitions
+        pairs = dict(
+            t=(got.env_state.t, ref.env_state.t),
+            **{k: (getattr(tr, k), getattr(rt, k))
+               for k in ("terminated", "truncated", "cost")},
+            **{k: (getattr(got.stats, k), getattr(ref.stats, k))
+               for k in ("n_episodes", "n_steps", "n_terminated",
+                         "n_truncated", "sum_cost", "sum_len", "ep_len",
+                         "ep_cost")})
+        unequal = [k for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+        if unequal:
+            fail(f"[{tag}] not bit for bit the loop's: {unequal}")
+        if int(got.stats.n_episodes) == 0:
+            fail(f"[{tag}] no episode ended in the segment")
+        close = dict(
+            **{k: (getattr(tr, k), getattr(rt, k))
+               for k in ("act", "logp", "obs", "obs_next", "reward")},
+            **{f"sim.{k}": (got.env_state.sim[k], v)
+               for k, v in ref.env_state.sim.items()},
+            obs_end=(got.env_state.obs, ref.env_state.obs),
+            sum_reward=(got.stats.sum_reward, ref.stats.sum_reward),
+            ep_reward=(got.stats.ep_reward, ref.stats.ep_reward))
+        gaps = {k: float((a.double() - b.double()).abs().max())
+                for k, (a, b) in close.items()}
+        far = [k for k, (a, b) in close.items()
+               if not torch.allclose(a, b, **ROLLOUT_TOL)]
+        if far:
+            fail(f"[{tag}] beyond {ROLLOUT_TOL} of the loop: "
+                 f"{ {k: gaps[k] for k in far} }")
+        # the actions against float64, each form on its own observations
+        exact = _actor64(actor, tr.obs, noise)
+        f64 = dict(
+            kernel=float((tr.act.double() - exact).abs().max()),
+            loop=float((rt.act.double() - _actor64(actor, rt.obs, noise)
+                        ).abs().max()),
+            tf32=float((_actor64(actor, tr.obs, noise, tf32=True) - exact
+                        ).abs().max()))
+        allowed = ROLLOUT_F64_FACTOR * f64["loop"]
+        if not f64["kernel"] <= allowed:
+            fail(f"[{tag}] the kernel's actions lie {f64['kernel']:.3g} from "
+                 f"float64, more than {ROLLOUT_F64_FACTOR} x the loop's "
+                 f"{f64['loop']:.3g}")
+        if not f64["tf32"] > allowed:
+            fail(f"[{tag}] a TF32 actor lies {f64['tf32']:.3g} from float64,"
+                 f" within the bound {allowed:.3g}: the check cannot tell")
+        # fed the loop's actions: the env, the resets and the accumulators
+        f_state, f_stats, f_tr = fed
+        fed_pairs = dict(
+            **{f"tr.{k}": (x, getattr(rt, k)) for k, x in vars(f_tr).items()},
+            **{f"sim.{k}": (f_state.sim[k], v)
+               for k, v in ref.env_state.sim.items()},
+            obs_end=(f_state.obs, ref.env_state.obs),
+            t=(f_state.t, ref.env_state.t),
+            **{f"stats.{k}": (x, getattr(ref.stats, k))
+               for k, x in vars(f_stats).items() if k != "sum_reward"})
+        unequal = [k for k, (a, b) in fed_pairs.items()
+                   if not torch.equal(a, b)]
+        scale = float(rt.reward.abs().sum())
+        r_gap = float((f_stats.sum_reward - ref.stats.sum_reward).abs())
+        if unequal or not r_gap <= 1e-6 * scale:
+            fail(f"[{tag}] fed the loop's actions, not bit for bit: "
+                 f"{unequal}; sum_reward {r_gap:.3g} (allowed "
+                 f"{1e-6 * scale:.3g})")
+        # times: the default generator, which a graph capture takes
+        dg = torch.cuda.default_generators[dev.index or 0]
+        form_ms = time_ms(lambda: kern(params, s0, stats, dg))
+        draws = rk.segment_draws(env, T, N, dg)
+        draws_ms = time_ms(lambda: rk.segment_draws(env, T, N, dg))
+        saved = rk.segment_draws
+        rk.segment_draws = lambda *a: draws
+        try:
+            launch_ms = time_ms(lambda: rk.rollout_segment(
+                env, actor, s0, stats, dg, T))
+        finally:
+            rk.segment_draws = saved
+        loop_ms = time_ms(lambda: loop(params, s0, stats, dg), reps=5,
+                          inner=1)
+        flops = 2 * T * N * (D * H + H * H + H * A)
+        per_env = sum(math.prod(s) for s in env._reset_draw_shapes(N)) // N
+        # the draws read, the transitions written (bool flags one byte)
+        nbytes = T * N * (4 * (A + per_env) + 4 * (2 * D + A + 2 + M) + 2)
+        ops_ms, bytes_ms = (1e3 * flops / F32_FLOP_PER_S,
+                            1e3 * nbytes / HBM_BYTES_PER_S)
+        r = dict(ms=form_ms, launch_ms=launch_ms, draws_ms=draws_ms,
+                 library_ms=loop_ms, bound_ms=max(ops_ms, bytes_ms),
+                 bound_by="f32 FMA" if ops_ms >= bytes_ms else "HBM",
+                 gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                 episodes=int(got.stats.n_episodes), f64_act=f64,
+                 max_gap=gaps, fed_sum_reward_gap=r_gap)
+        out[f"N{N}_T{T}"] = r
+        print(f"[{tag}] {ROLLOUT_TASK}, f32 PPO-Lag actor: bit for bit on "
+              f"{sorted(pairs)}; largest gaps to the loop {gaps}; actions "
+              f"from float64: kernel {f64['kernel']:.3g}, loop "
+              f"{f64['loop']:.3g}, a TF32 actor {f64['tf32']:.3g} (bound "
+              f"{allowed:.3g}); fed the loop's actions bit for bit, "
+              f"sum_reward within {r_gap:.3g}; {r['episodes']} episodes; "
+              f"kernel form {form_ms:.4f} ms (draws {draws_ms:.4f}, launch "
+              f"{launch_ms:.4f}), loop {loop_ms:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['gflop']:.3f} "
+              f"GFLOP, {r['mbytes']:.1f} MB; launch at "
+              f"{100 * r['bound_ms'] / launch_ms:.1f}% of it); {_card()}",
+              flush=True)
+    return dict(by_shape=out, launches=launches)
+
+
 def k2_instance(D: int, A: int, bf16: bool) -> tuple:
     """The K2 instance (form, KD or WIDE, AM) that the library launches at
     (D, A), as ``ptxas_report`` names it (the dispatch of
@@ -509,7 +727,9 @@ def phase_train_ppo_f32():
     through the agent API: one iteration plus the test with the launch
     counters read around it (32 launches of the f32 K2 kernel, the
     TF32-split tensor-core kernel), then 3 iterations with collect and
-    update timed apart and their launches counted."""
+    update timed apart and their launches counted; each collect is one
+    launch of the rollout kernel. Returns the launches of the iteration and
+    of the 3."""
     from fsrl_torch.agent import PPOLagAgent
     from fsrl_torch.ops import kernels
 
@@ -528,9 +748,11 @@ def phase_train_ppo_f32():
           f"launches {launches}", flush=True)
     if not metrics or not all(math.isfinite(v) for v in metrics.values()):
         fail(f"ppo_lag f32: non-finite or missing losses: {metrics}")
-    if not k2_only(launches, "fused_ppo_grad_f32", 32):
-        fail(f"ppo_lag f32: expected 32 launches of the f32 grad kernel "
-             f"and none of the bf16 one, got {launches}")
+    if not k2_only(launches, "fused_ppo_grad_f32", 32) or launches.get(
+            "rollout") != 1:
+        fail(f"ppo_lag f32: expected 32 launches of the f32 grad kernel, "
+             f"none of the bf16 one and 1 of the rollout kernel, got "
+             f"{launches}")
     kernels.reset_launch_counts()
     collect, update, steps = _timed_iterations(agent)
     timed = dict(kernels.LAUNCHES)
@@ -540,10 +762,11 @@ def phase_train_ppo_f32():
           f"{[round(u, 2) for u in update]}), "
           f"{N * T / ((c_ms + u_ms) / 1e3):.0f} env-steps/s; launches in "
           f"the 3 iterations {timed}", flush=True)
-    if not k2_only(timed, "fused_ppo_grad_f32", 96) or not all(
+    if not k2_only(timed, "fused_ppo_grad_f32", 96) or timed.get(
+            "rollout") != 3 or not all(
             math.isfinite(float(v)) for _, m, _ in steps for v in m.values()):
         fail(f"ppo_lag f32: the timed iterations launched {timed}")
-    return launches["fused_ppo_grad_f32"]
+    return launches, timed
 
 
 # the navigation path: observation 21, inside K2's widened envelope only
@@ -1115,9 +1338,13 @@ def phase_breakdown(tr, tag="breakdown"):
 def phase_train_algo(name, agent_cls, task, dtype, **algo_kw):
     """One of the trust-region / FOCOPS paths at full width: 3 iterations
     plus the test through ``learn`` with the launch counters read around
-    it, then 3 timed iterations. Returns the agent and K1's launch count."""
+    it, then 3 timed iterations; where the rollout kernel takes the env
+    and actor (f32 FOCOPS on SafetyCarCircle-v0), each collect is one launch
+    of it, else none. Returns the agent and the launches of ``learn``."""
     import torch
     from fsrl_torch.ops import kernels
+
+    from fsrl_torch.ops.rollout_kernel import kernel_fits
 
     N, T, iters = N_ENVS, T_STEPS, 3
     tag = f"train {name} {'bf16' if dtype else 'f32'}"
@@ -1145,6 +1372,10 @@ def phase_train_algo(name, agent_cls, task, dtype, **algo_kw):
              f"{iters} times")
     if any(launches.get(k, 0) for k in K2_NAMES):
         fail(f"{tag}: the PPO-Lag grad kernel is not on this path")
+    fits = kernel_fits(agent.env, agent.algo.rollout_actor(tr.state.params))
+    if launches.get("rollout", 0) != (iters if fits else 0):
+        fail(f"{tag}: {launches.get('rollout', 0)} rollout kernel launches "
+             f"in {iters} collects (the kernel takes the path: {fits})")
 
     collect, update, steps = _timed_iterations(agent)
     seen_term, backtracks = 0, []
@@ -1164,7 +1395,7 @@ def phase_train_algo(name, agent_cls, task, dtype, **algo_kw):
         fail(f"{tag}: no drone crashed: the env's terminations did not "
              "reach the collector")
     agent.state = tr.state
-    return agent, launches.get("gae", 0)
+    return agent, launches
 
 
 def phase_update_split(name, tr):
@@ -1288,24 +1519,26 @@ def phase_critic_forms():
 
 def phase_new_paths():
     """FOCOPS, TRPO-Lag and CPO at full width, f32 then bf16. Returns K1's
-    launch counts by path and the f32 agents (for the checkpoint phase and
-    the profiled breakdowns)."""
+    and the rollout kernel's launch counts by path and the f32 agents (for
+    the checkpoint phase and the profiled breakdowns)."""
     import torch
     from fsrl_torch.agent import CPOAgent, FOCOPSAgent, TRPOLagAgent
     paths = (("focops", FOCOPSAgent, "SafetyCarCircle-v0",
               dict(repeat=4, n_minibatches=8)),
              ("trpo_lag", TRPOLagAgent, "SafetyDroneRun-v0", {}),
              ("cpo", CPOAgent, "SafetyAntRun-v0", {}))
-    counts, f32_agents = {}, {}
+    counts, rollouts, f32_agents = {}, {}, {}
     for name, cls, task, kw in paths:
         for dtype in (None, torch.bfloat16):
-            agent, n_gae = phase_train_algo(name, cls, task, dtype, **kw)
-            counts[f"{name}_{'bf16' if dtype else 'f32'}"] = n_gae
+            agent, launches = phase_train_algo(name, cls, task, dtype, **kw)
+            key = f"{name}_{'bf16' if dtype else 'f32'}"
+            counts[key] = launches.get("gae", 0)
+            rollouts[key] = launches.get("rollout", 0)
             if dtype is None:
                 f32_agents[name] = agent
                 if name != "focops":
                     phase_update_split(name, agent.trainer)
-    return counts, f32_agents
+    return counts, rollouts, f32_agents
 
 
 def phase_checkpoint(agent, make_fresh, tag, learn_kw):
@@ -2682,16 +2915,22 @@ DP_TOL = {"f32": (2e-4, 2e-5), "bf16": (2e-4, 1.6e-3)}
 def _dp_ppo_trainer(dtype, mesh=None, blocks: int = 2,
                     seed: int = DP_SEED):
     """PPO-Lag at the benchmark width with ``dp_blocks`` ``blocks``, its
-    trainer data parallel over ``mesh`` (one process without)."""
+    trainer data parallel over ``mesh`` (one process without). The ranks'
+    rollout is the collector's loop (``EnvRows``), so the one process's is
+    too: a rollout given no ``actor``, which takes the loop."""
     from fsrl_torch.agent import PPOLagAgent
+    from fsrl_torch.data.collector import make_rollout_fn
     from fsrl_torch.trainer import OnpolicyTrainer
     agent = PPOLagAgent("SafetyCarCircle-v0", cost_limit=10.0, repeat=4,
                         n_minibatches=8, compute_dtype=dtype,
                         dp_blocks=blocks, seed=seed)
-    return OnpolicyTrainer(agent.algo, agent.env, None, n_envs=N_ENVS,
-                           steps_per_collect=T_STEPS, cost_limit=10.0,
-                           seed=seed, verbose=False, mesh=mesh,
-                           state=agent.state)
+    tr = OnpolicyTrainer(agent.algo, agent.env, None, n_envs=N_ENVS,
+                         steps_per_collect=T_STEPS, cost_limit=10.0,
+                         seed=seed, verbose=False, mesh=mesh,
+                         state=agent.state)
+    tr.rollout = make_rollout_fn(agent.env, agent.algo.act_fn, T_STEPS,
+                                 tr.device)
+    return tr
 
 
 def _dp_cases():
@@ -3208,8 +3447,8 @@ def phase_curves() -> dict:
     first the eager warm-up, the second the capture of their graph and its
     replay). Its JSON keys are those of the JAX runner's committed result
     (``CURVES_REF``), the summary table lists both, the ``ppol`` run
-    launches K1 and the K2 form ``kernel_form`` picks, the ``sacl`` run
-    none and replays its graph of 10 cycles. Returns the launches by
+    launches K1, the K2 form ``kernel_form`` picks and the rollout kernel
+    once, the ``sacl`` run none and replays its graph of 10 cycles. Returns the launches by
     run."""
     import shutil
 
@@ -3253,10 +3492,9 @@ def phase_curves() -> dict:
             fail(f"[curves {key}] the summary {summary} lacks the run")
         if key == "ppol":
             k2 = _ppo_k2_name(make(task))
-            if set(launches) != {"gae", k2} or launches["gae"] != 1 or \
-                    launches[k2] != 16:
-                fail(f"[curves ppol] expected 1 K1 and 16 {k2} launches, "
-                     f"got {launches}")
+            if launches != {"gae": 1, k2: 16, "rollout": 1}:
+                fail(f"[curves ppol] expected 1 K1, 16 {k2} and 1 rollout "
+                     f"kernel launches, got {launches}")
         elif launches:
             fail(f"[curves sacl] the off-policy path launched {launches}")
         elif (dict(graphs.CAPTURES), dict(graphs.REPLAYS)) != (
@@ -3398,14 +3636,17 @@ def main() -> int:
               flush=True)
 
     ptxas = phase_build()
+    rollout = phase_rollout()
+    mark("rollout kernel")
     # host-clock timings first: once torch.profiler has run in a process,
     # every later launch costs the host more
     phase_critic_forms()
     mark("critic forms")
     launches, ppo_trainer = phase_train()
     mark("ppo_lag")
-    k2_f32_launches = phase_train_ppo_f32()
-    gae_by_path, f32_agents = phase_new_paths()
+    ppo_f32, ppo_f32_timed = phase_train_ppo_f32()
+    k2_f32_launches = ppo_f32["fused_ppo_grad_f32"]
+    gae_by_path, rollout_by_path, f32_agents = phase_new_paths()
     mark("on-policy paths")
     nav_counts = phase_train_nav()
     rnn_counts = phase_train_rnn()
@@ -3630,6 +3871,22 @@ def main() -> int:
              **k2_f32),
         any_entry(True),
         any_entry(False),
+        dict(name="rollout", route="cuda", source="fsrl_torch/csrc/rollout.cu",
+             replaces=None,
+             launches=ppo_f32.get("rollout", 0),
+             launches_by_path=dict(
+                 ppo_lag_f32=ppo_f32.get("rollout", 0),
+                 ppo_lag_f32_timed=ppo_f32_timed.get("rollout", 0),
+                 **rollout_by_path, **rollout["launches"],
+                 **{k: v.get("rollout", 0) for k, v in entry_counts.items()},
+                 **{f"{k}_per_iteration": v.get("rollout", 0)
+                    for k, v in dp_counts.items()},
+                 **graph_launches("rollout")),
+             # the kernel form at 4096 x 64 (its draws and its launch);
+             # library_ms: the collector's loop of ATen kernels
+             **{k: rollout["by_shape"]["N4096_T64"][k] for k in (
+                 "ms", "launch_ms", "library_ms", "bound_ms", "bound_by")},
+             by_shape=rollout["by_shape"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

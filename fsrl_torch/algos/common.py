@@ -352,6 +352,12 @@ class ActorCriticAlgo:
         act = dist.sample(generator)
         return act, dist.log_prob(act)
 
+    def rollout_actor(self, params: ActorCritic) -> GaussianActor:
+        """The Gaussian actor that ``act_fn`` samples. Given to
+        :func:`fsrl_torch.data.collector.make_rollout_fn` as ``actor``, it
+        lets the collector's rollout kernel act in ``act_fn``'s place."""
+        return params.actor
+
     @torch.no_grad()
     def act_fn_eval(self, params: ActorCritic, obs: Tensor,
                     generator: torch.Generator):

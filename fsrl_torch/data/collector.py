@@ -18,16 +18,24 @@ device, and nothing is read back to the host inside the loop.
   draw of a step (the actions' noise, the env's draws, the reset states)
   at the global size, keeping its rows: the segment is the rank's columns
   of the one-process segment.
+* On the card, where the caller names the Gaussian actor that ``act_fn``
+  samples (``actor``; the on-policy algorithms' ``rollout_actor``), the
+  segment on the car and ball envs runs as one kernel
+  (:mod:`fsrl_torch.ops.rollout_kernel`) in place of the loop;
+  :func:`rollout_form` picks the form from what a call is given, and
+  ``ROLLOUTS`` counts the rollouts of each form.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Callable, NamedTuple, Sequence
 
 import torch
 
 from fsrl_torch.device import resolve_device
 from fsrl_torch.envs.base import EnvState, SafeEnv
+from fsrl_torch.ops.rollout_kernel import kernel_fits, rollout_segment
 from fsrl_torch.parallel.mesh import EnvRows
 from fsrl_torch.types import EpisodeStats, Transition
 
@@ -36,6 +44,26 @@ Tensor = torch.Tensor
 # act_fn(params, obs, generator) -> (raw_action, logp); a recurrent one is
 # act_fn(params, obs, hidden, generator) -> (raw_action, logp, hidden)
 ActFn = Callable[..., tuple]
+
+# rollouts by form ("kernel", "loop") over the process; a graphed rollout
+# counts where it is captured, as kernels.LAUNCHES does
+ROLLOUTS: collections.Counter = collections.Counter()
+
+
+def rollout_form(env: SafeEnv, actor, env_state: EnvState, generator,
+                 reset_states=None, recurrent: bool = False) -> str:
+    """``"kernel"`` where one launch of the rollout kernel runs the
+    segment, else ``"loop"``. ``actor`` is the Gaussian actor that the
+    rollout's ``act_fn`` samples, or None (the loop). The kernel needs a
+    CUDA env state, a plain ``torch.Generator``, no injected reset states,
+    no recurrent carry and an env and actor inside
+    :func:`fsrl_torch.ops.rollout_kernel.kernel_fits`."""
+    if (env_state.obs.device.type == "cuda"
+            and type(generator) is torch.Generator
+            and reset_states is None and not recurrent
+            and kernel_fits(env, actor)):
+        return "kernel"
+    return "loop"
 
 
 def map_action(act: Tensor, low: float, high: float) -> Tensor:
@@ -64,12 +92,20 @@ def _reset_hidden(hidden: Tensor, fresh: Tensor, done: Tensor) -> Tensor:
 
 def make_rollout_fn(env: SafeEnv, act_fn: ActFn, num_steps: int,
                     device=None, init_hidden: Callable[[int], Tensor] | None
-                    = None, unroll: int = 1):
+                    = None, unroll: int = 1,
+                    actor: Callable[..., object] | None = None):
     """Build ``rollout(params, env_state, stats, generator, reset_states=None,
     hidden=None)`` collecting a ``(num_steps, N)`` segment; N is implied by
     ``env_state``.
 
-    ``unroll`` is the JAX collector's scan unroll. On the card, with
+    ``actor(params)``, where given, is the Gaussian actor that ``act_fn``
+    samples (``mean + std * randn((N, A))`` from the generator, and its
+    log-prob), as the on-policy algorithms' ``rollout_actor`` gives it:
+    on the card the rollout kernel then runs the segment in the loop's
+    place wherever :func:`rollout_form` allows. Without it the rollout is
+    the loop.
+
+    ``unroll`` is the JAX collector's scan unroll (the loop's only). On the card, with
     ``unroll`` u > 1, a plain generator and no injected reset states, the
     steps run as CUDA graphs (:class:`fsrl_torch.trainer.graphs.Dispatch`)
     of u steps, replayed ``num_steps // u`` times, then one of the
@@ -168,6 +204,14 @@ def make_rollout_fn(env: SafeEnv, act_fn: ActFn, num_steps: int,
         if env_state.obs.device.type != device.type:
             raise ValueError(f"env state on {env_state.obs.device}, rollout "
                              f"built for {device}")
+        kernel_actor = None if actor is None else actor(params)
+        form = rollout_form(env, kernel_actor, env_state, generator,
+                            reset_states, recurrent)
+        ROLLOUTS[form] += 1
+        if form == "kernel":
+            env_state, stats, transitions = rollout_segment(
+                env, kernel_actor, env_state, stats, generator, num_steps)
+            return RolloutResult(env_state, stats, transitions)
         if recurrent and hidden is None:
             hidden = init_hidden(env_state.obs.shape[0])
         hidden0 = hidden

@@ -8,7 +8,7 @@ import math
 
 import torch
 
-from fsrl_torch.envs.base import SafeEnv, register, uniform
+from fsrl_torch.envs.base import SafeEnv, register, scale
 from fsrl_torch.envs.tasks import CircleBoundSpeedTask, CircleTask, RunTask
 
 DT = 0.1
@@ -26,19 +26,24 @@ class BallEnv(SafeEnv):
         self.num_costs = task.num_costs
         self.observation_size = 4 + task.n_extras
 
-    def _init_sim(self, n, g):
+    def _reset_draw_shapes(self, n):
+        if isinstance(self.task, CircleTask):
+            return [(n,), (n,)]
+        return [(n, 2), (n, 2)]
+
+    def _init_sim_from(self, u):
         if isinstance(self.task, CircleTask):
             # spawn near the circle with small noise, inside the safe band
-            theta = uniform(n, 0.0, 2 * math.pi, g)
-            r = self.task.radius + uniform(n, -0.5, 0.5, g)
+            theta = scale(u[0], 0.0, 2 * math.pi)
+            r = self.task.radius + scale(u[1], -0.5, 0.5)
             pos = r[:, None] * torch.stack(
                 [torch.cos(theta), torch.sin(theta)], 1)
             pos[:, 0] = torch.clamp(pos[:, 0], -self.task.x_lim,
                                     self.task.x_lim)
             vel = torch.zeros_like(pos)
         else:
-            pos = uniform((n, 2), -0.5, 0.5, g)
-            vel = uniform((n, 2), -0.1, 0.1, g)
+            pos = scale(u[0], -0.5, 0.5)
+            vel = scale(u[1], -0.1, 0.1)
         return dict(pos=pos, vel=vel)
 
     def _step_sim(self, sim, action):

@@ -35,8 +35,9 @@ def _select(mask: Tensor, a: Tensor, b: Tensor) -> Tensor:
 
 
 class SafeEnv:
-    """Base class. Subclasses implement ``_init_sim``, ``_step_sim``,
-    ``_obs`` and ``_reward_cost`` on batched sim states."""
+    """Base class. Subclasses implement ``_init_sim`` (or its two halves,
+    ``_reset_draw_shapes`` and ``_init_sim_from``), ``_step_sim``, ``_obs``
+    and ``_reward_cost`` on batched sim states."""
 
     observation_size: int
     action_size: int
@@ -128,6 +129,22 @@ class SafeEnv:
 
     # --- subclass hooks ---
     def _init_sim(self, n_envs: int, generator: torch.Generator) -> dict:
+        """The reset states: by default ``_init_sim_from`` of the draws of
+        ``_reset_draws`` (an env overrides either this or those two)."""
+        return self._init_sim_from(self._reset_draws(n_envs, generator))
+
+    def _reset_draws(self, n_envs: int, generator: torch.Generator
+                     ) -> list[Tensor]:
+        """One ``torch.rand`` of each shape of ``_reset_draw_shapes``, in
+        that order."""
+        return [torch.rand(s, generator=generator, device=generator.device)
+                for s in self._reset_draw_shapes(n_envs)]
+
+    def _reset_draw_shapes(self, n_envs: int) -> list[tuple]:
+        raise NotImplementedError
+
+    def _init_sim_from(self, draws: list[Tensor]) -> dict:
+        """The reset states from the draws of ``_reset_draws``."""
         raise NotImplementedError
 
     def _step_sim(self, sim: dict, action: Tensor) -> dict:
@@ -160,6 +177,12 @@ def uniform(n_shape, low: float, high: float,
     """``jax.random.uniform(minval=low, maxval=high)`` drawn with a torch
     generator on its own device."""
     u = torch.rand(n_shape, generator=generator, device=generator.device)
+    return scale(u, low, high)
+
+
+def scale(u: Tensor, low: float, high: float) -> Tensor:
+    """A draw of ``torch.rand`` moved to ``[low, high)``, as
+    :func:`uniform` does."""
     return low + (high - low) * u
 
 

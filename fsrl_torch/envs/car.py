@@ -7,7 +7,7 @@ import math
 
 import torch
 
-from fsrl_torch.envs.base import SafeEnv, register, uniform
+from fsrl_torch.envs.base import SafeEnv, register, scale
 from fsrl_torch.envs.tasks import CircleTask, RunTask
 
 DT = 0.1
@@ -26,17 +26,22 @@ class CarEnv(SafeEnv):
         self.num_costs = task.num_costs
         self.observation_size = 5 + task.n_extras
 
-    def _init_sim(self, n, g):
+    def _reset_draw_shapes(self, n):
         if isinstance(self.task, CircleTask):
-            theta = uniform(n, 0.0, 2 * math.pi, g)
+            return [(n,)]
+        return [(n, 2), (n,)]
+
+    def _init_sim_from(self, u):
+        if isinstance(self.task, CircleTask):
+            theta = scale(u[0], 0.0, 2 * math.pi)
             pos = self.task.radius * torch.stack(
                 [torch.cos(theta), torch.sin(theta)], 1)
             pos[:, 0] = torch.clamp(pos[:, 0], -self.task.x_lim,
                                     self.task.x_lim)
             heading = theta + math.pi / 2  # tangential
         else:
-            pos = uniform((n, 2), -0.5, 0.5, g)
-            heading = uniform(n, -0.3, 0.3, g)
+            pos = scale(u[0], -0.5, 0.5)
+            heading = scale(u[1], -0.3, 0.3)
         return dict(pos=pos, heading=heading, speed=torch.zeros_like(heading))
 
     def _step_sim(self, sim, action):

@@ -34,7 +34,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("gae.cu", "fused_ppo_grad.cu", "fused_ppo_grad_f32.cu",
-           "fused_ppo_grad_any.cu", "marks.cu")
+           "fused_ppo_grad_any.cu", "marks.cu", "rollout.cu")
 HEADERS = ("wgmma.cuh", "ppo_grad_common.cuh", "mma_tf32.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -138,6 +138,10 @@ def library() -> ctypes.CDLL:
     lib.fsrl_gae_time_tile.argtypes = []
     lib.fsrl_empty_launch.argtypes = [P]
     lib.fsrl_empty_launch.restype = I
+    # the collector's segment (fsrl_torch.ops.rollout_kernel)
+    lib.fsrl_rollout.argtypes = [P, P, I, I, I, P]
+    lib.fsrl_rollout.restype = I
+    lib.fsrl_rollout_struct_bytes.argtypes = [I]
     # the trace's device marks (fsrl_torch.utils.profiling)
     lib.fsrl_mark.argtypes = [I, I, P]
     lib.fsrl_mark.restype = I

@@ -44,8 +44,9 @@ code:
   cycle's;
 * ``update_chunk`` (off-policy): the collect's grad steps in JAX's
   ``chunk_sizes``, each chunk of more than one step one graph;
-* ``rollout_unroll`` = u (on-policy, with ``fuse_iters`` 1): the rollout
-  in graphs of u env steps.
+* ``rollout_unroll`` = u (on-policy, with ``fuse_iters`` 1): the
+  collector's loop in graphs of u env steps (a rollout that the kernel
+  runs has no steps to unroll).
 
 The first dispatch of each graph runs eagerly, as its warm-up. On the CPU
 these settings change nothing but the step accounting. Under a mesh the k
@@ -69,7 +70,8 @@ import torch
 
 from fsrl_torch.algos.offpolicy_base import make_nstep_view
 from fsrl_torch.data.buffer import ReplayBuffer
-from fsrl_torch.data.collector import evaluate, make_rollout_fn
+from fsrl_torch.data.collector import (evaluate, make_rollout_fn,
+                                       rollout_form)
 from fsrl_torch.envs.base import SafeEnv
 from fsrl_torch.parallel.mesh import (DPGroup, EnvRows, check_rank_device,
                                       make_mesh, replicate_tree,
@@ -362,7 +364,9 @@ class OnpolicyTrainer(BaseTrainer):
     ``fuse_iters`` = k runs k cycles a dispatch, on the card from one CUDA
     graph; ``rollout_unroll`` = u > 1 with ``fuse_iters`` 1 runs the
     rollout in graphs of u env steps on the card (the module's
-    docstring)."""
+    docstring). An algorithm with a ``rollout_actor`` names the actor its
+    ``act_fn`` samples, so that the collector's rollout kernel may run the
+    segment; where it does, ``rollout_unroll`` has no loop to apply to."""
 
     CARRY = ("state", "env_state", "stats", "hidden")
 
@@ -372,16 +376,21 @@ class OnpolicyTrainer(BaseTrainer):
         init_hidden = getattr(self.algo, "init_hidden", None)
         self.recurrent = init_hidden is not None
         self._fuse_graph()
+        actor = getattr(self.algo, "rollout_actor", None)
+        kernel = actor is not None and rollout_form(
+            self.env, actor(self.state.params), self.env_state, self.draw,
+            recurrent=self.recurrent) == "kernel"
         unroll = 1
         if self.fuse_iters == 1 and self.rollout_unroll > 1:
             off = self._graphs_off()
-            unroll = 1 if off else self.rollout_unroll
+            unroll = 1 if off or kernel else self.rollout_unroll
             self.dispatch_mode = (f"eager ({off})" if off else
+                                  "eager; rollout kernel" if kernel else
                                   f"eager; rollout in graphs of {unroll} "
                                   f"steps")
         self.rollout = make_rollout_fn(self.env, self.algo.act_fn, self.T,
                                        self.device, init_hidden=init_hidden,
-                                       unroll=unroll)
+                                       unroll=unroll, actor=actor)
         # the fresh carry is zeros, so the rank's block of it is its own
         self.hidden = init_hidden(self.n_local) if self.recurrent else None
         self._log_mode()

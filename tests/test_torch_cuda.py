@@ -527,11 +527,10 @@ def _same(a, b):
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
 
 
-def _onpolicy(**kw):
+def _onpolicy(task="SafetyCarCircle-v0", **kw):
     from fsrl_torch.agent import PPOLagAgent
     from fsrl_torch.trainer import OnpolicyTrainer
-    agent = PPOLagAgent("SafetyCarCircle-v0", cost_limit=10.0, repeat=2,
-                        n_minibatches=2)
+    agent = PPOLagAgent(task, cost_limit=10.0, repeat=2, n_minibatches=2)
     return OnpolicyTrainer(agent.algo, agent.env, None, n_envs=64,
                            steps_per_collect=16, seed=0, verbose=False,
                            state=agent.state, **kw)
@@ -540,7 +539,8 @@ def _onpolicy(**kw):
 def test_fused_dispatch_replays_the_eager_cycles(cuda):
     """``fuse_iters`` 2: the eager warm-up, then one capture replayed; 3
     dispatches equal 6 eager cycles bit for bit, and the capture launched
-    each kernel twice the eager cycle's count."""
+    each kernel twice the eager cycle's count (the rollout kernel once a
+    cycle)."""
     g, e = _onpolicy(fuse_iters=2), _onpolicy()
     for _ in range(3):
         g._run_iter()
@@ -548,17 +548,21 @@ def test_fused_dispatch_replays_the_eager_cycles(cuda):
         e.cycle()
     assert g.dispatch_mode == "graph of 2 cycles"
     assert (g.graph.captures, g.graph.replays) == (1, 2)
-    assert dict(g.graph.launches) == {"gae": 2, "fused_ppo_grad_f32": 8}
+    assert dict(g.graph.launches) == {"gae": 2, "fused_ppo_grad_f32": 8,
+                                      "rollout": 2}
     _same(g, e)
 
 
 def test_rollout_unroll_replays_the_eager_rollout(cuda):
     """``rollout_unroll`` 5 over 16 steps: graphs of 5 steps, 3 a rollout,
-    and one of the last step."""
+    and one of the last step. On DroneRun, whose rollout takes the loop
+    (on the car and ball envs the rollout kernel runs a segment in one
+    launch, and no step graph is made)."""
     from fsrl_torch.trainer import graphs
     graphs.CAPTURES.clear()
     graphs.REPLAYS.clear()
-    g, e = _onpolicy(rollout_unroll=5), _onpolicy()
+    g = _onpolicy("SafetyDroneRun-v0", rollout_unroll=5)
+    e = _onpolicy("SafetyDroneRun-v0")
     for _ in range(3):
         g._run_iter()
         e.cycle()
