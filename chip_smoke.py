@@ -14,8 +14,10 @@ Phases, each of which must pass:
    registers and spills, its static shared memory, its scratch at the
    largest cases; then the collector's rollout kernel
    (``csrc/rollout.cu``, ``[rollout N x T]``) against the loop on
-   SafetyCarCircle-v0 with f32 PPO-Lag's actor at 4096 x 64 and 16384 x
-   16 from one generator state (clocks, done flags, costs and counts bit
+   SafetyCarCircle-v0 with f32 PPO-Lag's actor, hidden (128, 128) at
+   4096 x 64 and 16384 x 16 and hidden (256, 256) at 4096 x 64
+   (``[rollout h256 N x T]``), from one generator state (clocks, done
+   flags, costs and counts bit
    for bit, the rest within 1e-4; the actions no farther from float64
    than 4 times the loop's, which a TF32 actor exceeds; fed the loop's
    actions, bit for bit), the kernel form, its launch alone and the loop
@@ -50,7 +52,8 @@ Phases, each of which must pass:
    at the same shape with hidden (256, 256) in f32 and bf16 and (64, 64)
    in f32 (``[train ppo_lag h256 ...]``, ``[train ppo_lag h64 f32]``):
    3 iterations plus the test counted (exactly 3 K1 and 96 launches of
-   the generic form of the dtype, none of another K2 form), 3 timed;
+   the generic form of the dtype, none of another K2 form; 3 of the
+   rollout kernel at f32 (256, 256), none elsewhere), 3 timed;
    then the host path at the JAX package's velocity protocol over a numpy
    stand-in for HalfCheetah (the card's machine has no gymnasium or
    mujoco): PPO-Lag through ``HostOnpolicyTrainer`` (10 envs x 2000 steps,
@@ -135,7 +138,8 @@ Phases, each of which must pass:
    tests/test_fuse_iters.py's rtol 2e-4 / atol 2e-5, printed as a
    finding): PPO-Lag bf16 and f32 at 4096 envs x 64 steps with
    ``fuse_iters`` 8 (``bench.py:114``: 8 K1 and 256 K2 a dispatch),
-   f32 at hidden (256, 256), TRPO-Lag (DroneRun), CPO (AntRun) and
+   f32 at hidden (256, 256) (f32 PPO-Lag: one rollout kernel launch a
+   cycle at both widths), TRPO-Lag (DroneRun), CPO (AntRun) and
    recurrent PPO-Lag (PointGoal1) with ``fuse_iters`` 2, PPO-Lag bf16
    with ``rollout_unroll`` 8 (its rollout timed alone too), recurrent
    PPO-Lag with ``rollout_unroll`` 8 over 3 rollouts (the update's BPTT
@@ -429,9 +433,10 @@ def phase_build():
     return report
 
 
-# the collector's rollout kernel (csrc/rollout.cu) at the benchmark's two
-# PPO-Lag shapes, (envs, steps a collect)
-ROLLOUT_SHAPES = ((4096, 64), (16384, 16))
+# the collector's rollout kernel (csrc/rollout.cu) at the benchmark's
+# PPO-Lag shapes, (envs, steps a collect), by the actor's hidden width: at
+# 128 the two hidden-128 cells', at 256 the Safety Gym baselines' cell's
+ROLLOUT_SHAPES = {128: ((4096, 64), (16384, 16)), 256: ((4096, 64),)}
 ROLLOUT_TASK = "SafetyCarCircle-v0"
 # the kernel's states, observations, rewards, actions and log-probs against
 # the loop's (tests/test_torch_rollout_kernel.py's: the actor's sum order,
@@ -471,7 +476,8 @@ def _actor64(actor, obs, noise, tf32: bool = False):
 def phase_rollout() -> dict:
     """``[rollout N x T]``: the collector's rollout kernel against its loop
     on SafetyCarCircle-v0 with f32 PPO-Lag's actor, at the benchmark's
-    shapes (4096 x 64, 16384 x 16), both from one generator state, with
+    shapes (hidden 128: 4096 x 64, 16384 x 16; ``[rollout h256 N x T]``,
+    hidden 256: 4096 x 64), both from one generator state, with
     the launch counters and ``collector.ROLLOUTS`` zeroed just before:
     the clocks, done flags, costs, counts and cost sums bit for bit; the
     states, observations, rewards, actions and log-probs within
@@ -482,7 +488,7 @@ def phase_rollout() -> dict:
     Then the kernel form (its draws and its launch), the launch alone and
     the loop, each timed from a CUDA graph, against the bound of the
     actor's f32 products and the segment's bytes. Returns the readings by
-    shape and the launches."""
+    width and shape and the launches."""
     import torch
     from fsrl_torch.algos.ppo_lag import PPOLag
     from fsrl_torch.data import collector
@@ -493,22 +499,23 @@ def phase_rollout() -> dict:
 
     dev = torch.device("cuda")
     env = make(ROLLOUT_TASK)
-    # the last layer unscaled: a mean of a trained policy's size, whose
-    # products' errors show in the actions above the rounding of the noise
-    # term (at 0.01 a TF32 actor lies only about 6 times as far from
-    # float64 as an f32 one; unscaled, hundreds of times)
-    algo = PPOLag(env.observation_size, env.action_size, device=dev,
-                  last_layer_scale=False)
-    params = algo.init(seed=0).params
-    actor = algo.rollout_actor(params)
-    if not rk.kernel_fits(env, actor):
-        fail(f"[rollout] f32 PPO-Lag on {ROLLOUT_TASK} is outside the "
-             f"kernel's envelope")
-    D, A, M, H = (env.observation_size, env.action_size, env.num_costs,
-                  rk.H)
+    D, A, M = env.observation_size, env.action_size, env.num_costs
     out, launches = {}, {}
-    for N, T in ROLLOUT_SHAPES:
-        tag = f"rollout {N}x{T}"
+    for H, N, T in ((H, N, T) for H, shapes in ROLLOUT_SHAPES.items()
+                    for N, T in shapes):
+        width = "" if H == 128 else f"h{H} "
+        tag = f"rollout {width}{N}x{T}"
+        # the last layer unscaled: a mean of a trained policy's size, whose
+        # products' errors show in the actions above the rounding of the
+        # noise term (at 0.01 a TF32 actor lies only about 6 times as far
+        # from float64 as an f32 one; unscaled, hundreds of times)
+        algo = PPOLag(env.observation_size, env.action_size, device=dev,
+                      last_layer_scale=False, hidden_sizes=(H, H))
+        params = algo.init(seed=0).params
+        actor = algo.rollout_actor(params)
+        if not rk.kernel_fits(env, actor):
+            fail(f"[{tag}] f32 PPO-Lag on {ROLLOUT_TASK} is outside the "
+                 f"kernel's envelope")
         g = torch.Generator(device=dev).manual_seed(7)
         # staggered clocks, so that envs reset inside the segment
         s0 = env.reset_vec(N, g, stagger=True)
@@ -532,7 +539,8 @@ def phase_rollout() -> dict:
             fail(f"[{tag}] launches {counted[0]}, rollouts {counted[1]}: "
                  f"expected 2 kernel launches (the form and the fed "
                  f"actions), one loop and one kernel rollout")
-        launches[f"rollout_{N}x{T}"] = counted[0]["rollout"]
+        launches[f"rollout_{width.replace(' ', '_')}{N}x{T}"] = counted[0][
+            "rollout"]
         rt, tr = ref.transitions, got.transitions
         pairs = dict(
             t=(got.env_state.t, ref.env_state.t),
@@ -622,8 +630,9 @@ def phase_rollout() -> dict:
                  gflop=flops / 1e9, mbytes=nbytes / 1e6,
                  episodes=int(got.stats.n_episodes), f64_act=f64,
                  max_gap=gaps, fed_sum_reward_gap=r_gap)
-        out[f"N{N}_T{T}"] = r
-        print(f"[{tag}] {ROLLOUT_TASK}, f32 PPO-Lag actor: bit for bit on "
+        out[f"{width.replace(' ', '_')}N{N}_T{T}"] = r
+        print(f"[{tag}] {ROLLOUT_TASK}, f32 PPO-Lag actor, hidden ({H}, {H}):"
+              f" bit for bit on "
               f"{sorted(pairs)}; largest gaps to the loop {gaps}; actions "
               f"from float64: kernel {f64['kernel']:.3g}, loop "
               f"{f64['loop']:.3g}, a TF32 actor {f64['tf32']:.3g} (bound "
@@ -875,12 +884,14 @@ def phase_train_width(hidden, dtypes=(None, "bf16")):
     where K2 takes its generic form: ``learn`` for 3 iterations plus the
     test with the launch counters zeroed before and read after (exactly 3
     K1 and 96 launches of the generic form of the dtype, none of any other
-    K2 form: 0 would be the autograd step), then 3 iterations with collect
+    K2 form: 0 would be the autograd step; 3 of the rollout kernel at f32
+    (256, 256), one a collect, else none), then 3 iterations with collect
     and update timed apart. Returns the launch counts and timings by tag."""
     import torch
     from fsrl_torch.agent import PPOLagAgent
     from fsrl_torch.ops import kernels
     from fsrl_torch.ops.fused_ppo_grad import kernel_form, launch_name
+    from fsrl_torch.ops.rollout_kernel import kernel_fits
 
     N, T, iters = N_ENVS, T_STEPS, 3
     out = {}
@@ -896,6 +907,10 @@ def phase_train_width(hidden, dtypes=(None, "bf16")):
         if not agent.algo.use_grad_kernel or kernel_form(layout) != "any":
             fail(f"[{tag}] {layout} is not on the generic K2 form's path")
         form = launch_name(layout, tdt is not None)
+        fits = kernel_fits(agent.env,
+                           agent.algo.rollout_actor(agent.state.params))
+        if fits != (tdt is None and tuple(hidden) == (256, 256)):
+            fail(f"[{tag}] the rollout kernel takes the path: {fits}")
         kernels.reset_launch_counts()
         info, ms = _timed(lambda: agent.learn(
             epochs=1, step_per_epoch=iters * N * T, n_envs=N,
@@ -911,10 +926,12 @@ def phase_train_width(hidden, dtypes=(None, "bf16")):
         if not all(math.isfinite(float(info[k])) for k in
                    ("test_reward", "test_cost")):
             fail(f"[{tag}] non-finite test result {info}")
-        if launches.get("gae", 0) != iters or not k2_only(launches, form,
-                                                          32 * iters):
-            fail(f"[{tag}] expected {iters} launches of K1 and {32 * iters} "
-                 f"of {form} (no other K2 form), got {launches}")
+        if launches.get("gae", 0) != iters or not k2_only(
+                launches, form, 32 * iters) or launches.get(
+                "rollout", 0) != (iters if fits else 0):
+            fail(f"[{tag}] expected {iters} launches of K1, {32 * iters} of "
+                 f"{form} (no other K2 form) and {iters if fits else 0} of "
+                 f"the rollout kernel, got {launches}")
         kernels.reset_launch_counts()
         collect, update, steps = _timed_iterations(agent)
         timed = dict(kernels.LAUNCHES)
@@ -925,7 +942,8 @@ def phase_train_width(hidden, dtypes=(None, "bf16")):
               f"{[round(u, 2) for u in update]}), "
               f"{N * T / ((c_ms + u_ms) / 1e3):.0f} env-steps/s; launches "
               f"in the 3 iterations {timed}", flush=True)
-        if not k2_only(timed, form, 96) or not all(
+        if not k2_only(timed, form, 96) or timed.get("rollout", 0) != (
+                3 if fits else 0) or not all(
                 math.isfinite(float(v)) for _, m, _ in steps
                 for v in m.values()):
             fail(f"[{tag}] the timed iterations launched {timed}")
@@ -2830,6 +2848,14 @@ def phase_graphs() -> tuple:
              lambda: RecurrentPPOLagAgent(NAV_TASK, cost_limit=10.0),
              GRAPH_FUSE_SHORT, 3)):
         out[key] = _graph_onpolicy(tag, make, fuse=fuse, dispatches=n)[2]
+    # f32 PPO-Lag's rollout is one launch of the rollout kernel a cycle at
+    # both widths, 128 and 256
+    for key, fuse in (("ppo_lag_f32_fuse8", GRAPH_FUSE),
+                      ("ppo_lag_h256_f32_fuse2", GRAPH_FUSE_SHORT)):
+        got = out[key]["launches_per_dispatch"].get("rollout", 0)
+        if got != fuse:
+            fail(f"[graph {key}] {got} rollout kernel launches a dispatch "
+                 f"of {fuse} cycles")
     tr, ref, r = _graph_onpolicy("ppo_lag bf16 unroll 8", ppo(torch.bfloat16),
                                  unroll=GRAPH_UNROLL)
     r.update(rollout_replay_ms=_graph_rollout_ms(tr),

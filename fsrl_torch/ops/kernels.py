@@ -139,7 +139,7 @@ def library() -> ctypes.CDLL:
     lib.fsrl_empty_launch.argtypes = [P]
     lib.fsrl_empty_launch.restype = I
     # the collector's segment (fsrl_torch.ops.rollout_kernel)
-    lib.fsrl_rollout.argtypes = [P, P, I, I, I, P]
+    lib.fsrl_rollout.argtypes = [P, P, I, I, I, I, P]
     lib.fsrl_rollout.restype = I
     lib.fsrl_rollout_struct_bytes.argtypes = [I]
     # the trace's device marks (fsrl_torch.utils.profiling)

@@ -1,10 +1,11 @@
 """The collector's segment as one CUDA kernel (``csrc/rollout.cu``).
 
 For the feedforward Gaussian actor of the on-policy algorithms (PPO-Lag,
-FOCOPS, TRPO-Lag, CPO) on the car and ball envs, one launch runs a whole
-``(T, N)`` segment: the actor's forward and sample, ``map_action`` and the
-env's clamp, the physics, the task's observation, reward and cost, the step
-clock, the auto-reset and the running :class:`EpisodeStats`, each step's
+FOCOPS, TRPO-Lag, CPO), with two ReLU layers of 128 or of 256 units, on
+the car and ball envs, one launch runs a whole ``(T, N)`` segment: the
+actor's forward and sample, ``map_action`` and the env's clamp, the
+physics, the task's observation, reward and cost, the step clock, the
+auto-reset and the running :class:`EpisodeStats`, each step's
 :class:`Transition` written into the segment. The loop in
 :func:`fsrl_torch.data.collector.make_rollout_fn` issues about 160 small
 kernels an env step for the same work.
@@ -38,7 +39,7 @@ from fsrl_torch.nets.mlp import GaussianActor
 from fsrl_torch.ops import kernels
 from fsrl_torch.types import EpisodeStats, Transition
 
-H = 128       # hidden width of both layers (csrc/rollout.cu)
+WIDTHS = (128, 256)   # hidden width of both layers (csrc/rollout.cu)
 A = 2         # actions
 DMAX = 16     # observation width
 MMAX = 2      # cost channels
@@ -84,15 +85,16 @@ def kernel_fits(env, actor) -> bool:
     """Whether the kernel runs this env and actor: the car or ball env
     with the Run, Circle or two-constraint Circle task; a
     :class:`GaussianActor` with a free log-sigma, a bounded mean and two
-    ReLU layers of 128 units, in f32."""
+    ReLU layers of 128 or of 256 units, in f32."""
     if _kinds(env) is None or not isinstance(actor, GaussianActor):
         return False
     layers = actor.trunk.layers
     D = env.observation_size
+    H = layers[0].weight.shape[0] if len(layers) == 2 else None
     return (not actor.conditioned_sigma and not actor.unbounded
             and actor.trunk.out is None
             and actor.trunk.compute_dtype in (None, torch.float32)
-            and len(layers) == 2
+            and H in WIDTHS
             and tuple(layers[0].weight.shape) == (H, D)
             and tuple(layers[1].weight.shape) == (H, H)
             and tuple(actor.mu.weight.shape) == (A, H)
@@ -138,10 +140,13 @@ def _consts(env, actor) -> _Consts:
     return _Consts(**c)
 
 
-def tile(n_envs: int, device: torch.device) -> int:
-    """The envs a block: 32, unless that leaves fewer than two blocks for
-    each SM, when 16 (two blocks of 16 share an SM's products and hide
-    each other's env steps; 16 and 32 give the same segment)."""
+def tile(n_envs: int, device: torch.device, hidden: int) -> int:
+    """The envs a block at hidden 128: 32, unless that leaves fewer than
+    two blocks for each SM, when 16 (two blocks of 16 share an SM's
+    products and hide each other's env steps; 16 and 32 give the same
+    segment). At 256, the envs of a cluster of two blocks: 64."""
+    if hidden == 256:
+        return 64
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return 16 if (n_envs + 31) // 32 < 2 * sms else 32
 
@@ -219,11 +224,13 @@ def rollout_segment(env, actor, env_state, stats, generator: torch.Generator,
         (lib.fsrl_rollout_struct_bytes(0), lib.fsrl_rollout_struct_bytes(1))
         == (ctypes.sizeof(_Args), ctypes.sizeof(_Consts)),
         "rollout kernel: the argument structs differ from csrc/rollout.cu")
-    envs_a_block = tile(N, dev)
-    blocks = (N + envs_a_block - 1) // envs_a_block
-    part_f, part_i = f32(blocks, 2 + M), i32(blocks)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     layers = actor.trunk.layers
+    hidden = layers[0].weight.shape[0]
+    # one row of the episodes' sums a block (a cluster at 256)
+    envs_a_row = tile(N, dev, hidden)
+    rows = (N + envs_a_row - 1) // envs_a_row
+    part_f, part_i = f32(rows, 2 + M), i32(rows)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     weights = [w.detach().contiguous() for w in (
         layers[0].weight, layers[0].bias, layers[1].weight, layers[1].bias,
         actor.mu.weight, actor.mu.bias, actor.log_sigma)]
@@ -260,7 +267,7 @@ def rollout_segment(env, actor, env_state, stats, generator: torch.Generator,
     with torch.cuda.device(dev):
         rc = lib.fsrl_rollout(
             ctypes.byref(args), ctypes.byref(consts), kinds[0], kinds[1],
-            envs_a_block, kernels.stream_ptr())
+            hidden, envs_a_row, kernels.stream_ptr())
     kernels.check(rc, "rollout kernel")
     kernels.LAUNCHES["rollout"] += 1
     return EnvState(sim=sim_o, obs=obs_o, t=t_o), stats_o, tr

@@ -5,9 +5,9 @@ The rollout kernel runs only on the card, so the form is asked of a CUDA
 env state's stand-in: ``rollout_form`` reads the state's device and
 nothing else of it. The kernel form is the actor that the on-policy
 algorithms name (``ActorCriticAlgo.rollout_actor``: a free log-sigma, a
-bounded mean, two ReLU layers of 128 units, f32) on the car and ball envs,
-from a plain generator; everything else, a rollout given no actor among
-it, takes the loop.
+bounded mean, two ReLU layers of 128 or of 256 units, f32) on the car and
+ball envs, from a plain generator; everything else, a rollout given no
+actor among it, takes the loop.
 """
 
 import math
@@ -65,6 +65,14 @@ def test_ppo_lag_on_the_car_and_ball_envs_takes_the_kernel(task):
     assert _form(_algo("ppo_lag", env), env) == "kernel"
 
 
+@pytest.mark.parametrize("task", KERNEL_TASKS)
+def test_ppo_lag_at_hidden_256_takes_the_kernel(task):
+    """The Safety Gym baselines' widths, two layers of 256 units."""
+    env = make(task)
+    assert _form(_algo("ppo_lag", env, hidden_sizes=(256, 256)),
+                 env) == "kernel"
+
+
 @pytest.mark.parametrize("name,kw", [
     ("focops", {}), ("trpo_lag", {}), ("cpo", {}),
     ("cpo", dict(sigma_floor=0.3))])
@@ -86,12 +94,13 @@ def test_off_policy_actors_take_the_loop(name):
 
 @pytest.mark.parametrize("case", [
     "recurrent", "env_rows", "reset_states", "bf16", "hidden_64",
-    "hidden_256", "unbounded", "wrapped_act_fn", "cpu"])
+    "hidden_256x128", "hidden_512", "unbounded", "wrapped_act_fn", "cpu"])
 def test_outside_the_envelope_takes_the_loop(case):
     env = make("SafetyCarCircle-v0")
     kw = dict(bf16=dict(compute_dtype=torch.bfloat16),
               hidden_64=dict(hidden_sizes=(64, 64)),
-              hidden_256=dict(hidden_sizes=(256, 256)),
+              hidden_256x128=dict(hidden_sizes=(256, 128)),
+              hidden_512=dict(hidden_sizes=(512, 512)),
               unbounded=dict(unbounded=True)).get(case, {})
     algo = _algo("ppo_lag_rnn" if case == "recurrent" else "ppo_lag", env,
                  **kw)

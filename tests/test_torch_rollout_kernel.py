@@ -6,7 +6,8 @@ them on the card with
 
 Both forms draw from one generator state, so they see the same noise and
 reset draws. The loop runs where the rollout is given no ``actor``; the
-kernel where it is given the algorithm's ``rollout_actor``.
+kernel where it is given the algorithm's ``rollout_actor``. Each test runs
+at both of the kernel's widths, two ReLU layers of 128 or of 256 units.
 """
 
 import pytest
@@ -19,6 +20,7 @@ pytestmark = pytest.mark.cuda
 TASKS = ["SafetyCarCircle-v0", "SafetyCarRun-v0", "SafetyBallCircle-v0",
          "SafetyBallRun-v0", "SafetyBallCircle2C-v0"]
 N, T = 4096, 64
+HIDDEN = [128, 256]
 # The actor's products are f32 FMAs summed in another order than cuBLAS's:
 # actions differ in the last bits and the states integrate that over the
 # 64 steps (the largest difference read on the card is about 1e-5)
@@ -33,13 +35,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _setup(task, cuda, n=N):
+def _setup(task, cuda, n=N, hidden=128):
     from fsrl_torch.algos.ppo_lag import PPOLag
     from fsrl_torch.envs import make
     from fsrl_torch.types import EpisodeStats
     env = make(task)
     algo = PPOLag(env.observation_size, env.action_size,
-                  num_costs=env.num_costs, device=cuda)
+                  num_costs=env.num_costs, device=cuda,
+                  hidden_sizes=(hidden, hidden))
     state = algo.init(seed=0)
     g = torch.Generator(device=cuda).manual_seed(7)
     # staggered clocks: about an eighth of the envs reset in 64 steps
@@ -47,13 +50,13 @@ def _setup(task, cuda, n=N):
     return env, algo, state, s0, EpisodeStats.init(n, env.num_costs, cuda), g
 
 
-def _both(task, cuda, given_actions=False):
+def _both(task, cuda, hidden, given_actions=False):
     """The loop's and the kernel's segment from one generator state; with
     ``given_actions`` the kernel takes the loop's actions and log-probs in
     place of its actor."""
     from fsrl_torch.data import collector
     from fsrl_torch.ops.rollout_kernel import rollout_segment
-    env, algo, state, s0, stats, g = _setup(task, cuda)
+    env, algo, state, s0, stats, g = _setup(task, cuda, hidden=hidden)
     start = g.get_state()
     loop = collector.make_rollout_fn(env, algo.act_fn, T)
     ref = loop(state.params, s0, stats, g)
@@ -78,12 +81,13 @@ def _close(name, a, b):
     torch.testing.assert_close(a, b, **TOL, msg=lambda m: f"{name}: {m}")
 
 
+@pytest.mark.parametrize("hidden", HIDDEN)
 @pytest.mark.parametrize("task", TASKS)
-def test_rollout_kernel_matches_the_loop(cuda, task):
+def test_rollout_kernel_matches_the_loop(cuda, task, hidden):
     """Equal bit for bit: the clocks, the done flags, the cost channels
     and the counts; within TOL (the actor's sum order): the actions,
     log-probs, observations, rewards and the sim state."""
-    ref, env_state, st, tr = _both(task, cuda)
+    ref, env_state, st, tr = _both(task, cuda, hidden)
     rt = ref.transitions
     for name in ("terminated", "truncated", "cost"):
         _equal(name, getattr(tr, name), getattr(rt, name))
@@ -101,13 +105,15 @@ def test_rollout_kernel_matches_the_loop(cuda, task):
     _close("ep_reward", st.ep_reward, ref.stats.ep_reward)
 
 
+@pytest.mark.parametrize("hidden", HIDDEN)
 @pytest.mark.parametrize("task", TASKS)
-def test_rollout_kernel_steps_the_loops_actions_bit_for_bit(cuda, task):
+def test_rollout_kernel_steps_the_loops_actions_bit_for_bit(cuda, task,
+                                                            hidden):
     """With the loop's actions in place of the actor, the env, the resets
     and the accumulators are the loop's bit for bit; only the episode
     reward sum, a sum over the envs in another order than ATen's, may
     differ in its last bits."""
-    ref, env_state, st, tr = _both(task, cuda, given_actions=True)
+    ref, env_state, st, tr = _both(task, cuda, hidden, given_actions=True)
     for name, x in vars(tr).items():
         _equal(name, x, getattr(ref.transitions, name))
     for k, v in ref.env_state.sim.items():
@@ -125,7 +131,8 @@ def test_rollout_kernel_steps_the_loops_actions_bit_for_bit(cuda, task):
             _equal(name, x, getattr(ref.stats, name))
 
 
-def test_rollout_kernel_replays_its_eager_call(cuda):
+@pytest.mark.parametrize("hidden", HIDDEN)
+def test_rollout_kernel_replays_its_eager_call(cuda, hidden):
     """A graph of two kernel segments (``graphs.Dispatch``) replays what
     the eager calls compute, bit for bit, and counts its launch and its
     rollouts where it runs the Python code: the eager warm-up and the
@@ -133,7 +140,7 @@ def test_rollout_kernel_replays_its_eager_call(cuda):
     from fsrl_torch.data import collector
     from fsrl_torch.trainer.graphs import Dispatch
     env, algo, state, s0, stats, g = _setup("SafetyCarCircle-v0", cuda,
-                                            n=1000)
+                                            n=1000, hidden=hidden)
     rollout = collector.make_rollout_fn(env, algo.act_fn, 40,
                                         actor=algo.rollout_actor)
 
