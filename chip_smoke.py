@@ -2202,7 +2202,8 @@ def phase_k2_any_split(k2_any: dict) -> dict:
     timed as the whole form is, at the timed cases of ``K2_ANY_CASES``, with
     its share of the three launches' sum and the whole form's time beside
     it. Returns the launches' ms by the case's key."""
-    from fsrl_torch.ops.fused_ppo_grad import ANY_LAUNCHES, any_launches
+    from fsrl_torch.ops.fused_ppo_grad import (ANY_LAUNCHES, any_launches,
+                                               any_staging)
     out = {}
     for bf16 in (True, False):
         for D, H1, H2, A, K, B, timed in K2_ANY_CASES:
@@ -2214,11 +2215,12 @@ def phase_k2_any_split(k2_any: dict) -> dict:
             whole = k2_any[D, H1, H2, A, B, bf16]["ms"]
             tag = (f"K2 any split B={B} D={D} H={H1}x{H2} A={A} K={K} "
                    f"{'bf16' if bf16 else 'f32'}")
-            print(f"[{tag}] " + ", ".join(
-                f"{name} {t:.4f} ms ({100 * t / sum(ms):.1f}%)"
-                for name, t in zip(ANY_LAUNCHES, ms))
-                + f"; sum {sum(ms):.4f}, the whole form {whole:.4f} ms",
-                flush=True)
+            print(f"[{tag}] row kernel's slices "
+                  f"{any_staging(args[1], bf16)}: " + ", ".join(
+                      f"{name} {t:.4f} ms ({100 * t / sum(ms):.1f}%)"
+                      for name, t in zip(ANY_LAUNCHES, ms))
+                  + f"; sum {sum(ms):.4f}, the whole form {whole:.4f} ms",
+                  flush=True)
             out[D, H1, H2, A, B, bf16] = dict(zip(ANY_LAUNCHES, ms))
     return out
 
@@ -3933,6 +3935,7 @@ def main() -> int:
 #   python3 chip_smoke.py --k2-any-readings times <label>
 #   python3 chip_smoke.py --k2-any-readings bf16 <file> [--against]
 #   python3 chip_smoke.py --k2-any-readings host <label>
+#   python3 chip_smoke.py --k2-any-readings bits <file> [--against]
 # To read another tree (a git archive of a parent commit), copy this script
 # into its root under another name and run it there: it imports the
 # fsrl_torch beside it.
@@ -4074,6 +4077,43 @@ def reading_bf16(path: str, against: bool = False):
               f"{int(own.sum())}", flush=True)
 
 
+def reading_bits(path: str, against: bool = False):
+    """The f32 form's gradient and aux at (9, 256, 256, 2, 2, 32768), on
+    rows clear of the kinks and on natural rows (seeds 1 and 2, float64
+    retakes included), saved to ``path`` with the inputs' checksums; with
+    ``against``, this tree's held to the saved ones bit for bit (fails if
+    any differs)."""
+    import hashlib
+    import torch
+    from fsrl_torch.ops import fused_ppo_grad as fpg
+    kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=False)
+    out = {}
+    for name, k in (("clear", dict()), ("natural 1", dict(off_kinks=False,
+                                                           seed=1)),
+                    ("natural 2", dict(off_kinks=False, seed=2))):
+        args = _k2_inputs(2, False, 32768, 9, 2, hidden=(256, 256), **k)
+        digest = hashlib.sha256()
+        for x in args:
+            if torch.is_tensor(x):
+                digest.update(x.cpu().numpy().tobytes())
+        g, a = fpg.ppo_grad_rows(*args, **kw)
+        out[name] = (digest.hexdigest(), g.cpu(), a.cpu())
+    if not against:
+        torch.save(out, path)
+        print(f"[reading bits] saved {sorted(out)} to {path}", flush=True)
+        return
+    ref = torch.load(path)
+    for name, (digest, g, a) in out.items():
+        rd, rg, ra = ref[name]
+        same = torch.equal(g, rg) and torch.equal(a, ra)
+        print(f"[reading bits] {name}: inputs the same {digest == rd}; "
+              f"gradient and aux bit for bit the saved ones: {same} "
+              f"(largest difference {float((g - rg).abs().max()):.3e})",
+              flush=True)
+        if digest != rd or not same:
+            fail(f"the f32 form differs from the saved one ({name})")
+
+
 def reading_host(label: str):
     """One host a40 PPO-Lag update (78 minibatches of 256 rows, repeat 4:
     312 launches of the generic form) on one collected segment, bf16 then
@@ -4130,7 +4170,9 @@ if __name__ == "__main__":
             fail("no CUDA device")
         torch.backends.cuda.matmul.allow_tf32 = False
         mode, arg = sys.argv[2:4]
-        {"times": reading_times, "host": reading_host}.get(
-            mode, lambda a: reading_bf16(a, "--against" in sys.argv))(arg)
+        against = "--against" in sys.argv
+        {"times": reading_times, "host": reading_host,
+         "bits": lambda a: reading_bits(a, against)}.get(
+            mode, lambda a: reading_bf16(a, against))(arg)
         sys.exit(0)
     sys.exit(main())

@@ -41,8 +41,12 @@
 //      shared memory 64 (bf16) or 32 (f32) deep, the next slice's loads
 //      issued into registers before the current slice's products (f32: B
 //      split into its TF32 parts once, as it is stored, for the four warps
-//      that read it). The weights stream from L2
-//      slice by slice, so no width has to fit. The row block's h2 (64 x H2
+//      that read it). In the f32 instance of up to OSMALL actions, which
+//      the f32 training paths launch, stages B and D load and store their
+//      slices 16 bytes at a time (TileF32V): a quarter of the load and
+//      store instructions, whose issue, not the loads' latency, held each
+//      slice (16% off the row kernel at hidden (256, 256) on the H100).
+//      The weights stream from L2 slice by slice, so no width has to fit. The row block's h2 (64 x H2
 //      float32) stays in shared memory (dynamic, up to H2 776; in device
 //      memory above). h1, g_h2 and g_h1 go to device memory for the
 //      products over the rows, as bf16 in the bf16 form (the plain version
@@ -99,6 +103,7 @@
 // g_h2 are taken in float64.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -379,6 +384,63 @@ struct TileF32 {
   }
 };
 
+// TileF32 (COLS and STRIDE multiples of 4) loaded and stored 16 bytes at a
+// time: four neighbouring entries of a row a unit, from the source where
+// all four are there and the source's rows lie on 16 bytes, else one by
+// one as TileF32 takes them (the same entries, zeros where TileF32 has
+// zeros).
+template <int ROWS, int COLS, int STRIDE, bool SPLIT = false, int HALF = 0>
+struct TileF32V {
+  static constexpr int CU = COLS / 4, N = ROWS * CU / NT;
+  static_assert(COLS % 4 == 0 && STRIDE % 4 == 0 && HALF % 4 == 0 &&
+                    (ROWS * CU) % NT == 0,
+                "tile shape");
+  float4 v[N];
+  __device__ __forceinline__ void fetch(const float* src, long ld, long row0,
+                                        long nrows, long col0, long ncols) {
+    const float* base = src + row0 * ld + col0;
+    const long mr = nrows - row0, mc = ncols - col0;
+    const int nr = (int)(mr < ROWS ? mr : ROWS);
+    const int nc = (int)(mc < COLS ? mc : COLS);
+    const int ldi = (int)ld;
+    const bool vec =
+        (ldi & 3) == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = threadIdx.x + i * NT, r = e / CU, c = 4 * (e % CU);
+      const float* p = base + r * ldi + c;
+      if (vec && r < nr && c + 4 <= nc) {
+        v[i] = *reinterpret_cast<const float4*>(p);
+      } else {
+        const bool in = r < nr;
+        v[i] = make_float4(in && c < nc ? p[0] : 0.f,
+                           in && c + 1 < nc ? p[1] : 0.f,
+                           in && c + 2 < nc ? p[2] : 0.f,
+                           in && c + 3 < nc ? p[3] : 0.f);
+      }
+    }
+  }
+  __device__ __forceinline__ void put(float* tile) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = threadIdx.x + i * NT, r = e / CU, c = 4 * (e % CU);
+      float4* at = reinterpret_cast<float4*>(tile + r * STRIDE + c);
+      if constexpr (SPLIT) {
+        uint32_t h[4], l[4];
+        tf32::split(v[i].x, h[0], l[0]);
+        tf32::split(v[i].y, h[1], l[1]);
+        tf32::split(v[i].z, h[2], l[2]);
+        tf32::split(v[i].w, h[3], l[3]);
+        *reinterpret_cast<uint4*>(at) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(tile + HALF + r * STRIDE + c) =
+            make_uint4(l[0], l[1], l[2], l[3]);
+      } else {
+        *at = v[i];
+      }
+    }
+  }
+};
+
 // ------------------------------------------------------------ the products
 
 template <int NC, int TA, int TB>
@@ -449,11 +511,12 @@ __device__ __forceinline__ void slice_f32(float (&acc)[NC / 2],
 // n0 .. of N. A: rows row0 .. row0 + 63 (< nrows) of a row-major source of
 // a_cols columns (stride lda), depth Kd. B from a float32 weight w of row
 // stride ldw: K-major (B[k][n] = w[(n0 + n) ldw + k], a weight whose rows
-// are the outputs) or MN-major if BMN (B[k][n] = w[k ldw + n0 + n]).
+// are the outputs) or MN-major if BMN (B[k][n] = w[k ldw + n0 + n]). VEC
+// (f32): the slices loaded and stored 16 bytes at a time (TileF32V).
 //
 // Each slice: its tiles stored, a barrier, the next slice's loads issued,
 // the products, a barrier.
-template <bool BF, int NC, bool BMN, class SrcA>
+template <bool BF, int NC, bool BMN, class SrcA, bool VEC = false>
 __device__ void chunk_product(float (&acc)[NC / 2], uint8_t* tiles,
                               const SrcA* a, long lda, long row0, long nrows,
                               long a_cols, const float* w, long ldw, int n0,
@@ -484,8 +547,14 @@ __device__ void chunk_product(float (&acc)[NC / 2], uint8_t* tiles,
     constexpr int LO = Mode<false>::B_HALF;
     float* As = reinterpret_cast<float*>(tiles);
     float* Bs = reinterpret_cast<float*>(tiles + Mode<false>::A_BYTES);
-    TileF32<BR, KSF, FK> ta;
-    TileF32<BMN ? KSF : NC, BMN ? NC : KSF, BMN ? FB : FK, true, LO> tb;
+    using TA = std::conditional_t<VEC, TileF32V<BR, KSF, FK>,
+                                  TileF32<BR, KSF, FK>>;
+    using TB = std::conditional_t<
+        VEC,
+        TileF32V<BMN ? KSF : NC, BMN ? NC : KSF, BMN ? FB : FK, true, LO>,
+        TileF32<BMN ? KSF : NC, BMN ? NC : KSF, BMN ? FB : FK, true, LO>>;
+    TA ta;
+    TB tb;
     auto fetch = [&](int k0) {
       ta.fetch(a, lda, row0, nrows, k0, a_cols);
       if constexpr (BMN)
@@ -794,11 +863,13 @@ __device__ void stage_a(const Ctx<BF>& c, int n0) {
 // B: h2 = relu(h1 W2^T + b2) for columns n0 .., stored in float32 for stage
 // C; the chunk's terms of the heads added to the rows' head values (the
 // head bias with the first chunk), by lane 0 of the quad that holds the row.
-template <bool BF, int NC, bool HEADS>
+// VEC: chunk_product's.
+template <bool BF, int NC, bool HEADS, bool VEC = false>
 __device__ void stage_b(const Ctx<BF>& c, int n0) {
   float acc[NC / 2];
-  chunk_product<BF, NC, false>(acc, c.tiles, c.h1, c.ld1, c.r0, c.B, c.ld1,
-                               c.W2, c.H1, n0, c.H2, c.H1);
+  chunk_product<BF, NC, false, typename Ctx<BF>::T, VEC>(
+      acc, c.tiles, c.h1, c.ld1, c.r0, c.B, c.ld1, c.W2, c.H1, n0, c.H2,
+      c.H1);
 #pragma unroll
   for (int i = 0; i < NC / 2; ++i) {
     const int col = n0 + frag_col(i);
@@ -1068,11 +1139,12 @@ __device__ void stage_c_cols(const Ctx<BF>& c, int n0, double* pc,
 // D: g_h1 = (g_h2 W2) * (h1 > 0) for columns n0 .. (0 from H1 to ld1),
 // stored for the product kernel; its sums over the block's rows into the
 // partial (the warps' sums in shared memory, added in warp order).
-template <bool BF, int NC>
+template <bool BF, int NC, bool VEC = false>
 __device__ void stage_d(const Ctx<BF>& c, int n0) {
   float acc[NC / 2];
-  chunk_product<BF, NC, true>(acc, c.tiles, c.g2, c.ld2, c.r0, c.B, c.ld2,
-                              c.W2, c.H1, n0, c.H1, c.H2);
+  chunk_product<BF, NC, true, typename Ctx<BF>::T, VEC>(
+      acc, c.tiles, c.g2, c.ld2, c.r0, c.B, c.ld2, c.W2, c.H1, n0, c.H1,
+      c.H2);
   store_masked<NC>(acc, c.h1 + c.r0 * c.ld1, c.g1 + c.r0 * c.ld1, c.ld1, n0,
                    c.nr, c.H1, c.red, c.pd);
 }
@@ -1145,6 +1217,9 @@ template <bool BF, bool MANY>
 __global__ void __launch_bounds__(NT)
     row_kernel(const __grid_constant__ RowArgs p) {
   using T = typename Mode<BF>::T;
+  // f32 at up to OSMALL actions: the slices of stages B and D loaded and
+  // stored 16 bytes at a time (TileF32V)
+  constexpr bool VEC = !BF && !MANY;
   // the column sums' staging (red) and stage C's (gs, pc, pw) lie in
   // the tiles: each is used only where no product's tiles are live
   __shared__ __align__(128) uint8_t tiles[ROW_TILE_BYTES];
@@ -1243,7 +1318,7 @@ __global__ void __launch_bounds__(NT)
       if (many)
         stage_b<BF, NCR, false>(c, n0);
       else
-        stage_b<BF, NCR, true>(c, n0);
+        stage_b<BF, NCR, true, VEC>(c, n0);
     }
     __syncthreads();
     if (many) {
@@ -1294,7 +1369,7 @@ __global__ void __launch_bounds__(NT)
           head_grad_mma<BF, NCH>(c, m0, n0);
     }
     __syncthreads();
-    for (int n0 = 0; n0 < c.H1; n0 += NCR) stage_d<BF, NCR>(c, n0);
+    for (int n0 = 0; n0 < c.H1; n0 += NCR) stage_d<BF, NCR, VEC>(c, n0);
   }
 }
 

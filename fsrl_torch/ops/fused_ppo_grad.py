@@ -16,7 +16,9 @@ both layers, the heads, the row loss and the backward pass to g_h1 for a
 block of 64 rows, a kernel of the weight-gradient products over slices of
 the rows, and the fixed-order reduce), its products on ``wgmma`` (bf16) or
 as three TF32 ``mma.sync`` products (f32), counted apart
-(``fused_ppo_grad_any``, ``fused_ppo_grad_any_f32``).
+(``fused_ppo_grad_any``, ``fused_ppo_grad_any_f32``); how its row kernel
+stages the slices of its trunk products follows from the shape
+(:func:`any_staging`, counted in :data:`STAGINGS`).
 
 Replaces ``fsrl_tpu/ops/fused_ppo_grad.py::ppo_grad_minibatch``. The math is
 the Pallas kernel's (``fused_ppo_grad.py:68-165``):
@@ -43,6 +45,7 @@ gradient at the clip bounds).
 
 from __future__ import annotations
 
+import collections
 import math
 from dataclasses import dataclass
 
@@ -57,6 +60,8 @@ KERNEL_A_MAX = 32    # the tuned f32 kernel's shared memory: 200 KB of
                      # float32 tiles, and 580 bytes an action of head weights
                      # and sums, fill a block's 232,448 bytes at A 32, K 6
 KERNEL_M_MAX = 5     # the aux row holds 3 + M sums in 8 slots
+ANY_OSMALL = 8       # the generic form's row kernel has an instance of its
+                     # own above 8 actions (OSMALL in fused_ppo_grad_any.cu)
 
 
 @dataclass(frozen=True)
@@ -128,6 +133,24 @@ def launch_name(layout: GradLayout, bf16: bool) -> str:
     name = "fused_ppo_grad" + ("" if kernel_form(layout) == "tuned"
                                else "_any")
     return name if bf16 else name + "_f32"
+
+
+# Launches of the generic form's row kernel by how it stages the slices of
+# its trunk products (:func:`any_staging`), counted where
+# ``kernels.LAUNCHES`` is.
+STAGINGS: collections.Counter = collections.Counter()
+
+
+def any_staging(layout: GradLayout, bf16: bool) -> str:
+    """How the generic form's row kernel stages the operand slices of its
+    trunk products h1 W2^T and g_h2 W2 (stages B and D): "vector" in f32 at
+    up to :data:`ANY_OSMALL` actions (the instance the main f32 paths
+    launch: each thread loads its share of a slice 16 bytes at a time and
+    stores it so, W2's split into its TF32 parts on the way), "scalar"
+    elsewhere (bf16, and f32 above 8 actions: 4 bytes a load). Both give
+    the same bits."""
+    return ("vector" if not bf16 and layout.A <= ANY_OSMALL
+            else "scalar")
 
 
 def tile_offset(r: int, c: int, n_col_groups: int) -> int:
@@ -367,6 +390,8 @@ def _launch(flat, layout: GradLayout, obs, act, logp_old, adv, ret, lam,
                 int(bf16), n_scratch, *tail)
     kernels.check(rc, "fused PPO grad kernel")
     kernels.LAUNCHES[launch_name(layout, bf16)] += 1
+    if kernel_form(layout) == "any":
+        STAGINGS[any_staging(layout, bf16)] += 1
     return grad, aux
 
 

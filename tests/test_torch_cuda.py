@@ -257,6 +257,29 @@ def test_fused_grad_any_f32_kernel_on_natural_rows(cuda, seed):
     _check_natural_rows(cuda, seed, hidden=(256, 256), form="any")
 
 
+@pytest.mark.parametrize("hidden", [(256, 256), (320, 192)])
+def test_fused_grad_any_f32_vector_staging_repeats(cuda, hidden):
+    """The generic form's f32 row kernel at up to 8 actions loads and
+    stores the slices of its trunk products 16 bytes at a time (the
+    "vector" staging), at hidden (256, 256) and at unequal widths. At 4096
+    rows as drawn, ReLU kinks and their float64 retakes included: counted
+    as ``fused_ppo_grad_any_f32`` and as the "vector" staging, two launches
+    bit for bit."""
+    from fsrl_torch.ops import fused_ppo_grad as fpg
+    args = _grad_case(cuda, 4096, 9, 2, 2, bf16=False, off_kinks=False,
+                      hidden=hidden)
+    kw = dict(eps_clip=0.2, vf_coef=0.25, bf16=False)
+    assert fpg.launch_name(args[1], False) == "fused_ppo_grad_any_f32"
+    assert fpg.any_staging(args[1], False) == "vector"
+    before = kernels.LAUNCHES["fused_ppo_grad_any_f32"]
+    staged = fpg.STAGINGS["vector"]
+    gk, ak = fpg.ppo_grad_rows(*args, **kw)
+    g2, a2 = fpg.ppo_grad_rows(*args, **kw)
+    assert kernels.LAUNCHES["fused_ppo_grad_any_f32"] == before + 2
+    assert fpg.STAGINGS["vector"] == staged + 2
+    assert torch.equal(gk, g2) and torch.equal(ak, a2)
+
+
 def _check_natural_rows(cuda, seed, hidden=(128, 128), form="tuned"):
     from fsrl_torch.ops.fused_ppo_grad import (kernel_form, ppo_grad_plain,
                                                ppo_grad_rows)

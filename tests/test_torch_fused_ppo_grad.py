@@ -339,3 +339,31 @@ def test_three_tf32_products_hold_float32_accuracy():
     assert err3 <= 2e-6, err3
     assert err1 > 1e-5, err1
     torch.testing.assert_close(aux3, ref_aux, rtol=1e-5, atol=1e-6)
+
+
+# the generic form's card-test shapes (tests/test_torch_cuda.py ANY_SHAPES)
+# as (D, H1, H2, A, K), and how its row kernel stages their trunk products'
+# slices in f32: 16 bytes at a time in the instance of up to 8 actions
+ANY_STAGING_F32 = [((9, 256, 256, 2, 2), "vector"),
+                   ((9, 64, 64, 2, 2), "vector"),
+                   ((9, 128, 128, 33, 2), "scalar"),
+                   ((348, 128, 128, 40, 2), "scalar"),
+                   ((21, 256, 128, 3, 3), "vector"),
+                   ((17, 32, 48, 33, 6), "scalar"),
+                   ((1, 16, 16, 1, 1), "vector"),
+                   ((105, 512, 512, 8, 2), "vector")]
+
+
+@pytest.mark.parametrize("dims,form", ANY_STAGING_F32)
+def test_any_staging_follows_the_shape(dims, form):
+    """The generic form's staging (``any_staging``, counted in
+    ``STAGINGS``) is a function of the layout: "vector" for f32 up to 8
+    actions, the row kernel instance the f32 main paths launch, "scalar"
+    for f32 above 8 actions and for every bf16 layout."""
+    from fsrl_torch.ops.fused_ppo_grad import (GradLayout, any_staging,
+                                               kernel_form)
+    D, H1, H2, A, K = dims
+    layout = GradLayout(D, H1, A, K, H2)
+    assert kernel_form(layout) == "any"
+    assert any_staging(layout, False) == form
+    assert any_staging(layout, True) == "scalar"
